@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: build the kernels, hold
 each against its plain version, serve llama3.2-3b through the ``Engine``,
-and compare the card with the CPU at depth 2.
+train it with AdaPT-SGD through ``train_loop.train``, and compare the card
+with the CPU at depth 2 for both.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit; require compute capability 9.0;
   2. build: nvcc the CUDA sources of ``src/repro_torch/csrc`` (in parallel);
-  3. kernels: ``fxp_matmul`` at every shape of the serving path (prefill and
-     decode M) plus ragged shapes, ``flash_attention`` at the prefill shape
-     plus ragged / window+softcap / no-key-rows cases and lse, each against
-     its plain version on the same inputs; times of the kernel, the plain
-     version, one PyTorch call (``library_ms``, a yardstick only) and the
-     bound;
-  4. main path: llama3.2-3b at full config (28 layers, random TNVS weights
-     from a seed, int8 words at FL 10), ``Engine.generate`` on 4 prompts of
-     128 tokens, 32 new tokens, greedy; launch counts per forward;
-  5. card against CPU: the same model at depth 2, same weights, plain
-     versions on the CPU against the kernels on the card.
+  3. kernels, each against its plain version on the same inputs, with the
+     times of the kernel, the plain version, one PyTorch call
+     (``library_ms``, a yardstick only) and the bound: ``fxp_matmul`` at
+     every shape of the serving and training paths plus ragged shapes;
+     ``flash_attention`` at the prefill and training shapes plus ragged /
+     window+softcap / no-key-rows cases and lse; ``matmul_dx`` and
+     ``matmul_dw`` at every training shape (M = 2048) plus ragged shapes in
+     bf16 and f32; ``flash_attention_dq``/``_dkv`` at (4, 512, 24/8, 128)
+     causal plus the contract's other cases;
+  4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
+     weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
+     prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward;
+  5. serving, card against CPU: the same model at depth 2, same weights,
+     plain versions on the CPU against the kernels on the card;
+  6. training main path: full llama3.2-3b, RTN words at FL 10, 3 steps of
+     4 x 512 tokens (no precision switch), per-step ms, tokens/s, loss,
+     grad_norm and exact launch counts, peak memory; one more step under
+     the profiler: device busy share, time by kernel, and no library GEMM;
+  7. training, card against CPU: one step at depth 2, batch 2 x 64.
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -54,8 +63,25 @@ LAYER_SHAPES = {                       # (K, N): launches per layer
 }
 HEAD_SHAPE = (D_MODEL, VOCAB)
 BATCH, PROMPT, NEW = 4, 128, 32
+TRAIN_B, TRAIN_S = 4, 512              # training batch: 4 sequences of 512
+TRAIN_M = TRAIN_B * TRAIN_S
 OVERRIDES = ["quant.container_dtype=int8_packed", "quant.use_pallas=true",
              "quant.init_fl=10"]
+# Training: round-to-nearest words (the SR words are slice 3), no remat and
+# no gradient accumulation (not ported), 4 sequences of 512 tokens.
+TRAIN_OVERRIDES = OVERRIDES + [
+    "quant.stochastic_rounding=false", "train.remat=none",
+    "train.accum_steps=1", f"train.global_batch={TRAIN_B}",
+    f"train.seq_len={TRAIN_S}", "train.log_every=1"]
+TRAIN_STEPS = 3
+# Per training step: every dense layer and the head run fwd, dx and dw;
+# every layer runs the flash forward, dq and dkv.
+PER_STEP = {"fxp_matmul": 7 * N_LAYERS + 1, "matmul_dx": 7 * N_LAYERS + 1,
+            "matmul_dw": 7 * N_LAYERS + 1, "flash_attention": N_LAYERS,
+            "flash_attention_dq": N_LAYERS, "flash_attention_dkv": N_LAYERS}
+# PyTorch ops that would run a library GEMM: none may appear in a step.
+LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+                 "aten::matmul", "aten::linear", "aten::einsum"}
 
 
 def log(msg: str) -> None:
@@ -95,16 +121,19 @@ def bound(nbytes: float, flops: float):
 
 
 def check_fxp_matmul(torch, fm, gen):
-    """Every (M, K, N) of the serving path, plus ragged shapes on both of
-    the kernel's paths. Tolerance: the kernel and the plain version sum the
-    same exact f32 products in different orders, so a bf16 output may round
-    to the neighbouring value: |kernel − plain| <= one bf16 ulp at |plain|
+    """Every (M, K, N) of the serving path and of the training path
+    (M = batch·seq), plus ragged shapes on both of the kernel's paths.
+    Tolerance: the kernel and the plain version sum the same exact f32
+    products in different orders, so a bf16 output may round to the
+    neighbouring value: |kernel − plain| <= one bf16 ulp at |plain|
     + 2^-16·max|plain|."""
     dev = "cuda"
     scale = torch.tensor(2.0 ** -10, dtype=torch.bfloat16, device=dev)
     prefill_m, decode_m = BATCH * PROMPT, BATCH
-    cases = [(m, k, n) for (k, n) in LAYER_SHAPES for m in (prefill_m, decode_m)]
+    cases = [(m, k, n) for (k, n) in LAYER_SHAPES
+             for m in (prefill_m, decode_m, TRAIN_M)]
     cases += [(decode_m, *HEAD_SHAPE), (prefill_m, *HEAD_SHAPE),
+              (TRAIN_M, *HEAD_SHAPE),
               (37, 3071, 1025), (3, 3071, 1025), (16, 100, 36), (17, 129, 257)]
     rows, max_err = [], 0.0
     for (m, k, n) in cases:
@@ -125,7 +154,7 @@ def check_fxp_matmul(torch, fm, gen):
         max_err = max(max_err, err.max().item())
         row = {"m": m, "k": k, "n": n, "max_abs_err": err.max().item()}
         if timed:
-            reps = 20 if k * n * max(m, 64) < 4e10 else 5
+            reps = 20 if k * n * max(m, 64) < 4e10 else 3
             row["ms"] = cuda_time_ms(
                 [lambda x=x, w=w: fm.fxp_matmul(x, w, scale)
                  for x, w in zip(xs, ws)], reps)
@@ -166,6 +195,8 @@ def check_flash(torch, fa, gen):
         # name, B, Sq, Skv, H, Hkv, D, dtype, causal, window, softcap
         ("prefill", BATCH, PROMPT, PROMPT, HEADS, KV_HEADS, HEAD_DIM,
          torch.bfloat16, True, 0, 0.0),
+        ("train", TRAIN_B, TRAIN_S, TRAIN_S, HEADS, KV_HEADS, HEAD_DIM,
+         torch.bfloat16, True, 0, 0.0),
         ("sq<skv", 2, 77, 200, HEADS, KV_HEADS, HEAD_DIM, torch.bfloat16,
          True, 0, 0.0),
         ("window+softcap", 2, 150, 150, 8, 2, 64, torch.float32, True, 37, 30.0),
@@ -197,7 +228,7 @@ def check_flash(torch, fa, gen):
         max_err = max(max_err, err.max().item())
         row = {"case": name, "shape": [B, Sq, Skv, H, Hkv, D],
                "max_abs_err": err.max().item(), "lse_err": lerr}
-        if name == "prefill":
+        if name in ("prefill", "train"):
             row["ms"] = cuda_time_ms([lambda: fa.flash_attention(q, k, v, **kw)], 50)
             row["plain_ms"] = cuda_time_ms([lambda: fa.plain(q, k, v, **kw)], 10)
             # SDPA on (B, H, S, D) with the kv heads repeated beforehand
@@ -215,6 +246,193 @@ def check_flash(torch, fa, gen):
         log(f"[kernels] flash_attention {name} {row['shape']}: " + ", ".join(
             f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
             for key, val in row.items() if key not in ("case", "shape")))
+    return rows, max_err
+
+
+def close_bf16(got, want, extra: float):
+    """|got − want| <= one bf16 ulp at |want| + extra·max|want| (the two
+    sum exact f32 products in different orders, so a bf16 output may round
+    to the neighbouring value); returns (ok, max abs error)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = bf16_ulp(w) + extra * w.abs().max()
+    return bool((err <= tol).all()) and bool(torch.isfinite(g).all()), \
+        err.max().item()
+
+
+def check_matmul_bwd(torch, fm, gen):
+    """``matmul_dx`` and ``matmul_dw`` at every (K, N) of the training path
+    with M = batch·seq, plus ragged shapes in bf16 and f32, each against
+    its plain version. Tolerance: bf16 outputs within one bf16 ulp +
+    2^-16·max|plain| (summation order); f32 outputs within 1e-5·max|plain|.
+    Times: the kernel, the plain version, one ``torch.matmul`` of the same
+    product (dx: dy @ the dequantized bf16 wqᵀ; dw: xᵀ @ dy) and the bound."""
+    dev = "cuda"
+    scale = torch.tensor(2.0 ** -10, dtype=torch.bfloat16, device=dev)
+    m = TRAIN_M
+    cases = [(m, k, n) for (k, n) in LAYER_SHAPES] + [(m, *HEAD_SHAPE)]
+    cases += [(37, 3071, 1025), (130, 257, 129), (7, 67, 33), (2050, 100, 8)]
+    rows = {"matmul_dx": [], "matmul_dw": []}
+    max_err = {"matmul_dx": 0.0, "matmul_dw": 0.0}
+    for (m, k, n) in cases:
+        timed = m == TRAIN_M
+        size = 2 * m * n + 2 * m * k + k * n
+        copies = max(1, min(4, math.ceil(128e6 / size))) if timed else 1
+        dys = [torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(copies)]
+        xs = [torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(copies)]
+        ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(copies)]
+        dx = fm.matmul_dx(dys[0], ws[0], scale, out_dtype=torch.bfloat16)
+        dw = fm.matmul_dw(xs[0], dys[0], out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        ok_x, ex = close_bf16(dx, fm.plain_dx(dys[0], ws[0], scale), 2.0 ** -16)
+        ok_w, ew = close_bf16(dw, fm.plain_dw(xs[0], dys[0]), 2.0 ** -16)
+        if not (ok_x and ok_w):
+            raise AssertionError(f"matmul_dx/dw ({m},{k},{n}): max err {ex}/{ew}")
+        max_err["matmul_dx"] = max(max_err["matmul_dx"], ex)
+        max_err["matmul_dw"] = max(max_err["matmul_dw"], ew)
+        if not timed:
+            # the f32 instantiations on the same values
+            d32, x32, s32 = dys[0].float(), xs[0].float(), scale.float()
+            for name, got, want in (
+                    ("dx", fm.matmul_dx(d32, ws[0], s32, out_dtype=torch.float32),
+                     fm.plain_dx(d32, ws[0], s32)),
+                    ("dx bf16->f32", fm.matmul_dx(dys[0], ws[0], scale,
+                                                  out_dtype=torch.float32),
+                     fm.plain_dx(d32, ws[0], s32)),
+                    ("dw", fm.matmul_dw(x32, d32), fm.plain_dw(x32, d32)),
+                    ("dw bf16->f32", fm.matmul_dw(xs[0], dys[0]),
+                     fm.plain_dw(x32, d32))):
+                e32 = (got - want).abs().max().item()
+                if got.dtype != torch.float32 or \
+                        e32 > 1e-5 * want.abs().max().item():
+                    raise AssertionError(f"matmul_{name} f32 ({m},{k},{n}): {e32}")
+            log(f"[kernels] matmul_dx/dw {m}x{k}x{n} (ragged): max err "
+                f"{ex:.4g}/{ew:.4g}")
+            continue
+        reps = 10 if k * n < 1e8 else 3
+        wds = [(w.to(torch.bfloat16) * scale) for w in ws]
+        flops = 2.0 * m * k * n
+        for name, kern, plain, lib, nbytes in (
+                ("matmul_dx",
+                 [lambda d=d, w=w: fm.matmul_dx(d, w, scale) for d, w in zip(dys, ws)],
+                 [lambda d=d, w=w: fm.plain_dx(d, w, scale) for d, w in zip(dys, ws)],
+                 [lambda d=d, w=w: torch.matmul(d, w.T) for d, w in zip(dys, wds)],
+                 2 * m * n + k * n + 2 * m * k + 2),
+                ("matmul_dw",
+                 [lambda x=x, d=d: fm.matmul_dw(x, d, out_dtype=torch.bfloat16)
+                  for x, d in zip(xs, dys)],
+                 [lambda x=x, d=d: fm.plain_dw(x, d) for x, d in zip(xs, dys)],
+                 [lambda x=x, d=d: torch.matmul(x.T, d) for x, d in zip(xs, dys)],
+                 2 * m * k + 2 * m * n + 2 * k * n)):
+            row = {"m": m, "k": k, "n": n,
+                   "max_abs_err": ex if name == "matmul_dx" else ew,
+                   "ms": cuda_time_ms(kern, reps),
+                   "plain_ms": cuda_time_ms(plain, max(2, reps // 3)),
+                   "library_ms": cuda_time_ms(lib, reps)}
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+            rows[name].append(row)
+            log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
+                f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
+                for key, val in row.items() if key not in ("m", "k", "n")))
+        del wds
+        del dys, xs, ws, dx, dw
+    torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def check_flash_bwd(torch, fa, gen):
+    """``flash_attention_dq``/``_dkv`` (through ``flash_attention_bwd``) at
+    the training shape and the contract's other cases, against the plain
+    backward on the same (q, k, v, o, lse, do). Tolerance: both compute in
+    f32 from the same inputs; bf16 outputs within one bf16 ulp +
+    1e-4·max|plain|, f32 outputs within 1e-4·max|plain|. A row that no key
+    reaches must give dq = 0. Times: each kernel, its plain version
+    (``plain_dq``, ``plain_dkv``) and its bound; SDPA's backward (kv heads
+    repeated beforehand) computes dq, dk and dv in one call, so its time
+    stands once, on the dq row, marked as covering both kernels."""
+    dev = "cuda"
+    cases = [
+        # name, B, Sq, Skv, H, Hkv, D, dtype, causal, window, softcap
+        ("train", TRAIN_B, TRAIN_S, TRAIN_S, HEADS, KV_HEADS, HEAD_DIM,
+         torch.bfloat16, True, 0, 0.0),
+        ("sq<skv", 2, 77, 200, HEADS, KV_HEADS, HEAD_DIM, torch.bfloat16,
+         True, 0, 0.0),
+        ("window+softcap", 2, 150, 150, 8, 2, 64, torch.float32, True, 37, 30.0),
+        ("no-key rows", 2, 100, 60, 6, 3, 128, torch.float32, True, 0, 0.0),
+        ("non-causal ragged", 1, 45, 45, 4, 4, 96, torch.float32, False, 0, 0.0),
+        ("window no-key", 1, 40, 21, 4, 2, 32, torch.float32, True, 5, 2.0),
+    ]
+    rows = {"flash_attention_dq": [], "flash_attention_dkv": []}
+    max_err = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    for name, B, Sq, Skv, H, Hkv, D, dt, causal, window, softcap in cases:
+        q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dt)
+        do = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = fa.plain_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for g, w in zip(got, want):
+            if dt == torch.bfloat16:
+                ok, e = close_bf16(g, w, 1e-4)
+            else:
+                e = (g - w).abs().max().item()
+                ok = e <= 1e-4 * w.abs().max().item() and \
+                    bool(torch.isfinite(g).all())
+            if not ok or g.dtype != dt:
+                raise AssertionError(f"flash backward {name}: max errs {errs + [e]}")
+            errs.append(e)
+        dead = (torch.arange(Sq, device=dev) + (Skv - Sq) < 0) if causal else None
+        if dead is not None and bool(dead.any()) and \
+                not bool((got[0][:, dead] == 0).all()):
+            raise AssertionError(f"flash backward {name}: dq of rows with no key")
+        kerr = {"flash_attention_dq": errs[0],
+                "flash_attention_dkv": max(errs[1], errs[2])}
+        for kname, e in kerr.items():
+            max_err[kname] = max(max_err[kname], e)
+        log(f"[kernels] flash backward {name} {[B, Sq, Skv, H, Hkv, D]}: max err "
+            f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}")
+        if name != "train":
+            continue
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+        rep = H // Hkv
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+                      (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = cuda_time_ms([lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True)], 20)
+        pairs = B * H * Sq * (Sq + 1) // 2             # causal, Sq == Skv
+        ins = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * B * H * Sq
+        args = (q, k, v, do, lse, delta)
+        for kname, fn, plain, flops, outs, lib in (
+                ("flash_attention_dq", fa.flash_attention_dq, fa.plain_dq,
+                 6.0 * D * pairs, 2 * q.numel(),
+                 {"library_ms": library_ms,
+                  "library_covers": "flash_attention_dq+flash_attention_dkv"}),
+                ("flash_attention_dkv", fa.flash_attention_dkv, fa.plain_dkv,
+                 8.0 * D * pairs, 2 * (k.numel() + v.numel()),
+                 {"library_ms": None,
+                  "library_covers": "see flash_attention_dq"})):
+            row = {"case": name, "shape": [B, Sq, Skv, H, Hkv, D],
+                   "max_abs_err": kerr[kname],
+                   "ms": cuda_time_ms([lambda: fn(*args, **kw)], 20),
+                   "plain_ms": cuda_time_ms([lambda: plain(*args, **kw)], 5),
+                   **lib}
+            row["bound_ms"], row["bound_by"] = bound(ins + outs, flops)
+            rows[kname].append(row)
+            log(f"[kernels] {kname} {row['shape']}: " + ", ".join(
+                f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
+                for key, val in row.items() if key not in ("case", "shape")))
+        del qt, kt, vt, out, args
+    torch.cuda.empty_cache()
     return rows, max_err
 
 
@@ -347,7 +565,8 @@ def device_breakdown(torch, fn):
             continue
         n += 1
         name = e.name
-        for key in ("fxp_matmul", "flash_fwd", "Memset", "Memcpy"):
+        for key in ("fxp_matmul", "flash_fwd", "matmul_dx", "matmul_dw",
+                    "flash_dq", "flash_dkv", "Memset", "Memcpy"):
             if key in name:
                 name = key
                 break
@@ -355,9 +574,11 @@ def device_breakdown(torch, fn):
             name = name[:48]
         groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(groups.values())
-    top = dict(sorted(groups.items(), key=lambda kv: -kv[1])[:10])
+    top = dict(sorted(groups.items(), key=lambda kv: -kv[1])[:12])
+    gemms = sorted({e.key for e in prof.key_averages() if e.key in LIBRARY_GEMMS})
     return {"wall_ms": wall_ms, "device_events": n, "busy_ms": busy,
-            "busy_share": busy / wall_ms if n else None, "groups_ms": top}
+            "busy_share": busy / wall_ms if n else None, "groups_ms": top,
+            "library_gemm_ops": gemms}
 
 
 def profile_steps(torch, eng, prompts):
@@ -461,6 +682,169 @@ def card_vs_cpu(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: training
+
+
+def wrappers(fm, fa):
+    """Each kernel's wrapper (its launch counter), by kernel name."""
+    return {"fxp_matmul": fm.fxp_matmul, "matmul_dx": fm.matmul_dx,
+            "matmul_dw": fm.matmul_dw, "flash_attention": fa.flash_attention,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv}
+
+
+def train_path(torch, fm, fa):
+    """llama3.2-3b at full width and depth, random TNVS weights from a
+    seed: ``train_loop.train`` takes 3 AdaPT-SGD steps (one cold, two warm;
+    no precision switch is reached), with the launch counts of every step;
+    then one more step under the profiler."""
+    from repro_torch.config import load_config
+    from repro_torch.train import train_loop
+
+    cfg = load_config("llama3.2-3b", overrides=TRAIN_OVERRIDES)
+    m = cfg.model
+    assert (m.num_layers, m.d_model, m.num_heads, m.num_kv_heads, m.d_ff,
+            m.vocab_size) == (N_LAYERS, D_MODEL, HEADS, KV_HEADS, D_FF, VOCAB)
+    interval = cfg.train.adapt_interval or cfg.quant.lb_lwr
+    assert TRAIN_STEPS + 1 < interval, "the run must not reach a switch"
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[train] init llama3.2-3b master + controller state: "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    ws = wrappers(fm, fa)
+    marks = []
+
+    def log_step(line):
+        marks.append({k: w.launches for k, w in ws.items()})
+        log(f"[train] {line}")
+
+    torch.cuda.reset_peak_memory_stats()
+    for w in ws.values():
+        w.launches = 0
+    state, history = train_loop.train(cfg, steps=TRAIN_STEPS, state=state,
+                                      log=log_step, device="cuda")
+    launches = {k: w.launches for k, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(history) != TRAIN_STEPS or len(marks) != TRAIN_STEPS:
+        raise AssertionError(f"train history {history}")
+    prev = {k: 0 for k in ws}
+    tokens = TRAIN_B * TRAIN_S
+    steps = []
+    for h, mark in zip(history, marks):
+        per = {k: mark[k] - prev[k] for k in ws}
+        prev = mark
+        if per != PER_STEP:
+            raise AssertionError(f"step {h['step']}: launches {per} != {PER_STEP}")
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                and h["grad_norm"] > 0):
+            raise AssertionError(f"step {h['step']}: {h}")
+        steps.append({"step": h["step"], "ms": h["dt"] * 1e3,
+                      "tokens_per_s": tokens / h["dt"], "loss": h["loss"],
+                      "grad_norm": h["grad_norm"], "lr": h["lr"]})
+        log(f"[train] step {h['step']}: {h['dt'] * 1e3:.1f} ms, "
+            f"{tokens / h['dt']:.0f} tokens/s, loss {h['loss']:.4f}, "
+            f"grad_norm {h['grad_norm']:.4f}")
+    log(f"[train] peak device memory {peak:.2f} GiB, launches {launches}")
+
+    step_fn = train_loop.make_train_step(cfg)
+    batch = train_loop.make_batch(cfg, TRAIN_STEPS, device="cuda")
+    box = {"state": state}
+
+    def one_step():
+        box["state"], box["metrics"] = step_fn(box["state"], batch)
+
+    prof = device_breakdown(torch, one_step)
+    if prof["library_gemm_ops"]:
+        raise AssertionError(f"library GEMMs in the train step: "
+                             f"{prof['library_gemm_ops']}")
+    if not math.isfinite(float(box["metrics"]["loss"])):
+        raise AssertionError("profiled step: loss not finite")
+    log(f"[profile] train step: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms (share {prof['busy_share']:.3f}); no "
+        "library GEMM; by kernel: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in prof["groups_ms"].items()))
+    del state, box, step_fn, batch
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches, "peak_gib": peak,
+            "profile": prof}
+
+
+def flat_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def train_card_vs_cpu(torch):
+    """One train step at depth 2, full width, batch 2 x 64: the same state
+    (drawn on the card, copied to the CPU) and batch, kernels on the card
+    and plain versions on the CPU; once as configured and once with
+    activation quantization off. Both sides round after every op and only
+    sum in other orders, so loss is held to rtol 2e-3, grad_norm to 2e-2
+    and every leaf's update to 2e-2 normwise, the CPU tests' bounds for a
+    first step from the same params. One exception, with activation
+    quantization on only: the int8 activation words turn a one-ulp flip
+    before the last slot's quantization into a whole quantization step,
+    which the final norm and the head see first and directly, so those
+    two leaves are held to 5e-2."""
+    from repro_torch.config import load_config
+    from repro_torch.train import train_loop
+
+    res = {}
+    for name, extra, loose in (("act_quant_on", [], ("final_norm", "head")),
+                               ("act_quant_off",
+                                ["quant.quantize_activations=false"], ())):
+        cfg = load_config("llama3.2-3b", overrides=TRAIN_OVERRIDES + [
+            "model.num_layers=2", "train.global_batch=2", "train.seq_len=64"]
+            + extra)
+        gpu = train_loop.init_state(cfg, SEED + 3, device="cuda")
+        cpu = to_device(gpu, "cpu")
+        p0 = flat_paths(to_device(gpu["params"], "cpu"))
+        batch = train_loop.make_batch(cfg, 0, device="cpu")
+        step = train_loop.make_train_step(cfg)
+        t0 = time.perf_counter()
+        cpu, cm = step(cpu, batch)
+        bounds = {path: 5e-2 if path in loose else 2e-2 for path in p0}
+        r = {"cpu_s": time.perf_counter() - t0, "bounds": bounds}
+        gpu, gm = step(gpu, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        for k, rtol in (("loss", 2e-3), ("grad_norm", 2e-2)):
+            c, g = float(cm[k]), float(gm[k])
+            r[k] = {"cpu": c, "card": g}
+            if not abs(c - g) <= rtol * abs(c):
+                raise AssertionError(f"depth-2 train step ({name}) {k}: "
+                                     f"cpu {c} card {g}")
+        gp = flat_paths(gpu["params"])
+        r["update_rel"] = {}
+        for path, c in flat_paths(cpu["params"]).items():
+            dc = c - p0[path]
+            dg = gp[path].cpu() - p0[path]
+            r["update_rel"][path] = float(torch.linalg.vector_norm(dg - dc)
+                                          / torch.linalg.vector_norm(dc))
+        rel = r["update_rel"]
+        tight = [p for p in rel if p not in loose]
+        worst = max(tight, key=rel.get)
+        log(f"[depth2] train step card vs CPU ({name}): loss {r['loss']}, "
+            f"grad_norm {r['grad_norm']}, worst leaf update {rel[worst]:.4f} "
+            f"normwise ({worst}, bound 2e-2)"
+            + "".join(f", {p} {rel[p]:.4f} (bound 5e-2)" for p in loose)
+            + f"; CPU step {r['cpu_s']:.1f} s")
+        over = {p: e for p, e in rel.items() if not e <= bounds[p]}
+        if over:
+            raise AssertionError(f"depth-2 train step ({name}): updates "
+                                 f"over their bound: {over}")
+        res[name] = r
+        del gpu, cpu, p0
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -488,7 +872,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = _build.build(["fxp_matmul", "flash_attention"])
+    reports = _build.build(["fxp_matmul", "flash_attention", "fxp_matmul_bwd",
+                            "flash_attention_bwd"])
     log(f"[build] {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
@@ -499,51 +884,28 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     fxp_rows, fxp_err = check_fxp_matmul(torch, fm, gen)
     flash_rows, flash_err = check_flash(torch, fa, gen)
+    bwd_rows, bwd_err = check_matmul_bwd(torch, fm, gen)
+    fbwd_rows, fbwd_err = check_flash_bwd(torch, fa, gen)
     torch.cuda.empty_cache()
 
-    # 4. main path
+    # 4. serving main path; 5. serving, card against CPU
     main_res = main_path(torch, fm, fa)
-
-    # 5. card against CPU
     depth2 = card_vs_cpu(torch)
 
-    # Kernel record: each number sums the kernel's launches in the main
-    # path: the prefill's 196 layer calls at M = 512 and its head call at
-    # M = 4, then 31 decode steps of 197 calls at M = 4.
-    by_shape = {(r["m"], r["k"], r["n"]): r for r in fxp_rows if "ms" in r}
-    calls = {}
-    for (k, n), per_layer in LAYER_SHAPES.items():
-        calls[(BATCH * PROMPT, k, n)] = per_layer * N_LAYERS
-        calls[(BATCH, k, n)] = per_layer * N_LAYERS * (NEW - 1)
-    calls[(BATCH, *HEAD_SHAPE)] = NEW
-    fxp_sum = {key: sum(by_shape[s][key] * c for s, c in calls.items())
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    bytes_part = sum(by_shape[s]["bound_ms"] * c for s, c in calls.items()
-                     if by_shape[s]["bound_by"] == "bytes")
-    pf = next(r for r in flash_rows if r["case"] == "prefill")
-    kernels = [
-        {"name": "fxp_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/fxp_matmul.cu",
-         "replaces": "src/repro/kernels/fxp_matmul.py:84",
-         "launches": main_res["launches"]["fxp_matmul"],
-         "max_abs_err": fxp_err, **fxp_sum,
-         "bound_by": "bytes" if bytes_part >= fxp_sum["bound_ms"] / 2
-         else "operations"},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:82",
-         "launches": main_res["launches"]["flash_attention"],
-         "max_abs_err": flash_err,
-         **{key: pf[key] * N_LAYERS
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-         "bound_by": pf["bound_by"]},
-    ]
+    # 6. training main path; 7. training, card against CPU
+    train_res = train_path(torch, fm, fa)
+    train_depth2 = train_card_vs_cpu(torch)
+
+    kernels = kernel_record(main_res, train_res, fxp_rows, fxp_err, flash_rows,
+                            flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "fxp_matmul": fxp_rows, "flash_attention": flash_rows,
-        "main_path": main_res, "depth2": depth2, "kernels": kernels,
+        "matmul_bwd": bwd_rows, "flash_bwd": fbwd_rows,
+        "main_path": main_res, "depth2": depth2, "train": train_res,
+        "train_depth2": train_depth2, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -551,6 +913,74 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_record(main_res, train_res, fxp_rows, fxp_err, flash_rows,
+                  flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err):
+    """One entry per kernel. Every time sums the kernel's launches in the
+    two main paths from the per-shape times of phase 3: serving (the
+    prefill's 196 layer calls at M = 512 and its head call at M = 4, then
+    31 decode steps of 197 calls at M = 4; 28 flash launches) and the
+    3 training steps (per step 197 fwd, dx and dw calls at M = 2048; 28
+    flash forward, dq and dkv launches)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+
+    def summed(rows_by_shape, calls):
+        out = {key: None if any(rows_by_shape[s][key] is None for s in calls)
+               else sum(rows_by_shape[s][key] * c for s, c in calls.items())
+               for key in keys}
+        bytes_part = sum(rows_by_shape[s]["bound_ms"] * c
+                         for s, c in calls.items()
+                         if rows_by_shape[s]["bound_by"] == "bytes")
+        out["bound_by"] = ("bytes" if bytes_part >= out["bound_ms"] / 2
+                           else "operations")
+        return out
+
+    train_calls = {(TRAIN_M, k, n): per_layer * N_LAYERS * TRAIN_STEPS
+                   for (k, n), per_layer in LAYER_SHAPES.items()}
+    train_calls[(TRAIN_M, *HEAD_SHAPE)] = TRAIN_STEPS
+    fwd_calls = dict(train_calls)
+    for (k, n), per_layer in LAYER_SHAPES.items():
+        fwd_calls[(BATCH * PROMPT, k, n)] = per_layer * N_LAYERS
+        fwd_calls[(BATCH, k, n)] = per_layer * N_LAYERS * (NEW - 1)
+    fwd_calls[(BATCH, *HEAD_SHAPE)] = NEW
+
+    def by_shape(rows):
+        return {(r["m"], r["k"], r["n"]): r for r in rows if "ms" in r}
+
+    flash_by_case = {r["case"]: r for r in flash_rows if "ms" in r}
+    flash_calls = {"prefill": N_LAYERS, "train": N_LAYERS * TRAIN_STEPS}
+    launches = {k: main_res["launches"].get(k, 0) + train_res["launches"][k]
+                for k in train_res["launches"]}
+
+    def entry(name, source, replaces, err, times):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": launches[name], "max_abs_err": err, **times}
+
+    return [
+        entry("fxp_matmul", "fxp_matmul.cu", "fxp_matmul.py:84", fxp_err,
+              summed(by_shape(fxp_rows), fwd_calls)),
+        entry("flash_attention", "flash_attention.cu", "flash_attention.py:82",
+              flash_err, summed(flash_by_case, flash_calls)),
+        entry("matmul_dx", "fxp_matmul_bwd.cu", "fxp_matmul.py:203",
+              bwd_err["matmul_dx"], summed(by_shape(bwd_rows["matmul_dx"]),
+                                           train_calls)),
+        entry("matmul_dw", "fxp_matmul_bwd.cu", "fxp_matmul.py:259",
+              bwd_err["matmul_dw"], summed(by_shape(bwd_rows["matmul_dw"]),
+                                           train_calls)),
+        entry("flash_attention_dq", "flash_attention_bwd.cu",
+              "flash_attention.py:245", fbwd_err["flash_attention_dq"],
+              {**summed({"train": fbwd_rows["flash_attention_dq"][0]},
+                        {"train": N_LAYERS * TRAIN_STEPS}),
+               "library_covers": "flash_attention_dq+flash_attention_dkv"}),
+        entry("flash_attention_dkv", "flash_attention_bwd.cu",
+              "flash_attention.py:279", fbwd_err["flash_attention_dkv"],
+              {**summed({"train": fbwd_rows["flash_attention_dkv"][0]},
+                        {"train": N_LAYERS * TRAIN_STEPS}),
+               "library_covers": "see flash_attention_dq"}),
+    ]
 
 
 if __name__ == "__main__":

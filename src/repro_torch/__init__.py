@@ -1,4 +1,5 @@
-"""repro_torch: the AdaPT serving path ported to PyTorch and CUDA (H100).
+"""repro_torch: AdaPT serving and the AdaPT-SGD training step, ported to
+PyTorch and CUDA (H100).
 
 A second package beside ``repro`` (the JAX/Pallas reference). It imports
 ``torch`` and never ``jax`` or ``repro``; its public functions keep the

@@ -1,4 +1,7 @@
-"""PrecisionController, serving half (counterpart of ``repro/core/controller.py``).
+"""PrecisionController (counterpart of ``repro/core/controller.py``): the
+state, the quantized copy for the forward, and the per-step accumulation
+of the training step. The precision switch (``precision_switch``: PushDown
+and PushUp, alg. 2) comes with slice 3 of the port (ROADMAP.md).
 
 State layout (a plain dict tree):
 
@@ -10,6 +13,7 @@ State layout (a plain dict tree):
           "res":      int32 (L,) or ()     EDF resolution
           "count":    int32 (L,) or ()     optimizer steps in current window
           "norm_sum": f32   (L,) or ()     Σ‖g_k‖₂ over window
+          "grad_sum": bf16  like param     Σ g_k over window
           "sp":       f32   (L,) or ()     non-zero fraction at last switch
       }},
       "strategy":  int32 ()                 st ∈ {0:min, 1:mean, 2:max}
@@ -18,13 +22,10 @@ State layout (a plain dict tree):
       "loss_seen": int32 ()
     }
 
-The reference also keeps "grad_sum", a bf16 param-sized gradient sum that
-only the training step reads and writes. Serving reads nothing but wl/fl,
-so the port leaves grad_sum out until the training slice ports
-``accumulate`` and ``precision_switch``.
-
 Leaves with a leading stacked-layer dim L (the "blocks" stack) carry
-per-layer precision.
+per-layer precision. The training step reads wl/fl and writes the
+accumulators; ``accumulate`` updates "grad_sum" in place (the reference
+returns a new array) to keep one param-sized bf16 copy on the device.
 """
 from __future__ import annotations
 
@@ -37,8 +38,8 @@ from repro_torch.core import fixed_point as fxp
 
 STACKED_PREFIXES = ("blocks", "layers")
 
-_TRAINING_SLICE = ("comes with the training slice of the port "
-                   "(ROADMAP.md, Queue 1)")
+_SLICE_3 = ("comes with slice 3 of the port (the precision switch and the "
+            "SR words; ROADMAP.md)")
 
 
 def path_str(path) -> str:
@@ -53,6 +54,26 @@ def flatten_with_path(tree, prefix: Tuple[str, ...] = ()
             yield from flatten_with_path(v, prefix + (str(k),))
     else:
         yield path_str(prefix), tree
+
+
+def unbind_layers(*leaves, stacked: bool = True) -> list:
+    """Per-layer views of ``leaves`` stacked along dim 0, one tuple per
+    layer (a dict of stacked leaves gives one dict per layer), or
+    ``[leaves]`` whole when not ``stacked``. One ``torch.unbind`` per
+    tensor: views, no copies, and under autograd its backward stacks the
+    layer gradients once, where indexing layer l would write a zero
+    tensor of the whole stack for every l."""
+    if not stacked:
+        return [leaves]
+    return list(zip(*(_unbind(t) for t in leaves)))
+
+
+def _unbind(t):
+    if isinstance(t, dict):
+        parts = {k: _unbind(v) for k, v in t.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[l] for k, p in parts.items()} for l in range(n)]
+    return torch.unbind(t)
 
 
 def is_quantized_leaf(path: str, leaf: torch.Tensor, qcfg: QuantConfig) -> bool:
@@ -91,6 +112,8 @@ def init_adapt_state(params, qcfg: QuantConfig) -> Dict[str, Any]:
             "res": mk(qcfg.r_lwr, torch.int32),
             "count": mk(0, torch.int32),
             "norm_sum": mk(0.0, torch.float32),
+            "grad_sum": torch.zeros(leaf.shape, dtype=torch.bfloat16,
+                                    device=leaf.device),
             "sp": mk(1.0, torch.float32),
         }
     st0 = {"min": 0, "mean": 1, "max": 2}[qcfg.strategy]
@@ -131,17 +154,19 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
 
     Only the round-to-nearest branch (``key=None``, or stochastic rounding
     off) is ported: round-half-even words, clipped to [-128, 127]. The
-    stochastic-rounding and quantize-prologue branches raise.
+    stochastic-rounding branch raises (slice 3), and so does the
+    quantize-prologue format (a later slice).
 
-    "wref" is a bf16 zero of the leaf's shape that serving never reads, so
-    it is a zero-stride view that takes no memory."""
+    "wref" is a bf16 zero of the leaf's shape that nothing reads, so it is
+    a zero-stride view that takes no memory; ``grad_receivers`` makes it
+    the leaf's gradient receiver, whose gradient autograd materializes."""
     if key is not None and qcfg.stochastic_rounding:
         raise NotImplementedError(
-            "stochastic-rounding quantize_params_packed " + _TRAINING_SLICE)
+            "stochastic-rounding quantize_params_packed " + _SLICE_3)
     if qcfg.use_pallas and qcfg.dense_prologue:
         raise NotImplementedError(
-            "the quantize-prologue format (quant.dense_prologue) "
-            + _TRAINING_SLICE)
+            "the quantize-prologue format (quant.dense_prologue) is not "
+            "ported yet (ROADMAP.md, Queue 1)")
     tensors = state["tensors"]
     out: Dict[str, Any] = {}
     for p, leaf in flatten_with_path(params):
@@ -161,6 +186,64 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
         _set_path(out, p, {"q8": q8, "sc": _sc_for(p, leaf, fl),
                            "wref": wref})
     return out
+
+
+def grad_receivers(qparams) -> Dict[str, torch.Tensor]:
+    """The tensors the training step differentiates with respect to, by
+    param path, each set to require grad: a packed leaf's "wref" and every
+    other leaf (the bf16 cast of an unquantized param). The reference
+    differentiates w.r.t. the whole packed tree and then keeps each packed
+    dict's "wref" cotangent (``strip_packed_grads``); asking autograd for
+    the receivers alone gives the same per-param gradients."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def visit(tree, prefix: str) -> None:
+        if fxp.is_packed(tree):
+            out[prefix] = tree["wref"].requires_grad_()
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(v, f"{prefix}/{k}" if prefix else str(k))
+        else:
+            out[prefix] = tree.requires_grad_()
+
+    visit(qparams, "")
+    return out
+
+
+def accumulate(state: Dict[str, Any], grads, loss: torch.Tensor
+               ) -> Dict[str, Any]:
+    """Windowed gradient statistics of one step: per tensor (per layer for
+    stacked leaves) ‖g‖₂ into "norm_sum", g into "grad_sum" (f32 sum,
+    rounded to bf16, IN PLACE) and "count" + 1; the loss into the ring.
+    ``grads`` is a tree keyed as the params. Returns the new state."""
+    flat = dict(flatten_with_path(grads))
+    tensors = {}
+    for path, ts in state["tensors"].items():
+        g = flat[path]
+        # per layer: one f32 temporary per layer
+        norms = []
+        for gl, sl in unbind_layers(g, ts["grad_sum"],
+                                    stacked=bool(ts["wl"].shape)):
+            gf = gl.to(torch.float32)
+            norms.append(torch.sqrt(torch.sum(gf * gf) + 1e-30))
+            sl.copy_(sl.to(torch.float32) + gf)
+        gn = torch.stack(norms) if ts["wl"].shape else norms[0]
+        tensors[path] = {**ts, "norm_sum": ts["norm_sum"] + gn,
+                         "count": ts["count"] + 1}
+    h = state["loss_hist"].clone()
+    ptr = state["loss_ptr"]
+    h[ptr.long()] = loss.detach().to(torch.float32)
+    return {**state, "tensors": tensors, "loss_hist": h,
+            "loss_ptr": (ptr + 1) % h.shape[0],
+            "loss_seen": state["loss_seen"] + 1}
+
+
+def snapshot(state: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """Host-side summary {path: {wl, fl, sp, lb, res}} (numpy) for logging
+    and the paper's performance model."""
+    return {path: {k: ts[k].detach().cpu().numpy()
+                   for k in ("wl", "fl", "sp", "lb", "res")}
+            for path, ts in state["tensors"].items()}
 
 
 def clamp_adapt_state(state: Dict[str, Any], max_wl) -> Dict[str, Any]:

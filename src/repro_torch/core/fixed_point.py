@@ -1,14 +1,17 @@
-"""Fixed-point ⟨WL, FL⟩ words for serving (paper §2.1, §3.2).
+"""Fixed-point ⟨WL, FL⟩ quantization (paper §2.1, §3.2).
 
 A signed fixed-point number with word length ``WL`` and fractional length
 ``FL`` represents values q / 2**FL with integer q in [-2**(WL-1), 2**(WL-1)-1].
-Serving keeps the network in int8 words plus a 2^-FL scale: the packed
+The network keeps int8 words plus a 2^-FL scale: the packed
 ⟨q8, sc, wref⟩ dict the controller emits, dequantized at its use site or
-fed whole to the fxp matmul kernel.
+fed whole to the fxp matmul kernels, with gradients routed to "wref".
 
-Counterpart of ``repro/core/fixed_point.py`` (serving subset). The gradient
-rule of ``dequant_packed`` and the stochastic-rounding helpers come with
-the training slice.
+Counterpart of ``repro/core/fixed_point.py``: grids, round-to-nearest
+quantization, activation quantization with the straight-through gradient,
+the packed format with ``dequant_packed``'s gradient rule, and
+``sparsity``. Stochastic rounding comes with slice 3 of the port (the SR
+words) and the quantize-prologue format (``qdense_view``) later
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -33,10 +36,21 @@ def fxp_bounds(wl) -> tuple[torch.Tensor, torch.Tensor]:
     return -qmax - 1.0, qmax
 
 
+def quantize(w: torch.Tensor, wl, fl) -> torch.Tensor:
+    """Quantize to the ⟨WL,FL⟩ grid, rounding to nearest, half to even;
+    returns grid values in f32. WL/FL are ints or tensors broadcastable
+    to w."""
+    w = w.to(torch.float32)
+    scale = pow2i(fl).to(w.device)
+    qmin, qmax = fxp_bounds(wl)
+    q = torch.round(w * scale)
+    q = torch.clamp(q, qmin.to(w.device), qmax.to(w.device))
+    return q / scale
+
+
 def quantize_int8(w: torch.Tensor, fl) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize to int8 words (WL<=8 enforced by the clip) + scale 2^-FL,
-    round-to-nearest-even (``torch.round``, as ``jnp.round``). The
-    stochastic-rounding form (``u=``) comes with the training slice.
+    round-to-nearest-even (``torch.round``, as ``jnp.round``).
 
     Returns (q_int8, scale) with dequant = q * scale."""
     scale = pow2i(fl).to(w.device)
@@ -46,17 +60,37 @@ def quantize_int8(w: torch.Tensor, fl) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def fl_for_wl(w_absmax, wl) -> torch.Tensor:
-    """Largest FL for word length WL s.t. max|w| is representable: FL = WL-1-IL."""
-    w_absmax = torch.as_tensor(w_absmax, dtype=torch.float32)
-    il = torch.clamp(torch.ceil(torch.log2(torch.clamp(w_absmax, min=1e-12))),
-                     min=0.0)
+    """Largest FL for word length WL s.t. max|w| is representable: FL = WL-1-IL.
+
+    A floating ``w_absmax`` keeps its dtype, and log2 is ``jnp.log2``'s own
+    expansion log(x) / log(2) in that dtype, as in the reference: for a
+    bf16 abs-max this gives the reference's IL bit for bit (its rounded
+    log2 can exceed an exact power of two's, e.g. 32 → IL 6)."""
+    w_absmax = torch.as_tensor(w_absmax)
+    if not w_absmax.is_floating_point():
+        w_absmax = w_absmax.to(torch.float32)
+    m = torch.clamp(w_absmax, min=1e-12)
+    log2 = torch.log(m) / torch.log(torch.tensor(2.0, dtype=m.dtype,
+                                                  device=m.device))
+    il = torch.clamp(torch.ceil(log2), min=0.0)
     return torch.as_tensor(wl).to(torch.int32) - 1 - il.to(torch.int32)
+
+
+def quantize_activation(a: torch.Tensor, wl) -> torch.Tensor:
+    """Dynamic-range activation quantization: FL from the batch's abs-max,
+    the value rounded to nearest on the ⟨WL,FL⟩ grid in a's dtype, and the
+    straight-through gradient ``a + (q − a).detach()``."""
+    ad = a.detach()
+    amax = torch.max(torch.abs(ad))
+    fl = fl_for_wl(amax, wl)
+    q = quantize(ad, wl, fl).to(a.dtype)
+    return a + (q - ad)
 
 
 # ---------------------------------------------------------------------------
 # Packed int8 format: a quantized tensor is {"q8": int8, "sc": bf16 scale,
-# "wref": bf16 zeros}. "wref" is the gradient receiver of the training slice;
-# serving never reads it.
+# "wref": bf16 zeros}. Nothing reads "wref": it is the gradient receiver,
+# where the straight-through gradient of the words lands.
 
 PACKED_KEYS = frozenset(("q8", "sc", "wref"))
 
@@ -80,12 +114,32 @@ def is_dense_param(path: str) -> bool:
     return path.rsplit("/", 1)[-1] in DENSE_PARAM_NAMES
 
 
+class _DequantPacked(torch.autograd.Function):
+    """The reference's custom VJP (``fixed_point.py:161-178``): the
+    cotangent of the value view goes to ``wref`` in bf16, the scale gets
+    zero, the words none."""
+
+    @staticmethod
+    def forward(ctx, q8, sc, wref):
+        ctx.sc_like = (sc.shape, sc.dtype, sc.device)
+        return q8.to(torch.bfloat16) * sc
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.sc_like
+        dsc = (torch.zeros(shape, dtype=dtype, device=device)
+               if ctx.needs_input_grad[1] else None)
+        return None, dsc, g.to(torch.bfloat16)
+
+
 def dequant_packed(q8: torch.Tensor, sc: torch.Tensor, wref=None
                    ) -> torch.Tensor:
     """bf16 value view of int8 words: ``q8.to(bf16) * sc`` in bf16 (exact:
-    an int8 word times a power of two fits bf16's 8-bit significand)."""
-    del wref
-    return q8.to(torch.bfloat16) * sc
+    an int8 word times a power of two fits bf16's 8-bit significand).
+    Differentiable into ``wref`` (straight-through) when it is given."""
+    if wref is None:
+        return q8.to(torch.bfloat16) * sc
+    return _DequantPacked.apply(q8, sc, wref)
 
 
 def unpack_tree(tree, keep_dense: bool = False, _prefix: str = ""):
@@ -102,3 +156,9 @@ def unpack_tree(tree, keep_dense: bool = False, _prefix: str = ""):
                                else str(k))
                 for k, v in tree.items()}
     return tree
+
+
+def sparsity(w: torch.Tensor, axes=None, eps: float = 0.0) -> torch.Tensor:
+    """Fraction of non-zero elements (paper's sp^l); |w| <= eps counts as 0."""
+    nz = (torch.abs(w) > eps).to(torch.float32)
+    return torch.mean(nz) if axes is None else torch.mean(nz, dim=axes)

@@ -1,10 +1,11 @@
-"""Carry trees of numpy arrays, keyed and shaped as the JAX package's, into
-the port's torch trees on a given device.
+"""Carry trees of numpy arrays, keyed and shaped as the JAX package's,
+between the port's torch trees and numpy, both ways.
 
 The two packages draw different random numbers from the same seed, so where
-both must serve the same weights, the reference's trees are converted to
-numpy (``jax.tree.map(np.asarray, tree)``) and brought over here. numpy's
-bfloat16 (the ``ml_dtypes`` type JAX uses) is carried bit for bit.
+both must start from the same weights and state, the reference's trees are
+converted to numpy (``jax.tree.map(np.asarray, tree)``) and brought over
+here, and the port's go back the same way. numpy's bfloat16 (the
+``ml_dtypes`` type JAX uses) is carried bit for bit.
 """
 from __future__ import annotations
 
@@ -30,13 +31,40 @@ def params_from_numpy(tree, device) -> Dict[str, Any]:
 
 
 def adapt_state_from_numpy(state, device) -> Dict[str, Any]:
-    """The reference's AdaPT controller state → the port's: every leaf but
-    the per-tensor "grad_sum", which the port's serving state leaves out
-    (``repro_torch.core.controller``)."""
+    """The reference's AdaPT controller state → the port's, "grad_sum"
+    included. "tensors" is keyed by slash-joined param path in both."""
     out = {k: params_from_numpy(v, device) for k, v in state.items()
            if k != "tensors"}
     out["tensors"] = {
-        path: {k: tensor_from_numpy(v, device) for k, v in ts.items()
-               if k != "grad_sum"}
+        path: {k: tensor_from_numpy(v, device) for k, v in ts.items()}
         for path, ts in state["tensors"].items()}
     return out
+
+
+def train_state_from_numpy(state, device) -> Dict[str, Any]:
+    """The reference's whole train state (params, stats, opt, adapt, step,
+    rng) → the port's. The PRNG key is carried as it is (int64); the port
+    draws no stochastic-rounding noise from it yet."""
+    out = {k: params_from_numpy(v, device) for k, v in state.items()
+           if k not in ("adapt", "rng")}
+    out["adapt"] = adapt_state_from_numpy(state["adapt"], device)
+    out["rng"] = torch.from_numpy(np.asarray(state["rng"]).astype(np.int64))
+    return out
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor (any device) → a numpy copy (the port updates state in
+    place), bf16 as ``ml_dtypes.bfloat16`` bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return np.array(t.view(torch.int16).numpy()).view(ml_dtypes.bfloat16)
+    return np.array(t.numpy())
+
+
+def to_numpy(tree):
+    """A nested dict of tensors (a params tree or a whole train state) →
+    the same dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    return tensor_to_numpy(tree)

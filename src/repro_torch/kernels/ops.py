@@ -1,5 +1,5 @@
-"""Dispatch over the port's kernels (counterpart of ``repro/kernels/ops.py``,
-serving subset: forward only).
+"""Dispatch over the port's kernels (counterpart of ``repro/kernels/ops.py``):
+the fxp matmul, the model's differentiable dense layer and attention.
 
 The rule, by the device of the tensor each op is given:
 
@@ -10,7 +10,10 @@ The rule, by the device of the tensor each op is given:
 There is no fallback from the kernel to the plain version and no switch to
 force one. ``use_pallas`` keeps the reference's meaning: ``False`` is the
 plain XLA-style path (dequantize-then-matmul, masked attention) on any
-device.
+device. Under ``use_pallas``, ``fxp_dense`` and ``attention`` are
+``torch.autograd.Function``s whose backward passes are kernels too (dx/dw
+for the dense layer, dq/dkv for attention), as the reference's custom
+VJPs are (``fxp_matmul.py:556-592``, ``flash_attention.py:419-453``).
 """
 from __future__ import annotations
 
@@ -33,26 +36,85 @@ def _on_card(t: torch.Tensor) -> bool:
 def fxp_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
                use_pallas: bool = False, bias: torch.Tensor | None = None,
                out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """y = x @ (wq * scale) (+ bias), f32 accumulation, any ⟨M,K,N⟩."""
+    """y = x @ (wq * scale) (+ bias), f32 accumulation, any ⟨M,K,N⟩.
+    Forward only (the reference differentiates it into dscale, which no
+    path of the port uses)."""
     if use_pallas and _on_card(x):
         out = _fm.fxp_matmul(x, wq, scale.reshape(()), out_dtype=out_dtype)
         return out if bias is None else out + bias
     return ref.ref_fxp_matmul(x, wq, scale, bias, out_dtype=out_dtype)
 
 
+class _FxpDense(torch.autograd.Function):
+    """Straight-through dense layer over int8 words: forward
+    y = (x @ wq)·scale; backward dx = (dy @ wqᵀ)·scale on the same words
+    and dw = xᵀ @ dy, which lands whole on ``wref`` in wref's dtype (bf16,
+    rounded to nearest even, as ``_fxp_dense_diff_bwd`` casts it). The
+    scale is controller state: its gradient is zero; the words get none."""
+
+    @staticmethod
+    def forward(ctx, x, wq, scale, wref, out_dtype):
+        ctx.save_for_backward(x, wq, scale)
+        ctx.wref_dtype = wref.dtype
+        if _on_card(x):
+            return _fm.fxp_matmul(x, wq, scale, out_dtype=out_dtype)
+        return ref.ref_fxp_matmul(x, wq, scale, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wq, scale = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = dscale = None
+        card = _on_card(dy)
+        if ctx.needs_input_grad[0]:
+            dx = (_fm.matmul_dx(dy, wq, scale, out_dtype=x.dtype) if card
+                  else ref.ref_matmul_dx(dy, wq, scale).to(x.dtype))
+        if ctx.needs_input_grad[3]:
+            dw = (_fm.matmul_dw(x, dy, out_dtype=ctx.wref_dtype) if card
+                  else ref.ref_matmul_dw(x, dy).to(ctx.wref_dtype))
+        if ctx.needs_input_grad[2]:
+            dscale = torch.zeros_like(scale)
+        return dx, None, dscale, dw, None
+
+
 def fxp_dense(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
               wref: torch.Tensor, *, use_pallas: bool = False,
               out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The model's dense layer over materialized int8 words (the packed
-    ⟨q8, sc, wref⟩ container), forward only: the straight-through gradient
-    rule comes with the training slice. Without ``use_pallas`` it is the
-    f32 dequant-then-dot the kernel replaces."""
+    ⟨q8, sc, wref⟩ container), differentiable with the straight-through
+    weight gradient onto ``wref``. x: (M, K); wq: (K, N) int8; scale: one
+    element (2^-FL). Without ``use_pallas`` it is the f32
+    dequant-then-dot the kernels replace, differentiated by autograd."""
     if use_pallas:
-        return fxp_matmul(x, wq, scale, use_pallas=True, out_dtype=out_dtype)
-    wv = (wq.to(torch.float32) * scale.to(torch.float32).reshape(())
+        return _FxpDense.apply(x.contiguous(), wq, scale.reshape(()), wref,
+                               out_dtype or x.dtype)
+    wv = (wq.to(torch.float32) * scale.detach().to(torch.float32).reshape(())
           + wref.to(torch.float32))
     out = torch.matmul(x.to(torch.float32), wv)
     return out.to(out_dtype or x.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the recompute backward: the forward stashes
+    (o, lse), the backward is ``flash_attention_bwd`` (the dQ and dK/dV
+    kernels on the card, their plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        fwd = _fa.flash_attention if _on_card(q) else ref.ref_flash_attention
+        o, lse = fwd(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (_fa.flash_attention_bwd if _on_card(q)
+               else ref.ref_flash_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -60,13 +122,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float | None = None, use_pallas: bool = False
               ) -> torch.Tensor:
     """Attention over (B, S, H, D) tensors. With ``use_pallas``: the flash
-    contract (a row that no key reaches is 0), on the card the CUDA kernel.
-    Without it: ``ref_attention``."""
+    contract (a row that no key reaches is 0), differentiable through the
+    flash backward; on the card the CUDA kernels. Without it:
+    ``ref_attention`` under autograd."""
     if use_pallas:
-        if _on_card(q):
-            return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
-        return ref.ref_flash_attention(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
+        return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal, window, softcap,
+                                     scale)
     return ref.ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)

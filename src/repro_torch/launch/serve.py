@@ -42,7 +42,8 @@ def main(argv=None):
                                   "not yet ported (ROADMAP.md, Queue 1)")
     if args.checkpoint_dir:
         raise NotImplementedError("--checkpoint-dir is not yet ported: "
-                                  "checkpoints come with the training slice")
+                                  "checkpoints come with ROADMAP.md Queue 1 "
+                                  "item 5")
     if args.smoke:
         from repro_torch.configs import get_smoke_config
         cfg = apply_overrides(get_smoke_config(args.arch), args.override)

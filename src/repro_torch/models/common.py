@@ -26,8 +26,10 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
 def act_fn(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "gelu":
         return torch.nn.functional.gelu(x, approximate="tanh")
-    # x * sigmoid(x) in two roundings, as XLA evaluates jax.nn.silu in bf16
-    return x * torch.sigmoid(x)
+    # jax.nn.silu's own op chain, x * (1 / (1 + exp(-x))), each op rounded
+    # to x's dtype: in bf16 this gives the reference's values bit for bit,
+    # where x * sigmoid(x) differs in about a quarter of them
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def dense(x: torch.Tensor, w, *, use_pallas: bool = False) -> torch.Tensor:
@@ -83,6 +85,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return rot.to(x.dtype)
 
 
+def quantize_act(x: torch.Tensor, wl, enabled: bool) -> torch.Tensor:
+    """Activation fixed-point quantization at the layer's word length
+    (dynamic-range FL, nearest rounding, straight-through gradient)."""
+    if not enabled or wl is None:
+        return x
+    return fxp.quantize_activation(x, wl)
+
+
 def embed_lookup(table, ids: torch.Tensor, scale_by_dim: bool = False
                  ) -> torch.Tensor:
     """Rows of ``table`` at ``ids``. ``table`` may be a packed dict: its rows
@@ -90,7 +100,11 @@ def embed_lookup(table, ids: torch.Tensor, scale_by_dim: bool = False
     of dequantizing the whole table first without writing that table."""
     idx = ids.to(torch.long)
     if fxp.is_packed(table):
-        out = fxp.dequant_packed(table["q8"][idx], table["sc"])
+        # the index's backward scatter-adds the rows' bf16 gradients into a
+        # dense (V, D) gradient of "wref", as the reference's take →
+        # dequant_packed transpose does
+        out = fxp.dequant_packed(table["q8"][idx], table["sc"],
+                                 table["wref"][idx])
         d = table["q8"].shape[-1]
     else:
         out = table[idx]

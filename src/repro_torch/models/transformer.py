@@ -3,8 +3,10 @@ attention+MLP family).
 
 The layer plan is periodic: parameters are stacked as (num_periods, ...)
 per slot of the period, and where the reference ``lax.scan``s over periods
-the port loops over them in Python, slicing the stacked leaves per layer
-(views, no copies).
+the port loops over them in Python. The stacked leaves are sliced with one
+``torch.unbind`` per leaf per call (views, no copies): under autograd its
+backward stacks the per-layer gradients once, where indexing each layer
+would write a zero tensor of the whole stack per layer.
 
 Params layout (stacked leaves carry the leading num_periods dim):
 
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core.controller import unbind_layers
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, mlp
 
@@ -139,14 +142,6 @@ def init_params(key: int, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
 # Helpers
 
 
-def _layer(tree, l: int):
-    """Layer ``l`` of a tree of stacked leaves (packed dicts slice each of
-    their three leaves)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return tree[l]
-
-
 def _top(params, use_pallas: bool):
     """Non-block params, dequantized at entry except dense leaves under
     ``use_pallas`` and the embedding, whose rows ``embed_lookup`` gathers
@@ -180,18 +175,35 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # Forward (full sequence)
 
 
+def _maybe_qact(x, act_wl, name):
+    if act_wl is None or name not in act_wl:
+        return x
+    return common.quantize_act(x, act_wl[name], True)
+
+
 def forward(params: Dict[str, Any], cfg: ModelConfig, *,
-            tokens: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
-    """Full-sequence forward → logits (B, S, V) f32."""
-    plan, np_ = _ported_plan(cfg)
+            tokens: torch.Tensor, act_wl: Dict[str, torch.Tensor] | None = None,
+            use_pallas: bool = False, remat: str = "none") -> torch.Tensor:
+    """Full-sequence forward → logits (B, S, V) f32, differentiable.
+
+    ``act_wl`` ({slot key: (num_periods,) int WL}, ``act_wl_from_state``)
+    quantizes the residual stream at the end of each slot at that layer's
+    word length. ``remat`` (activation checkpointing) other than "none"
+    raises: it comes with a later slice."""
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r} (activation checkpointing) is not ported yet "
+            "(ROADMAP.md, Queue 1); use train.remat=none")
+    plan, _ = _ported_plan(cfg)
     top = _top(params, use_pallas)
     x = _embed(top, tokens, cfg)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     causal = not cfg.is_encoder
-    for l in range(np_):
-        pslice = fxp.unpack_tree(_layer(params["blocks"], l),
-                                 keep_dense=use_pallas)
+    rows = (unbind_layers(params["blocks"], act_wl) if act_wl
+            else [(b, None) for (b,) in unbind_layers(params["blocks"])])
+    for pslice, awl in rows:
+        pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
             x, _ = attention.attend_full(
                 pslice[slot_key(i, slot)], x, cfg, positions,
@@ -199,8 +211,27 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
             if slot.ffn == "mlp":
                 x = mlp.apply(pslice[ffn_key(i, slot)], x, cfg,
                               use_pallas=use_pallas)
+            x = _maybe_qact(x, awl, slot_key(i, slot))
     x = common.rms_norm(x, top["final_norm"], cfg.norm_eps)
     return _head_logits(top, x, cfg, use_pallas)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, *, shift: bool = True
+            ) -> torch.Tensor:
+    """Causal LM loss (shifted) or framewise CE (``shift=False``): the mean
+    negative log-likelihood in f32."""
+    if shift:
+        logits = logits[:, :-1]
+        targets = tokens[:, 1:]
+    else:
+        targets = tokens
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].to(torch.long))[..., 0]
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +270,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
     """token: (B,) int; t: current absolute position (a Python int).
     Returns (logits (B, V) f32, caches). The caches are updated in place
     (the reference returns new ones) and returned."""
-    plan, np_ = _ported_plan(cfg)
+    plan, _ = _ported_plan(cfg)
     t = int(t)
     top = _top(params, use_pallas)
     x = _embed(top, token[:, None], cfg)
@@ -247,9 +278,8 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
     # per slot, not one per layer
     spos = {key: _slot_positions(c["k"].shape[2], t, device=x.device)
             for key, c in caches.items()}
-    for l in range(np_):
-        pslice = fxp.unpack_tree(_layer(params["blocks"], l),
-                                 keep_dense=use_pallas)
+    for l, (pslice,) in enumerate(unbind_layers(params["blocks"])):
+        pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
             key = slot_key(i, slot)
             ck, cv = caches[key]["k"][l], caches[key]["v"][l]
@@ -283,16 +313,15 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt, returning (last-position logits (B,V), caches
     stacked (num_periods, B, C, Hkv, Dh) per slot)."""
-    plan, np_ = _ported_plan(cfg)
+    plan, _ = _ported_plan(cfg)
     top = _top(params, use_pallas)
     x = _embed(top, tokens, cfg)
     B, S = tokens.shape
     positions = _positions(B, S, x.device)
     per_layer = {slot_key(i, slot): {"k": [], "v": []}
                  for i, slot in enumerate(plan)}
-    for l in range(np_):
-        pslice = fxp.unpack_tree(_layer(params["blocks"], l),
-                                 keep_dense=use_pallas)
+    for (pslice,) in unbind_layers(params["blocks"]):
+        pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
             key = slot_key(i, slot)
             x, (k, v) = attention.attend_full(
@@ -309,3 +338,18 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
     x = common.rms_norm(x[:, -1:], top["final_norm"], cfg.norm_eps)
     return _head_logits(top, x, cfg, use_pallas)[:, 0], caches
 
+
+# ---------------------------------------------------------------------------
+# AdaPT integration
+
+
+def act_wl_from_state(adapt_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Per-slot activation word length = the slot out-projection's WL
+    (paper: activations are quantized at the layer's precision)."""
+    out = {}
+    for path, ts in adapt_state["tensors"].items():
+        parts = path.split("/")
+        if len(parts) == 3 and parts[0] == "blocks" and parts[2] in (
+                "wo", "out_proj"):
+            out[parts[1]] = ts["wl"]
+    return out

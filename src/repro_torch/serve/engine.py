@@ -35,8 +35,8 @@ def quantize_for_serving(params, adapt_state, qcfg, max_wl=None):
     if qcfg.container_dtype != "int8_packed":
         raise NotImplementedError(
             f"serving from container_dtype={qcfg.container_dtype!r} (float "
-            "grid containers) comes with the training slice of the port; "
-            "use quant.container_dtype=int8_packed")
+            "grid containers) is not ported yet (ROADMAP.md, Queue 1); use "
+            "quant.container_dtype=int8_packed")
     qcfg = dataclasses.replace(qcfg, dense_prologue=False)
     return controller.quantize_params_packed(params, adapt_state, qcfg,
                                              key=None)

@@ -1,0 +1,204 @@
+"""AdaPT-SGD training loop of the port (paper alg. 1; counterpart of
+``repro/train/train_loop.py``), dense LM family.
+
+Each ``train_step``:
+    1. L̂ = Quantize(L, Q)            — RTN int8 words of the f32 master at
+                                        the controller's ⟨WL,FL⟩ (packed);
+    2. the forward through the fxp and flash kernels (``quant.use_pallas``),
+       activations quantized per slot; the loss with the elastic net and
+       the WL penalty;
+    3. the backward through the dx/dw and dq/dkv kernels, the gradients
+       landing straight-through on each packed leaf's "wref";
+    4. controller.accumulate, per-tensor grad normalization, clipping, ROP
+       and the optimizer update of the master (in place).
+
+What is not ported raises, by name: the precision switch
+(``make_precision_switch``; slice 3, so ``train`` raises at the first
+switch step and never skips it), stochastic rounding (the SR branch of
+``quantize_params_packed``; slice 3), gradient accumulation
+(``train.accum_steps > 1``), QSGD pod compression, remat, float and
+``quant.mode=off`` containers, and the CNN family.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import Config
+from repro_torch.core import controller, sparsity
+from repro_torch.data import synthetic
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.train import optimizer as opt_lib
+
+
+def _check_ported(cfg: Config) -> None:
+    q, t = cfg.quant, cfg.train
+    if cfg.model.family == "cnn":
+        raise NotImplementedError("the CNN family comes with the CNN slice of "
+                                  "the port (ROADMAP.md, Queue 1)")
+    if q.mode == "off" or q.container_dtype != "int8_packed":
+        raise NotImplementedError(
+            f"the port's train step takes quant.container_dtype=int8_packed; "
+            f"quant.mode={q.mode!r} with container {q.container_dtype!r} is "
+            "not ported yet (ROADMAP.md, Queue 1)")
+    if t.accum_steps > 1:
+        raise NotImplementedError(
+            f"train.accum_steps={t.accum_steps} (microbatch accumulation, "
+            "_microbatch) is not ported yet (ROADMAP.md, Queue 1); use 1")
+    if t.qsgd_pod_compression:
+        raise NotImplementedError("train.qsgd_pod_compression comes with the "
+                                  "multi-GPU slice (ROADMAP.md, Queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# State
+
+
+def init_state(cfg: Config, seed: Optional[int] = None, *, device=None
+               ) -> Dict[str, Any]:
+    """Fresh TNVS params from ``seed`` (default ``cfg.train.seed``), the
+    controller state, the optimizer state, step 0. On ``device`` (default
+    ``cuda``; raises without it unless ``"cpu"``)."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    seed = cfg.train.seed if seed is None else int(seed)
+    params = transformer.init_params(seed, cfg.model, device=dev)
+    return {
+        "params": params,
+        "stats": {},
+        "opt": opt_lib.init_opt_state(params, cfg.optimizer),
+        "adapt": controller.init_adapt_state(params, cfg.quant),
+        "step": torch.tensor(0, dtype=torch.int32, device=dev),
+        "rng": torch.tensor(seed, dtype=torch.int64),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Loss
+
+
+def _task_loss(cfg: Config, qparams, batch, act_wl=None) -> torch.Tensor:
+    """The LM loss of the quantized copy on ``batch`` (differentiable)."""
+    logits = transformer.forward(qparams, cfg.model, tokens=batch["tokens"],
+                                 act_wl=act_wl, use_pallas=cfg.quant.use_pallas,
+                                 remat=cfg.train.remat)
+    return transformer.lm_loss(logits, batch["tokens"], shift=True)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+
+
+def _set_path(tree: dict, path: str, value) -> None:
+    *parents, last = path.split("/")
+    for k in parents:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
+
+
+def make_train_step(cfg: Config) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)``. The step updates
+    the master params, the optimizer's moments and the controller's
+    "grad_sum" in place and returns the state dict with the new scalars."""
+    _check_ported(cfg)
+    qcfg, ocfg = cfg.quant, cfg.optimizer
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        params, adapt = state["params"], state["adapt"]
+        # any key selects the stochastic-rounding branch, which raises
+        qkey = state["step"] if qcfg.stochastic_rounding else None
+        qparams = controller.quantize_params_packed(params, adapt, qcfg, qkey)
+        act_wl = (transformer.act_wl_from_state(adapt)
+                  if qcfg.quantize_activations else None)
+        receivers = controller.grad_receivers(qparams)
+        task = _task_loss(cfg, qparams, batch, act_wl)
+        # the regularizer reads the packed leaves through their bf16 view;
+        # its gradients add onto the same receivers
+        full = sparsity.adapt_loss(
+            task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
+            penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl)
+        flat = torch.autograd.grad(full, list(receivers.values()),
+                                   materialize_grads=True)
+        grads: Dict[str, Any] = {}
+        for path, g in zip(receivers, flat):
+            _set_path(grads, path, g)
+        del qparams, receivers, flat
+        with torch.no_grad():
+            task, full = task.detach(), full.detach()
+            adapt = controller.accumulate(adapt, grads, task)
+            grads = opt_lib.normalize_grads(grads, set(adapt["tensors"]))
+            grads = opt_lib.clip_by_global_norm(grads, ocfg.grad_clip)
+            opt = opt_lib.rop_update(state["opt"], task, ocfg)
+            params, opt = opt_lib.apply_updates(params, grads, opt, ocfg)
+            metrics = {"loss": task, "full_loss": full, "lr": opt["lr"],
+                       "grad_norm": opt_lib.global_norm(grads)}
+        new_state = {**state, "params": params, "opt": opt, "adapt": adapt,
+                     "step": state["step"] + 1}
+        return new_state, metrics
+
+    return train_step
+
+
+def make_precision_switch(cfg: Config) -> Callable:
+    """The precision switch of alg. 2 (PushDown with the EDF-ladder kernel,
+    then PushUp) comes with slice 3 of the port: the returned function
+    raises when it is called."""
+    del cfg
+
+    def precision_switch(state: Dict[str, Any]) -> Dict[str, Any]:
+        raise NotImplementedError(
+            "controller.precision_switch (PushDown + PushUp, the EDF-ladder "
+            "kernel) comes with slice 3 of the port (ROADMAP.md); a run that "
+            "reaches a switch step stops here rather than skip it")
+
+    return precision_switch
+
+
+# ---------------------------------------------------------------------------
+# Data dispatch and the host-side loop
+
+
+def make_batch(cfg: Config, step: int, *, device=None) -> Dict[str, torch.Tensor]:
+    if cfg.model.family == "cnn":
+        raise NotImplementedError("CIFAR batches come with the CNN slice of "
+                                  "the port (ROADMAP.md, Queue 1)")
+    return synthetic.lm_batch(cfg, step, device=device)
+
+
+def train(cfg: Config, *, steps: Optional[int] = None,
+          state: Optional[Dict[str, Any]] = None,
+          log: Callable[[str], None] = print, device=None
+          ) -> Tuple[Dict[str, Any], list]:
+    """Run the loop on ``device`` (default ``cuda``); returns (state,
+    history). The precision switch is called after every
+    ``adapt_interval``-th step (``quant.lb_lwr`` when 0), as in the
+    reference, and raises there (slice 3)."""
+    steps = steps if steps is not None else cfg.train.steps
+    dev = resolve_device(device)
+    if state is None:
+        state = init_state(cfg, device=dev)
+    step_fn = make_train_step(cfg)
+    switch_fn = make_precision_switch(cfg)
+    interval = cfg.train.adapt_interval or cfg.quant.lb_lwr
+
+    history = []
+    start_step = int(state["step"])
+    for i in range(start_step, start_step + steps):
+        t0 = time.perf_counter()
+        batch = make_batch(cfg, i, device=dev)
+        state, metrics = step_fn(state, batch)
+        if (i + 1) % interval == 0:
+            state = switch_fn(state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        if (i + 1) % max(cfg.train.log_every, 1) == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            history.append({"step": i + 1, **m, "dt": dt})
+            log(f"step {i + 1:5d} loss={m['loss']:.4f} lr={m['lr']:.4g} "
+                f"grad_norm={m['grad_norm']:.4f} ({dt * 1e3:.0f} ms)")
+    return state, history

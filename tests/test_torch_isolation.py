@@ -14,8 +14,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.config import load_config  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import controller  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.train import train_loop  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax\w*|repro)(?:[.\s,]|$)",
@@ -25,7 +28,8 @@ _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax\w*|repro)(?:[.\s,]|$)",
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.serve.engine, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.train.train_loop\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax', 'jaxlib') or m.startswith('jax'))\n"
             "assert not bad, bad\n")
@@ -73,8 +77,23 @@ def test_unported_archs_and_slots_raise():
     moe = load_config("tiny", overrides=["model.num_experts=4"])
     with pytest.raises(NotImplementedError, match="MoE"):
         transformer.init_params(0, moe.model, device="cpu")
-    cfg = load_config("tiny")      # float32 container: the training slice
+    cfg = load_config("tiny")      # float32 container: not ported yet
     params = transformer.init_params(0, cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         engine.Engine(cfg, params, controller.init_adapt_state(params, cfg.quant),
                       device="cpu")
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config("tiny", overrides=[
+        "quant.container_dtype=int8_packed", "quant.stochastic_rounding=false",
+        "train.global_batch=2", "train.seq_len=8"])
+    for call in (lambda: train_loop.init_state(cfg),
+                 lambda: synthetic.lm_batch(cfg, 0),
+                 lambda: train_loop.train(cfg, steps=1),
+                 lambda: train_launcher.main(["--arch", "tiny"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    state, _ = train_loop.train(cfg, steps=1, device="cpu", log=lambda s: None)
+    assert int(state["step"]) == 1 and state["params"]["embed"].device.type == "cpu"
