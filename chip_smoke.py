@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: build the kernels, hold
 each against its plain version, serve llama3.2-3b through the ``Engine``,
-train it with AdaPT-SGD through ``train_loop.train``, and compare the card
-with the CPU at depth 2 for both.
+train it with AdaPT-SGD through ``train_loop.train`` (round-to-nearest
+words, then stochastically rounded words through a precision switch), and
+compare the card with the CPU at depth 2 for each.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,16 @@ Phases (any failure exits non-zero; nothing is caught):
      4 x 512 tokens (no precision switch), per-step ms, tokens/s, loss,
      grad_norm and exact launch counts, peak memory; one more step under
      the profiler: device busy share, time by kernel, and no library GEMM;
-  7. training, card against CPU: one step at depth 2, batch 2 x 64.
+  7. training, card against CPU: one step at depth 2, batch 2 x 64;
+  8. SR training main path: full llama3.2-3b with the registry's
+     stochastic rounding, 4 steps of 4 x 512 tokens with a precision switch
+     after steps 2 and 4 (lookback 2, so every tensor switches after step
+     2): exact launch counts per step and per switch, the <WL,FL>
+     histogram over the 198 tensor-layers before and after, the switch's
+     wall and device time by kernel, a profiled SR step;
+  9. SR training, card against CPU at depth 2: the same state through
+     ``precision_switch`` on both, and the SR words of every leaf with the
+     same seeds.
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -67,18 +77,40 @@ TRAIN_B, TRAIN_S = 4, 512              # training batch: 4 sequences of 512
 TRAIN_M = TRAIN_B * TRAIN_S
 OVERRIDES = ["quant.container_dtype=int8_packed", "quant.use_pallas=true",
              "quant.init_fl=10"]
-# Training: round-to-nearest words (the SR words are slice 3), no remat and
-# no gradient accumulation (not ported), 4 sequences of 512 tokens.
+# Training with round-to-nearest words, no remat and no gradient
+# accumulation (not ported), 4 sequences of 512 tokens.
 TRAIN_OVERRIDES = OVERRIDES + [
     "quant.stochastic_rounding=false", "train.remat=none",
     "train.accum_steps=1", f"train.global_batch={TRAIN_B}",
     f"train.seq_len={TRAIN_S}", "train.log_every=1"]
 TRAIN_STEPS = 3
+# The SR path: the registry's stochastic rounding, a switch after every
+# second step, a window of two steps, 4 steps.
+SR_OVERRIDES = OVERRIDES + [
+    "train.remat=none", "train.accum_steps=1",
+    f"train.global_batch={TRAIN_B}", f"train.seq_len={TRAIN_S}",
+    "train.log_every=1", "train.adapt_interval=2", "quant.lb_lwr=2"]
+SR_STEPS = 4
+N_STACKED, N_FLAT = 7, 2               # quantized leaves: blocks/..., embed, head
+# Leaf shapes of llama3.2-3b the SR kernels quantize every step.
+STACKED_SHAPES = {                     # per-layer (K, N): stacked leaves
+    (D_MODEL, D_MODEL): 2, (D_MODEL, KV_HEADS * HEAD_DIM): 2,
+    (D_MODEL, D_FF): 2, (D_FF, D_MODEL): 1}
+FLAT_SHAPES = [(VOCAB, D_MODEL), (D_MODEL, VOCAB)]   # embed, head
+EDF_SAMPLE = 65536
+F32_OPS = 67e12                        # H100 SXM f32 / int32 CUDA-core rate
 # Per training step: every dense layer and the head run fwd, dx and dw;
 # every layer runs the flash forward, dq and dkv.
 PER_STEP = {"fxp_matmul": 7 * N_LAYERS + 1, "matmul_dx": 7 * N_LAYERS + 1,
             "matmul_dw": 7 * N_LAYERS + 1, "flash_attention": N_LAYERS,
-            "flash_attention_dq": N_LAYERS, "flash_attention_dkv": N_LAYERS}
+            "flash_attention_dq": N_LAYERS, "flash_attention_dkv": N_LAYERS,
+            "sr_quantize_fused_stacked_int8": 0, "sr_quantize_fused_int8": 0,
+            "edf_ladder_hists": 0}
+# With SR words: one stacked launch per blocks/ leaf and one flat launch for
+# embed and head each step; one EDF-ladder launch per leaf each switch.
+SR_PER_STEP = {**PER_STEP, "sr_quantize_fused_stacked_int8": N_STACKED,
+               "sr_quantize_fused_int8": N_FLAT}
+PER_SWITCH = {"edf_ladder_hists": N_STACKED + N_FLAT}
 # PyTorch ops that would run a library GEMM: none may appear in a step.
 LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
                  "aten::matmul", "aten::linear", "aten::einsum"}
@@ -436,6 +468,167 @@ def check_flash_bwd(torch, fa, gen):
     return rows, max_err
 
 
+def check_sr_quantize(torch, sq, gen):
+    """Both SR kernels against their plain versions, words bit for bit: at
+    every leaf shape of llama3.2-3b (the stacked blocks/ leaves with a
+    per-layer FL that takes 0, 10 and 28 among others, embed and head
+    flat), and at ragged shapes: n not a multiple of 512 or of 4 (the
+    scalar path), one layer equal to the flat kernel, FL −3…28, negative
+    and large seeds. Times: kernel, plain version, bound (4 bytes read and
+    1 written per element; the ~20 integer and float operations per
+    element at the CUDA-core rate take less)."""
+    dev = "cuda"
+    rows = {"sr_quantize_fused_stacked_int8": [],
+            "sr_quantize_fused_int8": []}
+
+    def fls_for(L):
+        return torch.tensor([(0, 10, 28, 4, 17, -3, 9)[l % 7] for l in range(L)],
+                            dtype=torch.int32, device=dev)
+
+    def timed(name, shape, x, seed, fl, kern, plain):
+        got, want = kern(x, seed, fl), plain(x, seed, fl)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int8 or not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{name} {shape}: {bad} words differ")
+        n = x.numel()
+        row = {"shape": list(shape), "max_abs_err": 0.0,
+               "ms": cuda_time_ms([lambda: kern(x, seed, fl)], 5),
+               "plain_ms": cuda_time_ms([lambda: plain(x, seed, fl)], 2),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = max(
+            (5.0 * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (20.0 * n / F32_OPS * 1e3, "operations"))
+        rows[name].append(row)
+        log(f"[kernels] {name} {list(shape)}: bit-equal, ms={row['ms']:.4g}, "
+            f"plain_ms={row['plain_ms']:.4g}, bound_ms={row['bound_ms']:.4g}")
+        del got, want
+
+    for (k, n) in STACKED_SHAPES:
+        x = torch.randn(N_LAYERS, k, n, generator=gen, device=dev) * 0.05
+        timed("sr_quantize_fused_stacked_int8", (N_LAYERS, k, n), x, -12345,
+              fls_for(N_LAYERS), sq.sr_quantize_fused_stacked_int8,
+              sq.plain_stacked)
+        del x
+        torch.cuda.empty_cache()
+    for shape in FLAT_SHAPES:
+        x = torch.randn(*shape, generator=gen, device=dev) * 0.05
+        fl = torch.tensor(10, dtype=torch.int32, device=dev)
+        timed("sr_quantize_fused_int8", shape, x, 2 ** 31 - 7, fl,
+              sq.sr_quantize_fused_int8, sq.plain)
+        del x
+        torch.cuda.empty_cache()
+    # ragged shapes, every FL, seeds of both signs
+    for shape in [(3, 1000), (5, 513), (2, 1001), (7, 3, 5, 7), (1, 777),
+                  (32, 130)]:
+        x = torch.randn(*shape, generator=gen, device=dev) * 3.0
+        for seed in (-1, 0, 987654321, -2 ** 31):
+            fl = fls_for(shape[0])
+            got = sq.sr_quantize_fused_stacked_int8(x, seed, fl)
+            if not torch.equal(got, sq.plain_stacked(x, seed, fl)):
+                raise AssertionError(f"stacked SR {shape} seed {seed}")
+            flat = sq.sr_quantize_fused_int8(x[0].contiguous(), seed, fl[0])
+            if not torch.equal(flat, sq.plain(x[0], seed, fl[0])):
+                raise AssertionError(f"flat SR {shape[1:]} seed {seed}")
+            if shape[0] == 1 and not torch.equal(flat, got[0]):
+                raise AssertionError("one stacked layer != the flat kernel")
+    x = torch.randn(32, 700, generator=gen, device=dev)
+    for f in range(-3, 29):
+        fl = torch.full((32,), f, dtype=torch.int32, device=dev)
+        x32 = x * 2.0 ** (6 - f)
+        if not torch.equal(sq.sr_quantize_fused_stacked_int8(x32, -77, fl),
+                           sq.plain_stacked(x32, -77, fl)):
+            raise AssertionError(f"stacked SR at FL {f}")
+    for case in pathological(torch):
+        x = case.to(dev)
+        for f in (0, 4, 12):
+            fl = torch.tensor(f, dtype=torch.int32, device=dev)
+            if not torch.equal(sq.sr_quantize_fused_int8(x, 31, fl),
+                               sq.plain(x, 31, fl)):
+                raise AssertionError(f"flat SR pathological at FL {f}")
+    log("[kernels] sr_quantize ragged shapes, FL -3..28, seeds of both signs, "
+        "pathological values: bit-equal")
+    return rows
+
+
+def pathological(torch):
+    """The pathological tensors of tests/test_quantize_differential.py."""
+    f32 = torch.float32
+    return [torch.tensor([0.0, -0.0] * 320, dtype=f32),
+            torch.tensor([1e-42, -3e-41, 5e-44, -1e-45] * 160, dtype=f32),
+            torch.tensor([3.3e38, -3.3e38, 1e30, -1e25] * 160, dtype=f32),
+            torch.full((640,), 0.3, dtype=f32),
+            torch.full((640,), -1.75, dtype=f32),
+            torch.tensor([0.0, -0.0, 1e-42, 3.3e38, -3.3e38, 0.5, -0.5,
+                          1.0] * 80, dtype=f32)]
+
+
+def edf_inputs(torch, w):
+    """PushDown's range-derived FLs of each layer of w (L, n)."""
+    from repro_torch.core import fixed_point as fxp
+    from repro_torch.core import pushdown
+    ladder = torch.tensor(pushdown.WL_LADDER, dtype=torch.int32,
+                          device=w.device)
+    return fxp.fl_for_wl(w.abs().amax(dim=1, keepdim=True),
+                         ladder.reshape(1, -1))
+
+
+def check_edf_ladder(torch, el, gen):
+    """The EDF-ladder kernel against its plain version, counts bit for bit:
+    at (28, 65536) and (1, 65536), the subsample of a switch of
+    llama3.2-3b, with per-layer live bins in [50, 150]; at ragged sizes;
+    on the pathological values (a bin that is NaN counted in no row).
+    Times: kernel, plain version, bound (each input read once, the counts
+    written once; ~166 f32 operations per element at the CUDA-core
+    rate)."""
+    from repro_torch.core import pushdown
+    dev = "cuda"
+    kw = dict(wl_ladder=pushdown.WL_LADDER, r_upr=150)
+    T = len(pushdown.WL_LADDER)
+    rows = []
+    for L, n in ((N_LAYERS, EDF_SAMPLE), (1, EDF_SAMPLE), (3, 65541),
+                 (2, 1), (4, 127)):
+        w = torch.randn(L, n, generator=gen, device=dev) * 0.02
+        fls = edf_inputs(torch, w)
+        r = torch.randint(50, 151, (L,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        got = el.edf_ladder_hists(w, fls, r, **kw)
+        want = el.plain(w, fls, r, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"edf_ladder ({L}, {n}): counts differ by "
+                                 f"{(got - want).abs().max().item()}")
+        if not bool((got.sum(dim=2) == n).all()):
+            raise AssertionError(f"edf_ladder ({L}, {n}): rows do not sum to n")
+        if n == EDF_SAMPLE:
+            row = {"shape": [L, n], "max_abs_err": 0.0,
+                   "ms": cuda_time_ms([lambda: el.edf_ladder_hists(
+                       w, fls, r, **kw)], 20),
+                   "plain_ms": cuda_time_ms([lambda: el.plain(
+                       w, fls, r, **kw)], 5),
+                   "library_ms": None}
+            nbytes = 4.0 * (L * n + L * T + L + 2 * L + T) + \
+                4.0 * L * (1 + T) * 150
+            row["bound_ms"], row["bound_by"] = max(
+                (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (166.0 * L * n / F32_OPS * 1e3, "operations"))
+            rows.append(row)
+            log(f"[kernels] edf_ladder_hists ({L}, {n}): bit-equal, "
+                f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
+                f"bound_ms={row['bound_ms']:.4g}")
+    for case in pathological(torch):
+        w = case.to(dev).reshape(1, -1)
+        fls = edf_inputs(torch, w)
+        for rr in (50, 150):
+            r = torch.tensor([rr], dtype=torch.int32, device=dev)
+            if not torch.equal(el.edf_ladder_hists(w, fls, r, **kw),
+                               el.plain(w, fls, r, **kw)):
+                raise AssertionError("edf_ladder on pathological values")
+    log("[kernels] edf_ladder_hists ragged sizes and pathological values: "
+        "bit-equal")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5
 
@@ -566,7 +759,8 @@ def device_breakdown(torch, fn):
         n += 1
         name = e.name
         for key in ("fxp_matmul", "flash_fwd", "matmul_dx", "matmul_dw",
-                    "flash_dq", "flash_dkv", "Memset", "Memcpy"):
+                    "flash_dq", "flash_dkv", "sr_int8", "edf_ladder",
+                    "to_f32", "Memset", "Memcpy"):
             if key in name:
                 name = key
                 break
@@ -686,12 +880,19 @@ def card_vs_cpu(torch):
 # Phases 6 and 7: training
 
 
-def wrappers(fm, fa):
+def wrappers():
     """Each kernel's wrapper (its launch counter), by kernel name."""
+    from repro_torch.kernels import edf_ladder as el
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fxp_matmul as fm
+    from repro_torch.kernels import sr_quantize as sq
     return {"fxp_matmul": fm.fxp_matmul, "matmul_dx": fm.matmul_dx,
             "matmul_dw": fm.matmul_dw, "flash_attention": fa.flash_attention,
             "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv}
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "sr_quantize_fused_stacked_int8": sq.sr_quantize_fused_stacked_int8,
+            "sr_quantize_fused_int8": sq.sr_quantize_fused_int8,
+            "edf_ladder_hists": el.edf_ladder_hists}
 
 
 def train_path(torch, fm, fa):
@@ -714,7 +915,7 @@ def train_path(torch, fm, fa):
     log(f"[train] init llama3.2-3b master + controller state: "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
-    ws = wrappers(fm, fa)
+    ws = wrappers()
     marks = []
 
     def log_step(line):
@@ -845,6 +1046,200 @@ def train_card_vs_cpu(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: training with SR words through the precision switch
+
+
+def wlfl_histogram(state):
+    """{"<WL,FL>": tensor-layers} over every quantized tensor and layer."""
+    hist = {}
+    for ts in state["adapt"]["tensors"].values():
+        for wl, fl in zip(ts["wl"].reshape(-1).tolist(),
+                          ts["fl"].reshape(-1).tolist()):
+            key = f"<{wl},{fl}>"
+            hist[key] = hist.get(key, 0) + 1
+    return dict(sorted(hist.items()))
+
+
+def sr_train_path(torch):
+    """llama3.2-3b at full width and depth with the registry's stochastic
+    rounding: ``train_loop.train`` takes 2 steps (the switch after step 2
+    closes every tensor's window of two) and then 2 more (a second switch
+    after step 4), with exact launch counts per step and switch; the
+    <WL,FL> histogram before and after the first switch; then the
+    switch's own wall time and device time by kernel, and one profiled SR
+    step (no library GEMM)."""
+    from repro_torch.config import load_config
+    from repro_torch.train import train_loop
+
+    cfg = load_config("llama3.2-3b", overrides=SR_OVERRIDES)
+    q = cfg.quant
+    assert q.stochastic_rounding and q.use_pallas and q.fused_prng
+    assert (cfg.train.adapt_interval, q.lb_lwr) == (2, 2)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, SEED + 5, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[sr] init llama3.2-3b: {time.perf_counter() - t0:.1f} s")
+    n_layers = sum(ts["wl"].numel() for ts in state["adapt"]["tensors"].values())
+    if n_layers != N_STACKED * N_LAYERS + N_FLAT:
+        raise AssertionError(f"{n_layers} tensor-layers")
+    before = wlfl_histogram(state)
+    ws = wrappers()
+    marks = []
+
+    def log_step(line):
+        marks.append({k: w.launches for k, w in ws.items()})
+        log(f"[sr] {line}")
+
+    torch.cuda.reset_peak_memory_stats()
+    for w in ws.values():
+        w.launches = 0
+    state, history = train_loop.train(cfg, steps=2, state=state, log=log_step,
+                                      device="cuda")
+    after = wlfl_histogram(state)
+    counts = torch.cat([ts["count"].reshape(-1)
+                        for ts in state["adapt"]["tensors"].values()])
+    if int(counts.abs().max()) != 0:
+        raise AssertionError("the switch after step 2 left a window open")
+    state, more = train_loop.train(cfg, steps=2, state=state, log=log_step,
+                                   device="cuda")
+    history += more
+    launches = {k: w.launches for k, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[sr] <WL,FL> over {n_layers} tensor-layers before the switch: "
+        f"{before}; after: {after}")
+    prev = {k: 0 for k in ws}
+    tokens = TRAIN_B * TRAIN_S
+    steps = []
+    for h, mark in zip(history, marks):
+        per = {k: mark[k] - prev[k] for k in ws}
+        prev = mark
+        want = dict(SR_PER_STEP)
+        if h["step"] % 2 == 0:
+            want.update(PER_SWITCH)
+        if per != want:
+            raise AssertionError(f"SR step {h['step']}: launches {per} != {want}")
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                and h["grad_norm"] > 0):
+            raise AssertionError(f"SR step {h['step']}: {h}")
+        steps.append({"step": h["step"], "ms": h["dt"] * 1e3,
+                      "switch": h["step"] % 2 == 0,
+                      "tokens_per_s": tokens / h["dt"], "loss": h["loss"],
+                      "grad_norm": h["grad_norm"]})
+        log(f"[sr] step {h['step']}{' + switch' if h['step'] % 2 == 0 else ''}"
+            f": {h['dt'] * 1e3:.1f} ms, loss {h['loss']:.4f}, grad_norm "
+            f"{h['grad_norm']:.4f}")
+    if len(steps) != SR_STEPS:
+        raise AssertionError(f"SR history {history}")
+    log(f"[sr] peak device memory {peak:.2f} GiB, launches {launches}")
+
+    # the switch alone: wall time around synchronised calls, then one under
+    # the profiler (the masks pass over closed windows; the work is the same)
+    switch = train_loop.make_precision_switch(cfg)
+    box = {"state": state}
+
+    def one_switch():
+        box["state"] = switch(box["state"])
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_switch()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    sw_prof = device_breakdown(torch, one_switch)
+    log(f"[sr] switch alone: wall {walls[0]:.1f} / {walls[1]:.1f} ms; "
+        f"profiled wall {sw_prof['wall_ms']:.1f} ms, device busy "
+        f"{sw_prof['busy_ms']:.2f} ms; by kernel: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sw_prof["groups_ms"].items()))
+
+    step_fn = train_loop.make_train_step(cfg)
+    batch = train_loop.make_batch(cfg, SR_STEPS, device="cuda")
+
+    def one_step():
+        box["state"], box["metrics"] = step_fn(box["state"], batch,
+                                               step=SR_STEPS)
+
+    prof = device_breakdown(torch, one_step)
+    if prof["library_gemm_ops"]:
+        raise AssertionError(f"library GEMMs in the SR step: "
+                             f"{prof['library_gemm_ops']}")
+    if not math.isfinite(float(box["metrics"]["loss"])):
+        raise AssertionError("profiled SR step: loss not finite")
+    log(f"[profile] SR train step: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms (share {prof['busy_share']:.3f}); by "
+        "kernel: " + ", ".join(f"{k} {v:.1f}"
+                               for k, v in prof["groups_ms"].items()))
+    del state, box, step_fn, batch
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches, "peak_gib": peak,
+            "wlfl_before": before, "wlfl_after": after,
+            "switch_wall_ms": walls, "switch_profile": sw_prof,
+            "profile": prof}
+
+
+def sr_card_vs_cpu(torch):
+    """Depth 2 at full width, batch 2 x 64, SR words: two steps on the card
+    from a seeded state, then (1) the same state and params through
+    ``precision_switch`` on the card (the EDF-ladder kernel) and on the CPU
+    (its plain version): identical wl, fl, lb, res, count and strategy,
+    equal sp; (2) with the same seeds, the packed SR words of every leaf
+    bit-identical between the card's kernels and the CPU's plain versions."""
+    from repro_torch.config import load_config
+    from repro_torch.core import controller
+    from repro_torch.train import train_loop
+
+    cfg = load_config("llama3.2-3b", overrides=SR_OVERRIDES + [
+        "model.num_layers=2", "train.global_batch=2", "train.seq_len=64"])
+    state = train_loop.init_state(cfg, SEED + 7, device="cuda")
+    step = train_loop.make_train_step(cfg)
+    for i in range(2):
+        state, _ = step(state, train_loop.make_batch(cfg, i, device="cuda"),
+                        step=i)
+    cpu = to_device(state, "cpu")
+    t0 = time.perf_counter()
+    c_out = controller.precision_switch(cpu["adapt"], cpu["params"], cfg.quant)
+    cpu_switch_s = time.perf_counter() - t0
+    g_out = controller.precision_switch(state["adapt"], state["params"],
+                                        cfg.quant)
+    switched = 0
+    for path, cts in c_out["tensors"].items():
+        gts = g_out["tensors"][path]
+        for k in ("wl", "fl", "lb", "res", "count", "sp", "norm_sum"):
+            if not torch.equal(gts[k].cpu(), cts[k]):
+                raise AssertionError(f"depth-2 switch {path} {k}: card "
+                                     f"{gts[k].tolist()} cpu {cts[k].tolist()}")
+        if not torch.equal(gts["grad_sum"].cpu(), cts["grad_sum"]):
+            raise AssertionError(f"depth-2 switch {path} grad_sum")
+        switched += int((cts["count"] == 0).sum())
+    if int(g_out["strategy"]) != int(c_out["strategy"]):
+        raise AssertionError("depth-2 switch strategy")
+    seeds = controller.leaf_seeds(int(state["rng"]), 2, state["adapt"]["tensors"])
+    t0 = time.perf_counter()
+    cq = controller.quantize_params_packed(cpu["params"], c_out, cfg.quant,
+                                           seeds)
+    cpu_words_s = time.perf_counter() - t0
+    gq = controller.quantize_params_packed(state["params"], g_out, cfg.quant,
+                                           seeds)
+    leaves = 0
+    gq, cq = flat_paths(gq), flat_paths(cq)
+    for path in g_out["tensors"]:
+        g, c = gq[path + "/q8"], cq[path + "/q8"]
+        if g.dtype != torch.int8 or not torch.equal(g.cpu(), c):
+            raise AssertionError(f"depth-2 SR words of {path} differ")
+        leaves += 1
+    res = {"tensor_layers_switched": switched, "leaves_bit_equal": leaves,
+           "wlfl": wlfl_histogram({"adapt": c_out}),
+           "cpu_switch_s": cpu_switch_s, "cpu_words_s": cpu_words_s}
+    log(f"[depth2] SR: precision_switch card == CPU ({switched} tensor-layers "
+        f"switched, {res['wlfl']}); SR words of {leaves} leaves bit-equal; "
+        f"CPU switch {cpu_switch_s:.1f} s, CPU words {cpu_words_s:.1f} s")
+    del state, cpu, gq, cq
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -852,8 +1247,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import edf_ladder as el
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fxp_matmul as fm
+    from repro_torch.kernels import sr_quantize as sq
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -873,7 +1270,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     reports = _build.build(["fxp_matmul", "flash_attention", "fxp_matmul_bwd",
-                            "flash_attention_bwd"])
+                            "flash_attention_bwd", "sr_quantize",
+                            "edf_ladder"])
     log(f"[build] {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
@@ -886,6 +1284,8 @@ def main() -> int:
     flash_rows, flash_err = check_flash(torch, fa, gen)
     bwd_rows, bwd_err = check_matmul_bwd(torch, fm, gen)
     fbwd_rows, fbwd_err = check_flash_bwd(torch, fa, gen)
+    sr_rows = check_sr_quantize(torch, sq, gen)
+    edf_rows = check_edf_ladder(torch, el, gen)
     torch.cuda.empty_cache()
 
     # 4. serving main path; 5. serving, card against CPU
@@ -896,16 +1296,23 @@ def main() -> int:
     train_res = train_path(torch, fm, fa)
     train_depth2 = train_card_vs_cpu(torch)
 
-    kernels = kernel_record(main_res, train_res, fxp_rows, fxp_err, flash_rows,
-                            flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err)
+    # 8. SR training main path through the switch; 9. card against CPU
+    sr_res = sr_train_path(torch)
+    sr_depth2 = sr_card_vs_cpu(torch)
+
+    kernels = kernel_record(main_res, train_res, sr_res, fxp_rows, fxp_err,
+                            flash_rows, flash_err, bwd_rows, bwd_err,
+                            fbwd_rows, fbwd_err, sr_rows, edf_rows)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "fxp_matmul": fxp_rows, "flash_attention": flash_rows,
         "matmul_bwd": bwd_rows, "flash_bwd": fbwd_rows,
+        "sr_quantize": sr_rows, "edf_ladder": edf_rows,
         "main_path": main_res, "depth2": depth2, "train": train_res,
-        "train_depth2": train_depth2, "kernels": kernels,
+        "train_depth2": train_depth2, "sr_train": sr_res,
+        "sr_depth2": sr_depth2, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -915,14 +1322,17 @@ def main() -> int:
     return 0
 
 
-def kernel_record(main_res, train_res, fxp_rows, fxp_err, flash_rows,
-                  flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err):
+def kernel_record(main_res, train_res, sr_res, fxp_rows, fxp_err,
+                  flash_rows, flash_err, bwd_rows, bwd_err, fbwd_rows,
+                  fbwd_err, sr_rows, edf_rows):
     """One entry per kernel. Every time sums the kernel's launches in the
-    two main paths from the per-shape times of phase 3: serving (the
+    three main paths from the per-shape times of phase 3: serving (the
     prefill's 196 layer calls at M = 512 and its head call at M = 4, then
-    31 decode steps of 197 calls at M = 4; 28 flash launches) and the
-    3 training steps (per step 197 fwd, dx and dw calls at M = 2048; 28
-    flash forward, dq and dkv launches)."""
+    31 decode steps of 197 calls at M = 4; 28 flash launches), the 3 RTN
+    training steps and the 4 SR training steps (per step 197 fwd, dx and
+    dw calls at M = 2048; 28 flash forward, dq and dkv launches; 7 stacked
+    and 2 flat SR-quantize launches; 9 EDF-ladder launches per switch,
+    after steps 2 and 4)."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
 
     def summed(rows_by_shape, calls):
@@ -936,9 +1346,10 @@ def kernel_record(main_res, train_res, fxp_rows, fxp_err, flash_rows,
                            else "operations")
         return out
 
-    train_calls = {(TRAIN_M, k, n): per_layer * N_LAYERS * TRAIN_STEPS
+    steps = TRAIN_STEPS + SR_STEPS
+    train_calls = {(TRAIN_M, k, n): per_layer * N_LAYERS * steps
                    for (k, n), per_layer in LAYER_SHAPES.items()}
-    train_calls[(TRAIN_M, *HEAD_SHAPE)] = TRAIN_STEPS
+    train_calls[(TRAIN_M, *HEAD_SHAPE)] = steps
     fwd_calls = dict(train_calls)
     for (k, n), per_layer in LAYER_SHAPES.items():
         fwd_calls[(BATCH * PROMPT, k, n)] = per_layer * N_LAYERS
@@ -949,9 +1360,20 @@ def kernel_record(main_res, train_res, fxp_rows, fxp_err, flash_rows,
         return {(r["m"], r["k"], r["n"]): r for r in rows if "ms" in r}
 
     flash_by_case = {r["case"]: r for r in flash_rows if "ms" in r}
-    flash_calls = {"prefill": N_LAYERS, "train": N_LAYERS * TRAIN_STEPS}
+    flash_calls = {"prefill": N_LAYERS, "train": N_LAYERS * steps}
     launches = {k: main_res["launches"].get(k, 0) + train_res["launches"][k]
-                for k in train_res["launches"]}
+                + sr_res["launches"][k] for k in sr_res["launches"]}
+    stacked_by_shape = {tuple(r["shape"]): r
+                        for r in sr_rows["sr_quantize_fused_stacked_int8"]}
+    stacked_calls = {(N_LAYERS, k, n): c * SR_STEPS
+                     for (k, n), c in STACKED_SHAPES.items()}
+    flat_by_shape = {tuple(r["shape"]): r
+                     for r in sr_rows["sr_quantize_fused_int8"]}
+    flat_calls = {shape: SR_STEPS for shape in FLAT_SHAPES}
+    edf_by_shape = {tuple(r["shape"]): r for r in edf_rows}
+    switches = SR_STEPS // 2
+    edf_calls = {(N_LAYERS, EDF_SAMPLE): N_STACKED * switches,
+                 (1, EDF_SAMPLE): N_FLAT * switches}
 
     def entry(name, source, replaces, err, times):
         return {"name": name, "route": "cuda",
@@ -973,13 +1395,20 @@ def kernel_record(main_res, train_res, fxp_rows, fxp_err, flash_rows,
         entry("flash_attention_dq", "flash_attention_bwd.cu",
               "flash_attention.py:245", fbwd_err["flash_attention_dq"],
               {**summed({"train": fbwd_rows["flash_attention_dq"][0]},
-                        {"train": N_LAYERS * TRAIN_STEPS}),
+                        {"train": N_LAYERS * steps}),
                "library_covers": "flash_attention_dq+flash_attention_dkv"}),
         entry("flash_attention_dkv", "flash_attention_bwd.cu",
               "flash_attention.py:279", fbwd_err["flash_attention_dkv"],
               {**summed({"train": fbwd_rows["flash_attention_dkv"][0]},
-                        {"train": N_LAYERS * TRAIN_STEPS}),
+                        {"train": N_LAYERS * steps}),
                "library_covers": "see flash_attention_dq"}),
+        entry("sr_quantize_fused_stacked_int8", "sr_quantize.cu",
+              "sr_quantize.py:299", 0.0,
+              summed(stacked_by_shape, stacked_calls)),
+        entry("sr_quantize_fused_int8", "sr_quantize.cu", "sr_quantize.py:188",
+              0.0, summed(flat_by_shape, flat_calls)),
+        entry("edf_ladder_hists", "edf_ladder.cu", "edf_ladder.py:41", 0.0,
+              summed(edf_by_shape, edf_calls)),
     ]
 
 

@@ -1,2 +1,2 @@
-"""AdaPT core of the port: fixed-point words, init, and the serving half of
-the precision controller."""
+"""AdaPT core of the port: fixed-point words, init, the precision
+controller with PushDown and PushUp, and the regularizer."""

@@ -1,7 +1,7 @@
 """PrecisionController (counterpart of ``repro/core/controller.py``): the
-state, the quantized copy for the forward, and the per-step accumulation
-of the training step. The precision switch (``precision_switch``: PushDown
-and PushUp, alg. 2) comes with slice 3 of the port (ROADMAP.md).
+state, the quantized copy for the forward (round-to-nearest or
+stochastic-rounding int8 words), the per-step accumulation of the training
+step, and the precision switch (PushDown + PushUp, alg. 2).
 
 State layout (a plain dict tree):
 
@@ -24,22 +24,24 @@ State layout (a plain dict tree):
 
 Leaves with a leading stacked-layer dim L (the "blocks" stack) carry
 per-layer precision. The training step reads wl/fl and writes the
-accumulators; ``accumulate`` updates "grad_sum" in place (the reference
-returns a new array) to keep one param-sized bf16 copy on the device.
+accumulators; ``accumulate`` updates "grad_sum" in place, and
+``precision_switch`` zeroes it in place where a window closes (the
+reference returns new arrays), to keep one param-sized bf16 copy on the
+device.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.config import QuantConfig
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core import pushdown, pushup
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.sr_quantize import fold_shard_seed
 
 STACKED_PREFIXES = ("blocks", "layers")
-
-_SLICE_3 = ("comes with slice 3 of the port (the precision switch and the "
-            "SR words; ROADMAP.md)")
 
 
 def path_str(path) -> str:
@@ -147,22 +149,52 @@ def _set_path(tree: dict, path: str, value) -> None:
     tree[last] = value
 
 
+def path_hash(path: str) -> int:
+    """The reference's stable per-path hash (``controller.py:230-234``)."""
+    h = 0
+    for ch in path:
+        h = (h * 131 + ord(ch)) % (2 ** 31 - 1)
+    return h
+
+
+def leaf_seeds(seed: int, step: int, paths: Iterable[str]) -> Dict[str, int]:
+    """The port's int32 SR seed of each leaf at a step: the run seed folded
+    with the step, then with the path hash (``fold_shard_seed`` both
+    times). Host ints in, host ints out, computed on the CPU: no device
+    synchronisation. The reference derives its seeds by threefry
+    (``jax.random.randint`` of a key folded with step and path hash), which
+    the port does not carry, so the two streams agree in distribution;
+    given the reference's seeds, the words agree bit for bit."""
+    paths = list(paths)
+    base = fold_shard_seed(int(seed), int(step))
+    hashes = torch.tensor([path_hash(p) for p in paths], dtype=torch.int64)
+    return dict(zip(paths, fold_shard_seed(base, hashes).tolist()))
+
+
 def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
-                           key=None):
+                           seeds: Optional[Mapping[str, int]] = None):
     """Packed tree: quantized leaves become {"q8", "sc", "wref"} dicts
     (``fixed_point.PACKED_KEYS``); every other leaf is cast to bf16.
 
-    Only the round-to-nearest branch (``key=None``, or stochastic rounding
-    off) is ported: round-half-even words, clipped to [-128, 127]. The
-    stochastic-rounding branch raises (slice 3), and so does the
-    quantize-prologue format (a later slice).
+    With ``quant.stochastic_rounding`` and ``seeds`` (an int32 seed per
+    quantized leaf path, ``leaf_seeds``) the words are stochastically
+    rounded with the noise drawn in the kernel: ``quant.use_pallas`` and
+    ``quant.fused_prng`` must be set (the reference's other SR branch draws
+    ``jax.random`` noise, which the port does not carry, and raises), and
+    a leaf takes the stacked kernel when its FL is per layer. Otherwise the
+    words are rounded to nearest, half to even. Both clip to [-128, 127].
+    The quantize-prologue format raises (a later slice).
 
     "wref" is a bf16 zero of the leaf's shape that nothing reads, so it is
     a zero-stride view that takes no memory; ``grad_receivers`` makes it
     the leaf's gradient receiver, whose gradient autograd materializes."""
-    if key is not None and qcfg.stochastic_rounding:
+    sr = seeds is not None and qcfg.stochastic_rounding
+    if sr and not (qcfg.use_pallas and qcfg.fused_prng):
         raise NotImplementedError(
-            "stochastic-rounding quantize_params_packed " + _SLICE_3)
+            "stochastic-rounding quantize_params_packed without "
+            "quant.use_pallas and quant.fused_prng draws jax.random noise "
+            "in the reference, which the port does not carry (ROADMAP.md, "
+            "Queue 1)")
     if qcfg.use_pallas and qcfg.dense_prologue:
         raise NotImplementedError(
             "the quantize-prologue format (quant.dense_prologue) is not "
@@ -174,13 +206,23 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
             _set_path(out, p, leaf.to(torch.bfloat16))
             continue
         fl = tensors[p]["fl"]
-        flb = fl.reshape(tuple(fl.shape) + (1,) * (leaf.ndim - 1)) \
-            if fl.ndim else fl
-        # in place on the one f32 temporary: at full width the largest leaf
-        # is 2.8 GB in f32, so every extra temporary counts
-        x = leaf.to(torch.float32) * fxp.pow2i(flb)
-        q8 = x.round_().clamp_(-128.0, 127.0).to(torch.int8)
-        del x
+        if sr:
+            if fl.ndim > 1 or (fl.ndim == 1 and fl.shape[0] != leaf.shape[0]):
+                raise NotImplementedError(
+                    f"{p}: SR words for a precision of shape "
+                    f"{tuple(fl.shape)} on a leaf of shape "
+                    f"{tuple(leaf.shape)} take the jax.random noise path, "
+                    "which the port does not carry")
+            q8 = kops.sr_quantize_fused_int8(leaf, seeds[p], fl,
+                                             use_pallas=True)
+        else:
+            flb = fl.reshape(tuple(fl.shape) + (1,) * (leaf.ndim - 1)) \
+                if fl.ndim else fl
+            # in place on the one f32 temporary: at full width the largest
+            # leaf is 2.8 GB in f32, so every extra temporary counts
+            x = leaf.to(torch.float32) * fxp.pow2i(flb)
+            q8 = x.round_().clamp_(-128.0, 127.0).to(torch.int8)
+            del x
         wref = torch.zeros((), dtype=torch.bfloat16,
                            device=leaf.device).expand(leaf.shape)
         _set_path(out, p, {"q8": q8, "sc": _sc_for(p, leaf, fl),
@@ -236,6 +278,97 @@ def accumulate(state: Dict[str, Any], grads, loss: torch.Tensor
     return {**state, "tensors": tensors, "loss_hist": h,
             "loss_ptr": (ptr + 1) % h.shape[0],
             "loss_seen": state["loss_seen"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# Precision switch (PushDown + PushUp, masked per tensor/layer)
+
+
+def _avg_lookback(state: Dict[str, Any]) -> torch.Tensor:
+    lbs = [torch.mean(ts["lb"].to(torch.float32))
+           for ts in state["tensors"].values()]
+    return (torch.mean(torch.stack(lbs)) if lbs
+            else torch.tensor(0.0, device=state["loss_hist"].device))
+
+
+def _loss_stats(state: Dict[str, Any], lb_avg: torch.Tensor):
+    """(avg loss over the last ⌈lb_avg⌉ entries, most recent loss) from
+    the ring buffer."""
+    h = state["loss_hist"]
+    n = h.shape[0]
+    ptr = state["loss_ptr"].long()                # next write slot
+    seen = torch.clamp(state["loss_seen"], max=n)
+    k = torch.minimum(torch.clamp(torch.ceil(lb_avg).to(torch.int32), min=1),
+                      seen)
+    ar = torch.arange(n, device=h.device)
+    vals = h[(ptr - 1 - ar) % n]                  # most recent first
+    mask = (ar < k).to(torch.float32)
+    avg = torch.sum(vals * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return avg, vals[0]
+
+
+def _switch_tensor(ts: Dict[str, torch.Tensor], w: torch.Tensor,
+                   strategy: torch.Tensor, qcfg: QuantConfig
+                   ) -> Dict[str, torch.Tensor]:
+    """PushDown + PushUp for one tensor, every layer of a stacked one at
+    once (the reference's ``jax.vmap`` written out as a leading dim). Where
+    the window is not full (count < lb) the layer keeps its state; where it
+    is, count and norm_sum reset and "grad_sum" is zeroed in place."""
+    per_layer = bool(ts["wl"].shape)
+    shape = ts["wl"].shape
+    L = w.shape[0] if per_layer else 1
+    gsum = ts["grad_sum"]
+    norms = [torch.sqrt(torch.sum(torch.square(g.to(torch.float32))) + 1e-30)
+             for (g,) in unbind_layers(gsum, stacked=per_layer)]
+    gsum_norm = torch.stack(norms).reshape(shape)
+
+    def vec(t):                                   # state leaf → (L,)
+        return t.reshape(L)
+
+    ds = pushup.gradient_diversity(vec(ts["norm_sum"]), vec(gsum_norm))
+    flat = pushdown.subsample(w.reshape(L, -1).to(torch.float32),
+                              qcfg.edf_sample).contiguous()
+    wl_min, fl_min = pushdown.push_down(
+        flat, vec(ts["res"]), r_upr=qcfg.r_upr, eps_kl=qcfg.eps_kl,
+        max_wl=qcfg.max_wl, use_pallas=qcfg.use_pallas)
+    wl_new, fl_new = pushup.push_up(wl_min, fl_min, ds, strategy,
+                                    buff=qcfg.buff, max_wl=qcfg.max_wl)
+    lb_new = pushup.adapt_lookback(vec(ts["lb"]), ds, lb_lwr=qcfg.lb_lwr,
+                                   lb_upr=qcfg.lb_upr, gamma=qcfg.gamma)
+    res_new = pushup.adapt_resolution(vec(ts["res"]), lb_new,
+                                      lb_lwr=qcfg.lb_lwr, lb_upr=qcfg.lb_upr,
+                                      r_lwr=qcfg.r_lwr, r_upr=qcfg.r_upr)
+    # sparsity of the subsample quantized at the new precision
+    qw = fxp.quantize(flat, wl_new.reshape(L, 1), fl_new.reshape(L, 1))
+    sp_new = torch.mean((torch.abs(qw) > 0.0).to(torch.float32), dim=1)
+    should = ts["count"] >= ts["lb"]
+
+    def pick(new, old):
+        return torch.where(should, new.reshape(shape).to(old.dtype), old)
+
+    gsum.masked_fill_(should.reshape(shape + (1,) * (gsum.ndim - len(shape))),
+                      0.0)
+    zero = torch.zeros_like
+    return {"wl": pick(wl_new, ts["wl"]), "fl": pick(fl_new, ts["fl"]),
+            "lb": pick(lb_new, ts["lb"]), "res": pick(res_new, ts["res"]),
+            "count": pick(zero(ts["count"]), ts["count"]),
+            "norm_sum": pick(zero(ts["norm_sum"]), ts["norm_sum"]),
+            "grad_sum": gsum, "sp": pick(sp_new, ts["sp"])}
+
+
+def precision_switch(state: Dict[str, Any], params,
+                     qcfg: QuantConfig) -> Dict[str, Any]:
+    """Alg. 2: AdaptStrategy, then per tensor Adapt{Lookback,Resolution} +
+    PushDown + PushUp where the window is full (masked, no host
+    synchronisation). Returns the new state; "grad_sum" is updated in
+    place."""
+    lb_avg = _avg_lookback(state)
+    loss_avg, loss_now = _loss_stats(state, lb_avg)
+    strategy = pushup.adapt_strategy(state["strategy"], loss_avg, loss_now)
+    flat = dict(flatten_with_path(params))
+    tensors = {path: _switch_tensor(ts, flat[path], strategy, qcfg)
+               for path, ts in state["tensors"].items()}
+    return {**state, "tensors": tensors, "strategy": strategy}
 
 
 def snapshot(state: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:

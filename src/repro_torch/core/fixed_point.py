@@ -6,12 +6,12 @@ The network keeps int8 words plus a 2^-FL scale: the packed
 ⟨q8, sc, wref⟩ dict the controller emits, dequantized at its use site or
 fed whole to the fxp matmul kernels, with gradients routed to "wref".
 
-Counterpart of ``repro/core/fixed_point.py``: grids, round-to-nearest
-quantization, activation quantization with the straight-through gradient,
-the packed format with ``dequant_packed``'s gradient rule, and
-``sparsity``. Stochastic rounding comes with slice 3 of the port (the SR
-words) and the quantize-prologue format (``qdense_view``) later
-(ROADMAP.md, Queue 1).
+Counterpart of ``repro/core/fixed_point.py``: grids, round-to-nearest and
+stochastic-rounding quantization (the noise ``u`` supplied by the caller),
+activation quantization with the straight-through gradient, the packed
+format with ``dequant_packed``'s gradient rule, and ``sparsity``. The
+quantize-prologue format (``qdense_view``) comes later (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -36,25 +36,41 @@ def fxp_bounds(wl) -> tuple[torch.Tensor, torch.Tensor]:
     return -qmax - 1.0, qmax
 
 
-def quantize(w: torch.Tensor, wl, fl) -> torch.Tensor:
-    """Quantize to the ⟨WL,FL⟩ grid, rounding to nearest, half to even;
-    returns grid values in f32. WL/FL are ints or tensors broadcastable
-    to w."""
+def stochastic_round(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """SR(x): floor(x) + (u < frac(x)). ``u`` ~ U[0,1) with x's shape."""
+    f = torch.floor(x)
+    return f + (u < (x - f)).to(x.dtype)
+
+
+def _round(x: torch.Tensor, u) -> torch.Tensor:
+    """Round to nearest, half to even (``torch.round``, as ``jnp.round``)
+    when ``u`` is None, else stochastically with the noise ``u``."""
+    if u is None:
+        return torch.round(x)
+    return stochastic_round(x, u.to(torch.float32))
+
+
+def quantize(w: torch.Tensor, wl, fl, *, u=None) -> torch.Tensor:
+    """Quantize to the ⟨WL,FL⟩ grid; returns grid values in f32. ``u``
+    supplies U[0,1) noise for stochastic rounding; ``None`` rounds to
+    nearest (PushDown's deterministic probe). WL/FL are ints or tensors
+    broadcastable to w."""
     w = w.to(torch.float32)
     scale = pow2i(fl).to(w.device)
     qmin, qmax = fxp_bounds(wl)
-    q = torch.round(w * scale)
+    q = _round(w * scale, u)
     q = torch.clamp(q, qmin.to(w.device), qmax.to(w.device))
     return q / scale
 
 
-def quantize_int8(w: torch.Tensor, fl) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(w: torch.Tensor, fl, *, u=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize to int8 words (WL<=8 enforced by the clip) + scale 2^-FL,
-    round-to-nearest-even (``torch.round``, as ``jnp.round``).
+    rounding as :func:`quantize`.
 
     Returns (q_int8, scale) with dequant = q * scale."""
     scale = pow2i(fl).to(w.device)
-    q = torch.round(w.to(torch.float32) * scale)
+    q = _round(w.to(torch.float32) * scale, u)
     q = q.clamp(-128.0, 127.0).to(torch.int8)
     return q, (1.0 / scale).to(torch.float32)
 

@@ -41,14 +41,27 @@ def adapt_state_from_numpy(state, device) -> Dict[str, Any]:
     return out
 
 
+def seed_from_key(key) -> torch.Tensor:
+    """The run seed of a reference PRNG key: ``jax.random.PRNGKey(seed)``
+    is uint32 ``[0, seed]`` for a seed in [0, 2^32), and the port keeps the
+    seed itself, an int64 scalar on the host, as ``train_loop.init_state``
+    makes it. Raises on a key of any other form (a split or folded key),
+    which no seed of the port stands for."""
+    k = np.asarray(key)
+    if k.shape != (2,) or k.dtype != np.uint32 or int(k[0]) != 0:
+        raise ValueError(f"not a PRNGKey(seed) of a seed in [0, 2^32): "
+                         f"{k.dtype} {k.shape} {k.tolist()}")
+    return torch.tensor(int(k[1]), dtype=torch.int64)
+
+
 def train_state_from_numpy(state, device) -> Dict[str, Any]:
     """The reference's whole train state (params, stats, opt, adapt, step,
-    rng) → the port's. The PRNG key is carried as it is (int64); the port
-    draws no stochastic-rounding noise from it yet."""
+    rng) → the port's; the PRNG key becomes the port's run seed
+    (``seed_from_key``)."""
     out = {k: params_from_numpy(v, device) for k, v in state.items()
            if k not in ("adapt", "rng")}
     out["adapt"] = adapt_state_from_numpy(state["adapt"], device)
-    out["rng"] = torch.from_numpy(np.asarray(state["rng"]).astype(np.int64))
+    out["rng"] = seed_from_key(state["rng"])
     return out
 
 

@@ -1,5 +1,6 @@
 """Dispatch over the port's kernels (counterpart of ``repro/kernels/ops.py``):
-the fxp matmul, the model's differentiable dense layer and attention.
+the fxp matmul, the model's differentiable dense layer and attention, the
+stochastic-rounding int8 words and PushDown's EDF ladder.
 
 The rule, by the device of the tensor each op is given:
 
@@ -19,9 +20,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import edf_ladder as _el
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fxp_matmul as _fm
 from repro_torch.kernels import ref
+from repro_torch.kernels import sr_quantize as _sq
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -131,3 +134,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      scale)
     return ref.ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
+
+
+def sr_quantize_fused_int8(x: torch.Tensor, seed, fl, *,
+                           use_pallas: bool = False) -> torch.Tensor:
+    """int8 SR words of the f32 master with in-kernel noise
+    (dequant = q8·2^-FL at the consumer): an (L,) FL selects the stacked
+    kernel (layer l at fl[l], one launch), a scalar FL the flat one, as
+    ``repro/kernels/ops.py:129-160`` does. ``seed`` is a host int. Without
+    ``use_pallas`` the reference draws ``jax.random`` noise, which the port
+    does not carry: that raises."""
+    if not use_pallas:
+        raise NotImplementedError(
+            "sr_quantize_fused_int8 without use_pallas draws jax.random "
+            "noise in the reference, which the port does not carry "
+            "(ROADMAP.md, Queue 1)")
+    fl = torch.as_tensor(fl, dtype=torch.int32, device=x.device)
+    if fl.ndim:
+        return _sq.sr_quantize_fused_stacked_int8(x, seed, fl)
+    return _sq.sr_quantize_fused_int8(x, seed, fl)
+
+
+def edf_ladder_hists(w: torch.Tensor, fls: torch.Tensor, r, *,
+                     wl_ladder: tuple, r_upr: int,
+                     use_pallas: bool = False) -> torch.Tensor:
+    """Master + per-WL-candidate histograms in one data pass: w (L, n),
+    fls (L, T) and r (L,) give (L, 1+T, r_upr), one layer of the
+    reference's vmap per row. With ``use_pallas`` the kernel (its plain
+    version on the CPU), otherwise the plain version on any device."""
+    r = torch.as_tensor(r, dtype=torch.int32, device=w.device).reshape(-1)
+    w = w.to(torch.float32).contiguous()
+    fn = _el.edf_ladder_hists if use_pallas else ref.ref_edf_ladder_hists
+    return fn(w, fls, r, wl_ladder=wl_ladder, r_upr=r_upr)

@@ -9,7 +9,155 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.fixed_point import pow2i
+
 NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# The portable counter-hash stream of the fused SR quantize kernels, a
+# contract pinned by ``tests/golden/sr_prng_stream.json``: for element
+# ``idx`` of a tensor, the murmur3 finalizer of ``idx + seed·0x9E3779B9``
+# (uint32 arithmetic) gives u = (h >> 8)·2^-24. torch has no uint32
+# arithmetic on the CPU, so these run in int64 and mask to 32 bits after
+# every step; a product with a 32-bit constant is split into its 16-bit
+# halves so that it stays below 2^63.
+
+FUSED_LANES = 512          # the fused kernels' padded row width
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h · c) mod 2^32 for int64 h in [0, 2^32), in place on ``h``."""
+    hi = h * (c >> 16)
+    hi.bitwise_and_(0xFFFF).bitwise_left_shift_(16)
+    return h.mul_(c & 0xFFFF).add_(hi).bitwise_and_(_M32)
+
+
+def _u32(v) -> int:
+    """An int32 (or any int) as the uint32 of the same low 32 bits."""
+    return int(v) & _M32
+
+
+def _mix(h: torch.Tensor) -> torch.Tensor:
+    """The rounds both hashes share, in place: h ^= h >> 16;
+    h *= 0x7FEB352D; h ^= h >> 15."""
+    h.bitwise_xor_(h >> 16)
+    _mul32(h, 0x7FEB352D)
+    return h.bitwise_xor_(h >> 15)
+
+
+def _uniform(seed, h: torch.Tensor) -> torch.Tensor:
+    """U[0,1) f32 of the int64 indices ``h`` in [0, 2^32), hashed in place:
+    h += seed·0x9E3779B9, the finalizer, u = (h >> 8)·2^-24."""
+    h.add_((_u32(seed) * 0x9E3779B9) & _M32).bitwise_and_(_M32)
+    _mix(h)
+    _mul32(h, 0x846CA68B)
+    h.bitwise_xor_(h >> 16)
+    return (h >> 8).to(torch.float32).mul_(1.0 / (1 << 24))
+
+
+def ref_fused_noise(seed, n: int, offset: int = 0, *,
+                    device=None) -> torch.Tensor:
+    """U[0,1) f32 words the fused kernels draw for flat padded elements
+    [offset, offset + n) (``repro/kernels/ref.py:71``)."""
+    h = torch.arange(n, dtype=torch.int64, device=device)
+    return _uniform(seed, h.add_(_u32(offset)).bitwise_and_(_M32))
+
+
+def ref_fold_shard_seed(seed, idx) -> torch.Tensor:
+    """Per-shard seed fold (``repro/kernels/ref.py:85``): int32 in and
+    out, the bit pattern of the mixed uint32. ``seed`` and ``idx`` are
+    ints or int tensors (broadcast)."""
+    s = torch.as_tensor(idx, dtype=torch.int64).bitwise_and(_M32)
+    _mul32(s, 0x9E3779B9)
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=s.device)
+    s.add_(seed.bitwise_and(_M32)).bitwise_and_(_M32)
+    _mix(s)
+    return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
+
+
+def _sr_int8(x: torch.Tensor, u: torch.Tensor, fl) -> torch.Tensor:
+    """clip(floor(x·2^fl) + [u < frac], −128, 127) as int8."""
+    s = x.to(torch.float32) * pow2i(fl).to(x.device)
+    f = torch.floor(s)
+    q = f + (u < (s - f)).to(torch.float32)
+    return q.clamp_(-128.0, 127.0).to(torch.int8)
+
+
+def ref_sr_quantize_fused_int8_words(x: torch.Tensor, seed, fl
+                                     ) -> torch.Tensor:
+    """Plain version of ``sr_quantize_fused_int8`` (the words of the
+    portable stream, ``repro/kernels/ref.py:104``): element i of the flat
+    tensor takes the noise of index i."""
+    u = ref_fused_noise(seed, x.numel(), device=x.device).reshape(x.shape)
+    return _sr_int8(x, u, fl)
+
+
+def _stacked_stride(x: torch.Tensor) -> tuple[int, int]:
+    """(elements of one layer, the padded plane's stride rows·512)."""
+    n = x[0].numel()
+    return n, -(-n // FUSED_LANES) * FUSED_LANES
+
+
+def ref_sr_quantize_fused_stacked_int8_words(x: torch.Tensor, seed,
+                                             fl: torch.Tensor
+                                             ) -> torch.Tensor:
+    """Plain version of ``sr_quantize_fused_stacked_int8``
+    (``repro/kernels/ref.py:163``): layer l at FL ``fl[l]``, noise from
+    flat offset l·rows·512 of the shared stream. One layer at a time, so
+    the int64 hash temporaries stay one layer's size."""
+    n, stride = _stacked_stride(x)
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    for l in range(x.shape[0]):
+        u = ref_fused_noise(seed, n, offset=l * stride, device=x.device)
+        out[l] = _sr_int8(x[l].reshape(-1), u, fl[l]).reshape(x.shape[1:])
+    return out
+
+
+def _edf_bins(v: torch.Tensor, lo, span, rf) -> torch.Tensor:
+    """Bin of each value, clip(floor((v − lo) / span · r), 0, r − 1) in
+    f32 in the reference's expression order; NaN where that is NaN."""
+    t = torch.floor((v - lo) / span * rf)
+    return torch.minimum(torch.maximum(t, torch.zeros_like(t)), rf - 1)
+
+
+def ref_edf_ladder_hists(w: torch.Tensor, fls: torch.Tensor, r: torch.Tensor,
+                         *, wl_ladder: tuple, r_upr: int) -> torch.Tensor:
+    """Plain version of the EDF-ladder kernel, batched over layers.
+
+    w: (L, n) f32 subsampled weights; fls: (L, T) int32 per-candidate FLs;
+    r: (L,) int32 live bins. Returns f32 counts (L, 1+T, r_upr): row 0 the
+    master's histogram, row 1+t that of w rounded to nearest (half to
+    even) on ⟨wl_ladder[t], fls[t]⟩, all over each layer's own [min, max]
+    with r live bins.
+
+    As ``repro/kernels/ref.py:207``, except for an element whose bin is NaN
+    (``hi − lo`` overflows to inf): the Pallas kernel counts it in no row,
+    and so does this function, while the reference's jnp oracle converts
+    the NaN to bin 0 (XLA's float→int conversion) and counts it there."""
+    L, n = w.shape
+    T = len(wl_ladder)
+    wf = w.to(torch.float32)
+    lo = wf.amin(dim=1, keepdim=True)
+    hi = wf.amax(dim=1, keepdim=True)
+    span = torch.clamp(hi - lo, min=1e-12)
+    rf = r.to(torch.float32).reshape(L, 1)
+    rows = [_edf_bins(wf, lo, span, rf)]
+    for t, wl in enumerate(wl_ladder):
+        scale = pow2i(fls[:, t]).reshape(L, 1)
+        qmax = torch.tensor(2.0 ** (wl - 1) - 1.0, dtype=torch.float32)
+        qmin = -qmax - 1.0
+        q = torch.clamp(torch.round(wf * scale), qmin.item(), qmax.item())
+        rows.append(_edf_bins(q / scale, lo, span, rf))
+    bins = torch.stack(rows, dim=1)                            # (L, 1+T, n)
+    live = ~torch.isnan(bins)
+    flat = torch.where(live, bins, 0.0).to(torch.int64)
+    flat += (torch.arange(L * (1 + T), device=w.device) * r_upr
+             ).reshape(L, 1 + T, 1)
+    counts = torch.zeros(L * (1 + T) * r_upr, dtype=torch.float32,
+                         device=w.device)
+    counts.index_add_(0, flat.reshape(-1), live.reshape(-1).to(torch.float32))
+    return counts.reshape(L, 1 + T, r_upr)
 
 
 def ref_fxp_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,

@@ -4,7 +4,6 @@ steps through ``train_loop.train``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --override quant.container_dtype=int8_packed \
         --override quant.use_pallas=true \
-        --override quant.stochastic_rounding=false \
         --override quant.init_fl=10 --override train.remat=none \
         --override train.accum_steps=1 --override train.global_batch=4 \
         --override train.seq_len=512 --steps 3

@@ -38,8 +38,7 @@ def quantize_for_serving(params, adapt_state, qcfg, max_wl=None):
             "grid containers) is not ported yet (ROADMAP.md, Queue 1); use "
             "quant.container_dtype=int8_packed")
     qcfg = dataclasses.replace(qcfg, dense_prologue=False)
-    return controller.quantize_params_packed(params, adapt_state, qcfg,
-                                             key=None)
+    return controller.quantize_params_packed(params, adapt_state, qcfg)
 
 
 def make_prefill(cfg: Config):

@@ -2,8 +2,13 @@
 ``repro/train/train_loop.py``), dense LM family.
 
 Each ``train_step``:
-    1. L̂ = Quantize(L, Q)            — RTN int8 words of the f32 master at
-                                        the controller's ⟨WL,FL⟩ (packed);
+    1. L̂ = Quantize(L, Q)            — int8 words of the f32 master at the
+                                        controller's ⟨WL,FL⟩ (packed):
+                                        stochastically rounded with a seed
+                                        per ⟨run seed, step, leaf⟩
+                                        (``quant.stochastic_rounding``,
+                                        the kernel draws the noise) or
+                                        rounded to nearest;
     2. the forward through the fxp and flash kernels (``quant.use_pallas``),
        activations quantized per slot; the loss with the elastic net and
        the WL penalty;
@@ -12,12 +17,16 @@ Each ``train_step``:
     4. controller.accumulate, per-tensor grad normalization, clipping, ROP
        and the optimizer update of the master (in place).
 
-What is not ported raises, by name: the precision switch
-(``make_precision_switch``; slice 3, so ``train`` raises at the first
-switch step and never skips it), stochastic rounding (the SR branch of
-``quantize_params_packed``; slice 3), gradient accumulation
-(``train.accum_steps > 1``), QSGD pod compression, remat, float and
-``quant.mode=off`` containers, and the CNN family.
+Every ``adapt_interval`` steps the precision switch (alg. 2: PushDown
+through the EDF-ladder kernel under ``quant.use_pallas``, then PushUp and
+the adaptation of strategy, lookback and resolution) moves each tensor
+whose window is full to its new ⟨WL,FL⟩.
+
+What is not ported raises, by name: SR words from ``jax.random`` noise
+(stochastic rounding without ``quant.use_pallas`` and
+``quant.fused_prng``), gradient accumulation (``train.accum_steps > 1``),
+QSGD pod compression, remat, float and ``quant.mode=off`` containers, and
+the CNN family.
 """
 from __future__ import annotations
 
@@ -100,18 +109,25 @@ def _set_path(tree: dict, path: str, value) -> None:
 
 
 def make_train_step(cfg: Config) -> Callable:
-    """``train_step(state, batch) -> (state, metrics)``. The step updates
-    the master params, the optimizer's moments and the controller's
-    "grad_sum" in place and returns the state dict with the new scalars."""
+    """``train_step(state, batch, step=None) -> (state, metrics)``. The
+    step updates the master params, the optimizer's moments and the
+    controller's "grad_sum" in place and returns the state dict with the
+    new scalars. ``step`` is the host's index of this step (the value of
+    ``state["step"]``), from which the SR seeds are derived; when it is not
+    given, ``state["step"]`` is read once."""
     _check_ported(cfg)
     qcfg, ocfg = cfg.quant, cfg.optimizer
 
-    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                   step: Optional[int] = None
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         params, adapt = state["params"], state["adapt"]
-        # any key selects the stochastic-rounding branch, which raises
-        qkey = state["step"] if qcfg.stochastic_rounding else None
-        qparams = controller.quantize_params_packed(params, adapt, qcfg, qkey)
+        seeds = None
+        if qcfg.stochastic_rounding:
+            i = int(state["step"]) if step is None else step
+            seeds = controller.leaf_seeds(int(state["rng"]), i,
+                                          adapt["tensors"])
+        qparams = controller.quantize_params_packed(params, adapt, qcfg, seeds)
         act_wl = (transformer.act_wl_from_state(adapt)
                   if qcfg.quantize_activations else None)
         receivers = controller.grad_receivers(qparams)
@@ -144,16 +160,14 @@ def make_train_step(cfg: Config) -> Callable:
 
 
 def make_precision_switch(cfg: Config) -> Callable:
-    """The precision switch of alg. 2 (PushDown with the EDF-ladder kernel,
-    then PushUp) comes with slice 3 of the port: the returned function
-    raises when it is called."""
-    del cfg
+    """``precision_switch(state) -> state``: alg. 2 on the controller
+    state, from the current master params."""
+    qcfg = cfg.quant
 
     def precision_switch(state: Dict[str, Any]) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "controller.precision_switch (PushDown + PushUp, the EDF-ladder "
-            "kernel) comes with slice 3 of the port (ROADMAP.md); a run that "
-            "reaches a switch step stops here rather than skip it")
+        adapt = controller.precision_switch(state["adapt"], state["params"],
+                                            qcfg)
+        return {**state, "adapt": adapt}
 
     return precision_switch
 
@@ -176,7 +190,7 @@ def train(cfg: Config, *, steps: Optional[int] = None,
     """Run the loop on ``device`` (default ``cuda``); returns (state,
     history). The precision switch is called after every
     ``adapt_interval``-th step (``quant.lb_lwr`` when 0), as in the
-    reference, and raises there (slice 3)."""
+    reference."""
     steps = steps if steps is not None else cfg.train.steps
     dev = resolve_device(device)
     if state is None:
@@ -190,7 +204,7 @@ def train(cfg: Config, *, steps: Optional[int] = None,
     for i in range(start_step, start_step + steps):
         t0 = time.perf_counter()
         batch = make_batch(cfg, i, device=dev)
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, batch, step=i)
         if (i + 1) % interval == 0:
             state = switch_fn(state)
         if dev.type == "cuda":

@@ -13,8 +13,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import load_config  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import controller  # noqa: E402
+from repro_torch.core import controller, pushdown, pushup  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import edf_ladder, sr_quantize  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
@@ -29,7 +30,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.serve.engine, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
-            "repro_torch.train.train_loop\n"
+            "repro_torch.train.train_loop, repro_torch.core.pushdown, "
+            "repro_torch.core.pushup, repro_torch.kernels.sr_quantize, "
+            "repro_torch.kernels.edf_ladder\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax', 'jaxlib') or m.startswith('jax'))\n"
             "assert not bad, bad\n")
@@ -97,3 +100,26 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
             call()
     state, _ = train_loop.train(cfg, steps=1, device="cpu", log=lambda s: None)
     assert int(state["step"]) == 1 and state["params"]["embed"].device.type == "cpu"
+
+
+def test_new_kernel_wrappers_take_the_card_or_raise():
+    """A CPU tensor takes the plain version (no launch counted); a tensor
+    on any other device than the CPU or CUDA raises rather than fall back."""
+    x = torch.zeros(2, 8)
+    fl = torch.zeros(2, dtype=torch.int32)
+    n0 = sr_quantize.sr_quantize_fused_stacked_int8.launches
+    assert sr_quantize.sr_quantize_fused_stacked_int8(x, 3, fl).dtype == \
+        torch.int8
+    assert sr_quantize.sr_quantize_fused_stacked_int8.launches == n0
+    w = torch.randn(1, 64)
+    fls = torch.zeros(1, len(pushdown.WL_LADDER), dtype=torch.int32)
+    counts = edf_ladder.edf_ladder_hists(
+        w, fls, torch.tensor([50], dtype=torch.int32),
+        wl_ladder=pushdown.WL_LADDER, r_upr=150)
+    assert counts.shape == (1, 1 + len(pushdown.WL_LADDER), 150)
+    assert edf_ladder.edf_ladder_hists.launches == 0
+    meta = torch.zeros(2, 8, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        sr_quantize.sr_quantize_fused_stacked_int8(
+            meta, 3, torch.zeros(2, dtype=torch.int32, device="meta"))
+    assert pushup.ST_MAX == 2

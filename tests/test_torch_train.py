@@ -439,12 +439,20 @@ def test_launcher_trains_tiny_on_the_cpu(capsys):
 
 
 def test_train_raises_at_the_first_switch_step():
+    """The first switch step used to raise (the switch was not ported);
+    now ``train`` passes it: the switch after step 2 closes every
+    tensor's window (count back to 0) and the run goes on to step 4."""
     cfg = load_config("tiny", overrides=OVERRIDES + [
-        "train.adapt_interval=2", "train.log_every=1"])
+        "train.adapt_interval=2", "quant.lb_lwr=2", "train.log_every=1"])
     logged = []
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        train_loop.train(cfg, steps=4, device="cpu", log=logged.append)
-    assert len(logged) == 1 and logged[0].startswith("step     1")
+    state, history = train_loop.train(cfg, steps=4, device="cpu",
+                                      log=logged.append)
+    assert len(logged) == 4 and logged[1].startswith("step     2")
+    assert [h["step"] for h in history] == [1, 2, 3, 4]
+    assert all(int(ts["count"].max()) <= 2
+               for ts in state["adapt"]["tensors"].values())
+    assert any(not torch.equal(ts["wl"], torch.full_like(ts["wl"], 8))
+               for ts in state["adapt"]["tensors"].values())
 
 
 @pytest.mark.parametrize("override,match", [
