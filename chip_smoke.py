@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one H100: build the kernels, hold
 each against its plain version, serve llama3.2-3b through the ``Engine``,
 train it with AdaPT-SGD through ``train_loop.train`` (round-to-nearest
-words, then stochastically rounded words through a precision switch), and
-compare the card with the CPU at depth 2 for each.
+words, stochastically rounded words through a precision switch, the float
+containers, the quantize prologue), and compare the card with the CPU at
+depth 2 for each.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,12 @@ Phases (any failure exits non-zero; nothing is caught):
      window+softcap / no-key-rows cases and lse; ``matmul_dx`` and
      ``matmul_dw`` at every training shape (M = 2048) plus ragged shapes in
      bf16 and f32; ``flash_attention_dq``/``_dkv`` at (4, 512, 24/8, 128)
-     causal plus the contract's other cases;
+     causal plus the contract's other cases; the SR int8 words and the EDF
+     ladder bit for bit; the float SR grid values (flat and stacked, f32
+     and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28;
+     ``fxp_qmatmul``/``matmul_qdx`` at every training shape and ragged
+     shapes in both modes; the float containers' cuBLAS bf16 GEMMs with
+     and without bf16 split-K reduction;
   4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
      weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
      prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward;
@@ -37,7 +43,22 @@ Phases (any failure exits non-zero; nothing is caught):
      wall and device time by kernel, a profiled SR step;
   9. SR training, card against CPU at depth 2: the same state through
      ``precision_switch`` on both, and the SR words of every leaf with the
-     same seeds.
+     same seeds;
+ 10. path A, the float containers: full llama3.2-3b in the registry's
+     float32 container with SR, 4 steps through two switches (7 stacked +
+     2 flat float-SR launches a step, no fxp kernel, a profiled step whose
+     dense layers are library GEMMs, as the reference's XLA dots), the
+     switch's wall time; 2 steps each of the bfloat16 and int8 containers
+     and of quant.mode=off; ``Engine`` serving from the trained float32
+     container; the peak memory of each;
+ 11. path A, card against CPU at depth 2: the grid values of every leaf
+     bit-equal, one step, the switch identical;
+ 12. path B, the quantize prologue: full llama3.2-3b, int8_packed with
+     quant.dense_prologue and SR, 4 steps through two switches (197
+     fxp_qmatmul, matmul_qdx and matmul_dw launches a step), a profiled
+     step with no library GEMM;
+ 13. path B, card against CPU at depth 2: the prologue words of every
+     dense leaf (through the regularizer's view) bit-equal, one step.
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -99,18 +120,54 @@ STACKED_SHAPES = {                     # per-layer (K, N): stacked leaves
 FLAT_SHAPES = [(VOCAB, D_MODEL), (D_MODEL, VOCAB)]   # embed, head
 EDF_SAMPLE = 65536
 F32_OPS = 67e12                        # H100 SXM f32 / int32 CUDA-core rate
+KERNELS = ("fxp_matmul", "matmul_dx", "matmul_dw", "flash_attention",
+           "flash_attention_dq", "flash_attention_dkv",
+           "sr_quantize_fused_stacked_int8", "sr_quantize_fused_int8",
+           "edf_ladder_hists", "sr_quantize_fused_stacked", "sr_quantize_fused",
+           "fxp_qmatmul", "matmul_qdx")
+ZERO = {k: 0 for k in KERNELS}
+DENSE_CALLS = 7 * N_LAYERS + 1          # dense layers and the head
+FLASH_STEP = {**ZERO, "flash_attention": N_LAYERS,
+              "flash_attention_dq": N_LAYERS, "flash_attention_dkv": N_LAYERS}
 # Per training step: every dense layer and the head run fwd, dx and dw;
 # every layer runs the flash forward, dq and dkv.
-PER_STEP = {"fxp_matmul": 7 * N_LAYERS + 1, "matmul_dx": 7 * N_LAYERS + 1,
-            "matmul_dw": 7 * N_LAYERS + 1, "flash_attention": N_LAYERS,
-            "flash_attention_dq": N_LAYERS, "flash_attention_dkv": N_LAYERS,
-            "sr_quantize_fused_stacked_int8": 0, "sr_quantize_fused_int8": 0,
-            "edf_ladder_hists": 0}
+PER_STEP = {**FLASH_STEP, "fxp_matmul": DENSE_CALLS,
+            "matmul_dx": DENSE_CALLS, "matmul_dw": DENSE_CALLS}
 # With SR words: one stacked launch per blocks/ leaf and one flat launch for
 # embed and head each step; one EDF-ladder launch per leaf each switch.
 SR_PER_STEP = {**PER_STEP, "sr_quantize_fused_stacked_int8": N_STACKED,
                "sr_quantize_fused_int8": N_FLAT}
 PER_SWITCH = {"edf_ladder_hists": N_STACKED + N_FLAT}
+# Path A, the float containers: the registry's float32 container (grid
+# values from the float SR kernels), then bfloat16 (the same kernels, bf16
+# out), int8 (the SR int8 kernels) and quant.mode=off (nothing quantized);
+# the dense layers are library products, as the reference's XLA dots.
+FLOAT_OVERRIDES = [
+    "quant.use_pallas=true", "quant.init_fl=10", "train.remat=none",
+    "train.accum_steps=1", f"train.global_batch={TRAIN_B}",
+    f"train.seq_len={TRAIN_S}", "train.log_every=1",
+    "train.adapt_interval=2", "quant.lb_lwr=2"]
+FLOAT_STEPS = 4
+FLOAT_PER_STEP = {**FLASH_STEP, "sr_quantize_fused_stacked": N_STACKED,
+                  "sr_quantize_fused": N_FLAT}
+OTHER_CONTAINERS = {                     # overrides, launches per step
+    "bfloat16": (["quant.container_dtype=bfloat16"], FLOAT_PER_STEP),
+    "int8": (["quant.container_dtype=int8"],
+             {**FLASH_STEP, "sr_quantize_fused_stacked_int8": N_STACKED,
+              "sr_quantize_fused_int8": N_FLAT}),
+    "mode_off": (["quant.mode=off"], FLASH_STEP)}
+OTHER_STEPS = 2                          # the second ends in a switch
+# Path B, the quantize prologue: every dense layer and the head draw their
+# words from the f32 master inside fxp_qmatmul (forward) and matmul_qdx
+# (dx); dw is matmul_dw in f32. The embedding keeps its SR int8 words (one
+# flat launch), and the regularizer draws the view of each of the 197
+# dense layer-slices through the flat SR int8 kernel in the forward and
+# again in the backward.
+PROLOGUE_OVERRIDES = SR_OVERRIDES + ["quant.dense_prologue=true"]
+PROLOGUE_STEPS = 4
+PROLOGUE_PER_STEP = {**FLASH_STEP, "fxp_qmatmul": DENSE_CALLS,
+                     "matmul_qdx": DENSE_CALLS, "matmul_dw": DENSE_CALLS,
+                     "sr_quantize_fused_int8": 1 + 2 * DENSE_CALLS}
 # PyTorch ops that would run a library GEMM: none may appear in a step.
 LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
                  "aten::matmul", "aten::linear", "aten::einsum"}
@@ -469,10 +526,11 @@ def check_flash_bwd(torch, fa, gen):
 
 
 def check_sr_quantize(torch, sq, gen):
-    """Both SR kernels against their plain versions, words bit for bit: at
-    every leaf shape of llama3.2-3b (the stacked blocks/ leaves with a
-    per-layer FL that takes 0, 10 and 28 among others, embed and head
-    flat), and at ragged shapes: n not a multiple of 512 or of 4 (the
+    """Both SR int8 kernels against their plain versions, words bit for
+    bit: at every leaf shape of llama3.2-3b (the stacked blocks/ leaves
+    with a per-layer FL that takes 0, 10 and 28 among others, embed and
+    head flat, and one layer of each blocks/ leaf flat, as the prologue's
+    regularizer draws it), and at ragged shapes: n not a multiple of 512 or of 4 (the
     scalar path), one layer equal to the flat kernel, FL −3…28, negative
     and large seeds. Times: kernel, plain version, bound (4 bytes read and
     1 written per element; the ~20 integer and float operations per
@@ -511,7 +569,8 @@ def check_sr_quantize(torch, sq, gen):
               sq.plain_stacked)
         del x
         torch.cuda.empty_cache()
-    for shape in FLAT_SHAPES:
+    # embed and head; the layer slices the prologue's regularizer view draws
+    for shape in FLAT_SHAPES + list(STACKED_SHAPES):
         x = torch.randn(*shape, generator=gen, device=dev) * 0.05
         fl = torch.tensor(10, dtype=torch.int32, device=dev)
         timed("sr_quantize_fused_int8", shape, x, 2 ** 31 - 7, fl,
@@ -548,6 +607,245 @@ def check_sr_quantize(torch, sq, gen):
                 raise AssertionError(f"flat SR pathological at FL {f}")
     log("[kernels] sr_quantize ragged shapes, FL -3..28, seeds of both signs, "
         "pathological values: bit-equal")
+    return rows
+
+
+def check_sr_grid(torch, sq, gen):
+    """Both float SR kernels (grid values) against their plain versions,
+    bit for bit in f32 and in bf16: at every leaf shape of llama3.2-3b (the
+    stacked blocks/ leaves with a per-layer <WL,FL> that takes WL 2…32 and
+    FL −3…28 among others; embed and head flat at <8,10>), and at ragged
+    shapes, WL 2…32 against FL −3…28, seeds of both signs and the
+    pathological values. Times (f32 and bf16 out): kernel, plain version,
+    bound (4 bytes read and 4 or 2 written per element; the ~22 integer and
+    float operations per element, a division among them, at the CUDA-core
+    rate take less)."""
+    dev = "cuda"
+    rows = {"sr_quantize_fused_stacked": [], "sr_quantize_fused": []}
+    wl_cycle = (8, 16, 32, 2, 12, 24, 5)
+    fl_cycle = (10, 13, 28, 0, -3, 17, 4)
+
+    def prec(L):
+        return (torch.tensor([wl_cycle[l % 7] for l in range(L)],
+                             dtype=torch.int32, device=dev),
+                torch.tensor([fl_cycle[l % 7] for l in range(L)],
+                             dtype=torch.int32, device=dev))
+
+    def same(got, want):
+        return got.dtype == want.dtype and torch.equal(
+            got.view(torch.int16 if got.dtype == torch.bfloat16
+                     else torch.int32),
+            want.view(torch.int16 if want.dtype == torch.bfloat16
+                      else torch.int32))
+
+    def timed(name, shape, x, seed, wl, fl, kern, plain):
+        for dt in (torch.float32, torch.bfloat16):
+            got = kern(x, seed, wl, fl, out_dtype=dt)
+            want = plain(x, seed, wl, fl, out_dtype=dt)
+            torch.cuda.synchronize()
+            if not same(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"{name} {shape} {dt}: {bad} values differ")
+            del got, want
+            n = x.numel()
+            out_b = 4 if dt == torch.float32 else 2
+            row = {"shape": list(shape), "out": str(dt).split(".")[-1],
+                   "max_abs_err": 0.0,
+                   "ms": cuda_time_ms([lambda: kern(x, seed, wl, fl,
+                                                    out_dtype=dt)], 5),
+                   "plain_ms": cuda_time_ms([lambda: plain(
+                       x, seed, wl, fl, out_dtype=dt)], 2),
+                   "library_ms": None}
+            row["bound_ms"], row["bound_by"] = max(
+                ((4.0 + out_b) * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (22.0 * n / F32_OPS * 1e3, "operations"))
+            rows[name].append(row)
+            log(f"[kernels] {name} {list(shape)} {row['out']}: bit-equal, "
+                f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
+                f"bound_ms={row['bound_ms']:.4g}")
+
+    for (k, n) in STACKED_SHAPES:
+        x = torch.randn(N_LAYERS, k, n, generator=gen, device=dev) * 0.05
+        timed("sr_quantize_fused_stacked", (N_LAYERS, k, n), x, -12345,
+              *prec(N_LAYERS), sq.sr_quantize_fused_stacked,
+              sq.plain_grid_stacked)
+        del x
+        torch.cuda.empty_cache()
+    for shape in FLAT_SHAPES:
+        x = torch.randn(*shape, generator=gen, device=dev) * 0.05
+        wl = torch.tensor(8, dtype=torch.int32, device=dev)
+        fl = torch.tensor(10, dtype=torch.int32, device=dev)
+        timed("sr_quantize_fused", shape, x, 2 ** 31 - 7, wl, fl,
+              sq.sr_quantize_fused, sq.plain_grid)
+        del x
+        torch.cuda.empty_cache()
+    # ragged shapes, seeds of both signs, both output dtypes
+    for shape in [(3, 1000), (5, 513), (2, 1001), (7, 3, 5, 7), (1, 777),
+                  (32, 130)]:
+        x = torch.randn(*shape, generator=gen, device=dev) * 3.0
+        wl, fl = prec(shape[0])
+        for seed in (-1, 0, 987654321, -2 ** 31):
+            for dt in (torch.float32, torch.bfloat16):
+                got = sq.sr_quantize_fused_stacked(x, seed, wl, fl, out_dtype=dt)
+                if not same(got, sq.plain_grid_stacked(x, seed, wl, fl,
+                                                       out_dtype=dt)):
+                    raise AssertionError(f"stacked grid {shape} seed {seed} {dt}")
+                flat = sq.sr_quantize_fused(x[0].contiguous(), seed, wl[0],
+                                            fl[0], out_dtype=dt)
+                if not same(flat, sq.plain_grid(x[0], seed, wl[0], fl[0],
+                                                out_dtype=dt)):
+                    raise AssertionError(f"flat grid {shape[1:]} seed {seed} {dt}")
+                if shape[0] == 1 and not same(flat, got[0]):
+                    raise AssertionError("one stacked layer != the flat kernel")
+    # every WL against every FL
+    x = torch.randn(32, 700, generator=gen, device=dev)
+    for f in range(-3, 29):
+        fl = torch.full((31,), f, dtype=torch.int32, device=dev)
+        wl = torch.arange(2, 33, dtype=torch.int32, device=dev)
+        x31 = x[:31] * 2.0 ** (6 - f)
+        for dt in (torch.float32, torch.bfloat16):
+            if not same(sq.sr_quantize_fused_stacked(x31, -77, wl, fl, out_dtype=dt),
+                        sq.plain_grid_stacked(x31, -77, wl, fl, out_dtype=dt)):
+                raise AssertionError(f"stacked grid at FL {f} {dt}")
+    for case in pathological(torch):
+        x = case.to(dev)
+        for w, f in ((8, 0), (8, 4), (16, 12), (32, 20)):
+            wl = torch.tensor(w, dtype=torch.int32, device=dev)
+            fl = torch.tensor(f, dtype=torch.int32, device=dev)
+            if not same(sq.sr_quantize_fused(x, 31, wl, fl),
+                        sq.plain_grid(x, 31, wl, fl)):
+                raise AssertionError(f"flat grid pathological at <{w},{f}>")
+    log("[kernels] sr_quantize_fused[_stacked] ragged shapes, WL 2..32 x "
+        "FL -3..28, seeds of both signs, pathological values, f32 and bf16: "
+        "bit-equal")
+    return rows
+
+
+def check_qmatmul(torch, fm, gen):
+    """``fxp_qmatmul`` and ``matmul_qdx`` against their plain versions at
+    every (K, N) of the training path and the head with M = batch·seq,
+    bf16 x/dy and out as on the main path, in both modes (SR and RTN), and
+    the same bf16 inputs with f32 out; plus ragged <M, K, N> in both modes
+    with f32 and bf16 operands. Tolerance: the kernel and the plain
+    version sum the same exact f32 products (the same words: any word
+    that differed would move a sum by a whole step) in other orders, so
+    f32 outputs are held within 1e-5·max|plain| and bf16 outputs within
+    one bf16 ulp + 2^-16·max|plain|. Times (SR, the main path's mode): the
+    kernel, the plain version, one ``torch.matmul`` of bf16 x (dy) against
+    the bf16-dequantized words (their transpose) and the bound; and
+    ``matmul_dw`` with f32 out, which the prologue's dw takes."""
+    from repro_torch.kernels import ops
+    dev = "cuda"
+    rows = {"fxp_qmatmul": [], "matmul_qdx": [], "matmul_dw_f32": []}
+    max_err = {"fxp_qmatmul": 0.0, "matmul_qdx": 0.0}
+    f = 10
+    fl = torch.tensor(f, dtype=torch.int32, device=dev)
+    m = TRAIN_M
+    cases = [(m, k, n) for (k, n) in LAYER_SHAPES] + [(m, *HEAD_SHAPE)]
+    cases += [(37, 3071, 1025), (130, 257, 129), (7, 67, 33), (2050, 100, 8)]
+
+    def f32_close(got, want, what):
+        e = (got.float() - want.float()).abs().max().item()
+        if got.dtype != torch.float32 or not bool(torch.isfinite(got).all()) \
+                or e > 1e-5 * want.float().abs().max().item():
+            raise AssertionError(f"{what}: max err {e}")
+        return e
+
+    for (m, k, n) in cases:
+        timed = m == TRAIN_M
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        dy = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(k, n, generator=gen, device=dev) * 0.02
+        seed = -(m * 7 + k)
+        for mode in (1, 0):
+            for name, kern, plain, a in (("fxp_qmatmul", fm.fxp_qmatmul,
+                                          fm.plain_q, x),
+                                         ("matmul_qdx", fm.matmul_qdx,
+                                          fm.plain_qdx, dy)):
+                got = kern(a, w, seed, fl, mode)
+                want = plain(a, w, seed, fl, mode)
+                torch.cuda.synchronize()
+                ok, e = close_bf16(got, want, 2.0 ** -16)
+                if not ok or got.dtype != torch.bfloat16:
+                    raise AssertionError(f"{name} mode {mode} ({m},{k},{n}): "
+                                         f"max err {e}")
+                del got, want
+                e32 = f32_close(kern(a, w, seed, fl, mode, out_dtype=torch.float32),
+                                plain(a, w, seed, fl, mode, out_dtype=torch.float32),
+                                f"{name} f32 out mode {mode} ({m},{k},{n})")
+                if not timed:
+                    af, wf = a.float(), w
+                    f32_close(kern(af, wf, seed, fl, mode),
+                              plain(af, wf, seed, fl, mode),
+                              f"{name} f32 mode {mode} ({m},{k},{n})")
+                max_err[name] = max(max_err[name], e, e32)
+        if not timed:
+            log(f"[kernels] fxp_qmatmul/matmul_qdx {m}x{k}x{n} (ragged, both "
+                "modes, bf16 and f32): within tolerance")
+            continue
+        reps = 10 if k * n < 1e8 else 3
+        flops = 2.0 * m * k * n
+        words = (ops.qdense_words(w, seed, fl, 1).to(torch.bfloat16)
+                 * torch.tensor(2.0 ** -f, dtype=torch.bfloat16, device=dev))
+        for name, kern, plain, a, lib, nbytes in (
+                ("fxp_qmatmul", fm.fxp_qmatmul, fm.plain_q, x,
+                 lambda: torch.matmul(x, words),
+                 2 * m * k + 4 * k * n + 2 * m * n),
+                ("matmul_qdx", fm.matmul_qdx, fm.plain_qdx, dy,
+                 lambda: torch.matmul(dy, words.T),
+                 2 * m * n + 4 * k * n + 2 * m * k)):
+            row = {"m": m, "k": k, "n": n, "max_abs_err": max_err[name],
+                   "ms": cuda_time_ms([lambda: kern(a, w, seed, fl, 1)], reps),
+                   "plain_ms": cuda_time_ms([lambda: plain(a, w, seed, fl, 1)],
+                                            max(2, reps // 3)),
+                   "library_ms": cuda_time_ms([lib], reps)}
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+            rows[name].append(row)
+            log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
+                f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
+                for key, val in row.items() if key not in ("m", "k", "n")))
+        row = {"m": m, "k": k, "n": n,
+               "ms": cuda_time_ms([lambda: fm.matmul_dw(x, dy)], reps)}
+        rows["matmul_dw_f32"].append(row)
+        log(f"[kernels] matmul_dw {m}x{k}x{n} f32 out: ms={row['ms']:.4g}")
+        del x, dy, w, words
+        torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def check_cublas_reduction(torch, gen):
+    """The float containers' dense layers are cuBLAS bf16 GEMMs with f32
+    accumulation (``models/common._mm``), which turns off
+    ``allow_bf16_reduced_precision_reduction`` so that split-K partial
+    sums are not reduced in bf16. At every training shape (M = 2048, the
+    forward's x @ w), the products with the flag on and off: how many
+    bf16 outputs differ, the largest difference, and each one's time."""
+    from repro_torch.models import common
+    flags = torch.backends.cuda.matmul
+    rows = []
+    for (k, n) in list(LAYER_SHAPES) + [HEAD_SHAPE]:
+        x = torch.randn(TRAIN_M, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        before = flags.allow_bf16_reduced_precision_reduction
+        flags.allow_bf16_reduced_precision_reduction = True
+        on = torch.matmul(x, w)
+        on_ms = cuda_time_ms([lambda: torch.matmul(x, w)], 10)
+        flags.allow_bf16_reduced_precision_reduction = before
+        off = common._mm(x, w)
+        off_ms = cuda_time_ms([lambda: common._mm(x, w)], 10)
+        exact = (x.float() @ w.float()).to(torch.bfloat16)
+        rows.append({"k": k, "n": n,
+                     "differ": int((on != off).sum()),
+                     "max_abs_diff": (on.float() - off.float()).abs().max().item(),
+                     "off_differs_from_f32": int((off != exact).sum()),
+                     "on_ms": on_ms, "off_ms": off_ms})
+        log(f"[cublas] bf16 GEMM {TRAIN_M}x{k}x{n}: reduced-precision "
+            f"reduction on/off differ in {rows[-1]['differ']} of {on.numel()} "
+            f"outputs (max {rows[-1]['max_abs_diff']:.4g}); off vs f32 "
+            f"products rounded once: {rows[-1]['off_differs_from_f32']} "
+            f"differ; {on_ms:.4g} / {off_ms:.4g} ms")
+        del x, w, on, off, exact
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -758,9 +1056,10 @@ def device_breakdown(torch, fn):
             continue
         n += 1
         name = e.name
-        for key in ("fxp_matmul", "flash_fwd", "matmul_dx", "matmul_dw",
-                    "flash_dq", "flash_dkv", "sr_int8", "edf_ladder",
-                    "to_f32", "Memset", "Memcpy"):
+        for key in ("fxp_qmatmul", "matmul_qdx", "fxp_matmul", "flash_fwd",
+                    "matmul_dx", "matmul_dw", "flash_dq", "flash_dkv",
+                    "sr_kernel", "edf_ladder", "nvjet", "gemm", "Memset",
+                    "Memcpy"):
             if key in name:
                 name = key
                 break
@@ -886,13 +1185,18 @@ def wrappers():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fxp_matmul as fm
     from repro_torch.kernels import sr_quantize as sq
-    return {"fxp_matmul": fm.fxp_matmul, "matmul_dx": fm.matmul_dx,
-            "matmul_dw": fm.matmul_dw, "flash_attention": fa.flash_attention,
-            "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv,
-            "sr_quantize_fused_stacked_int8": sq.sr_quantize_fused_stacked_int8,
-            "sr_quantize_fused_int8": sq.sr_quantize_fused_int8,
-            "edf_ladder_hists": el.edf_ladder_hists}
+    out = {"fxp_matmul": fm.fxp_matmul, "matmul_dx": fm.matmul_dx,
+           "matmul_dw": fm.matmul_dw, "flash_attention": fa.flash_attention,
+           "flash_attention_dq": fa.flash_attention_dq,
+           "flash_attention_dkv": fa.flash_attention_dkv,
+           "sr_quantize_fused_stacked_int8": sq.sr_quantize_fused_stacked_int8,
+           "sr_quantize_fused_int8": sq.sr_quantize_fused_int8,
+           "edf_ladder_hists": el.edf_ladder_hists,
+           "sr_quantize_fused_stacked": sq.sr_quantize_fused_stacked,
+           "sr_quantize_fused": sq.sr_quantize_fused,
+           "fxp_qmatmul": fm.fxp_qmatmul, "matmul_qdx": fm.matmul_qdx}
+    assert tuple(out) == KERNELS
+    return out
 
 
 def train_path(torch, fm, fa):
@@ -1240,6 +1544,368 @@ def sr_card_vs_cpu(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-13: the float containers (path A) and the quantize prologue
+# (path B)
+
+
+def run_steps(torch, tag, cfg, state, steps, per_step):
+    """``train_loop.train`` for ``steps`` steps from ``state`` with every
+    count set to 0 just before and read just after: exact launches per
+    step (``per_step``, plus ``PER_SWITCH`` after a switch step), finite
+    loss and grad_norm. Returns (state, per-step records, launches, peak
+    GiB)."""
+    from repro_torch.train import train_loop
+    ws = wrappers()
+    marks = []
+
+    def log_step(line):
+        marks.append({k: w.launches for k, w in ws.items()})
+        log(f"[{tag}] {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in ws.values():
+        w.launches = 0
+    start = int(state["step"])
+    state, history = train_loop.train(cfg, steps=steps, state=state,
+                                      log=log_step, device="cuda")
+    launches = {k: w.launches for k, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(history) != steps or len(marks) != steps:
+        raise AssertionError(f"{tag} history {history}")
+    interval = cfg.train.adapt_interval or cfg.quant.lb_lwr
+    switching = cfg.quant.mode != "off"
+    prev, out = dict(ZERO), []
+    for h, mark in zip(history, marks):
+        per = {k: mark[k] - prev[k] for k in ws}
+        prev = mark
+        switch = switching and h["step"] % interval == 0
+        want = {**per_step, **(PER_SWITCH if switch else {})}
+        if per != want:
+            raise AssertionError(f"{tag} step {h['step']}: launches {per} "
+                                 f"!= {want}")
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                and h["grad_norm"] > 0):
+            raise AssertionError(f"{tag} step {h['step']}: {h}")
+        out.append({"step": h["step"], "ms": h["dt"] * 1e3, "switch": switch,
+                    "tokens_per_s": TRAIN_B * TRAIN_S / h["dt"],
+                    "loss": h["loss"], "grad_norm": h["grad_norm"]})
+        log(f"[{tag}] step {h['step']}{' + switch' if switch else ''}: "
+            f"{h['dt'] * 1e3:.1f} ms, {TRAIN_B * TRAIN_S / h['dt']:.0f} "
+            f"tokens/s, loss {h['loss']:.4f}, grad_norm {h['grad_norm']:.4f}")
+    if int(state["step"]) != start + steps:
+        raise AssertionError(f"{tag}: step counter {int(state['step'])}")
+    log(f"[{tag}] peak device memory {peak:.2f} GiB, launches {launches}")
+    return state, out, launches, peak
+
+
+def switch_alone(torch, cfg, state):
+    """Wall time of two precision switches around synchronised calls."""
+    from repro_torch.train import train_loop
+    switch = train_loop.make_precision_switch(cfg)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = switch(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return state, walls
+
+
+def profiled_step(torch, cfg, state, step, library_gemms: bool):
+    """One step under the profiler: device busy share and time by kernel;
+    the library GEMMs must be present (float containers: the reference's
+    XLA dots) or absent (the kernels' paths)."""
+    from repro_torch.train import train_loop
+    step_fn = train_loop.make_train_step(cfg)
+    batch = train_loop.make_batch(cfg, step, device="cuda")
+    box = {"state": state}
+
+    def one_step():
+        box["state"], box["metrics"] = step_fn(box["state"], batch, step=step)
+
+    prof = device_breakdown(torch, one_step)
+    gemms = set(prof["library_gemm_ops"])
+    if library_gemms and not gemms & {"aten::mm", "aten::matmul"}:
+        raise AssertionError(f"no library GEMM in a float-container step: "
+                             f"{sorted(gemms)}")
+    if not library_gemms and gemms:
+        raise AssertionError(f"library GEMMs in the step: {sorted(gemms)}")
+    if not math.isfinite(float(box["metrics"]["loss"])):
+        raise AssertionError("profiled step: loss not finite")
+    return box["state"], prof
+
+
+def float_train_path(torch, fm, fa):
+    """Path A: llama3.2-3b at full width and depth in the registry's
+    float32 container with its stochastic rounding and the fused kernels:
+    4 steps through a switch after steps 2 and 4 (lookback 2), exact
+    launches per step and switch (7 stacked + 2 flat float-SR launches,
+    the flash kernels per layer, no fxp kernel), the switch's wall time, a
+    profiled step whose dense layers are library GEMMs; then 2 steps each
+    of the bfloat16 and int8 containers and of quant.mode=off, and
+    ``Engine`` serving from the trained float32 container (batch 4,
+    prompt 128, 32 new tokens)."""
+    from repro_torch.config import load_config
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import train_loop
+
+    cfg = load_config("llama3.2-3b", overrides=FLOAT_OVERRIDES)
+    q = cfg.quant
+    assert (q.container_dtype, q.stochastic_rounding, q.use_pallas,
+            q.fused_prng, q.dense_prologue) == ("float32", True, True, True,
+                                                False)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, SEED + 11, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[float32] init llama3.2-3b: {time.perf_counter() - t0:.1f} s")
+    before = wlfl_histogram(state)
+    state, steps, launches, peak = run_steps(torch, "float32", cfg, state,
+                                             FLOAT_STEPS, FLOAT_PER_STEP)
+    after = wlfl_histogram(state)
+    log(f"[float32] <WL,FL> before: {before}; after 2 switches: {after}")
+    state, walls = switch_alone(torch, cfg, state)
+    log(f"[float32] switch alone: wall {walls[0]:.1f} / {walls[1]:.1f} ms")
+    state, prof = profiled_step(torch, cfg, state, FLOAT_STEPS, True)
+    log(f"[profile] float32 train step: wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['busy_ms']:.1f} ms (share {prof['busy_share']:.3f}); "
+        f"library GEMMs {prof['library_gemm_ops']}; by kernel: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in prof["groups_ms"].items()))
+    res = {"float32": {"steps": steps, "launches": launches, "peak_gib": peak,
+                       "wlfl_before": before, "wlfl_after": after,
+                       "switch_wall_ms": walls, "profile": prof}}
+
+    # serving from the trained float32 container
+    params, adapt = state["params"], state["adapt"]
+    del state
+    for ts in adapt["tensors"].values():
+        ts.pop("grad_sum")
+    torch.cuda.empty_cache()
+    eng = Engine(load_config("llama3.2-3b", overrides=FLOAT_OVERRIDES),
+                 params, adapt, device="cuda")
+    del params, adapt
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    prompts = torch.randint(0, VOCAB, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    record = []
+    instrument(eng, torch, fm, fa, record)
+    torch.cuda.reset_peak_memory_stats()
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out, logits = eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    serve_launches = {k: w.launches for k, w in ws.items()}
+    if serve_launches != {**ZERO, "flash_attention": N_LAYERS}:
+        raise AssertionError(f"float32 serving launches {serve_launches}")
+    if out.shape != (BATCH, NEW) or int(out.min()) < 0 or int(out.max()) >= VOCAB:
+        raise AssertionError(f"float32 serving tokens out of range: {out}")
+    if not bool(torch.isfinite(logits).all()) or float(logits.std()) == 0.0:
+        raise AssertionError("float32 serving logits not finite or constant")
+    cold = step_times(record)
+    record.clear()
+    t0 = time.perf_counter()
+    eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    warm = step_times(record, total_s=time.perf_counter() - t0)
+    res["serve_float32"] = {"cold": {**cold, "total_s": total_s}, "warm": warm,
+                            "launches": serve_launches,
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                            "sample": [int(t) for t in out[0][:16]]}
+    log(f"[float32] Engine: prefill {warm['prefill_ms']:.2f} ms warm "
+        f"({cold['prefill_ms']:.2f} cold), decode "
+        f"{warm['decode_ms_per_step']:.2f} ms/step warm, peak "
+        f"{res['serve_float32']['peak_gib']:.2f} GiB")
+    del eng, logits
+    torch.cuda.empty_cache()
+
+    for name, (extra, per_step) in OTHER_CONTAINERS.items():
+        ocfg = load_config("llama3.2-3b", overrides=FLOAT_OVERRIDES + extra)
+        state = train_loop.init_state(ocfg, SEED + 13, device="cuda")
+        state, steps, launches, peak = run_steps(torch, name, ocfg, state,
+                                                 OTHER_STEPS, per_step)
+        res[name] = {"steps": steps, "launches": launches, "peak_gib": peak}
+        del state
+        torch.cuda.empty_cache()
+    return res
+
+
+def prologue_train_path(torch):
+    """Path B: llama3.2-3b at full width and depth, int8_packed with
+    quant.dense_prologue and the registry's SR: 4 steps through a switch
+    after steps 2 and 4, exact launches per step (197 fxp_qmatmul, 197
+    matmul_qdx, 197 matmul_dw, 1 + 2·197 flat SR-int8: the embedding's
+    words and the regularizer's view, the flash kernels per layer) and per
+    switch; a profiled step with no library GEMM."""
+    from repro_torch.config import load_config
+    from repro_torch.train import train_loop
+
+    cfg = load_config("llama3.2-3b", overrides=PROLOGUE_OVERRIDES)
+    q = cfg.quant
+    assert (q.container_dtype, q.dense_prologue, q.stochastic_rounding,
+            q.use_pallas) == ("int8_packed", True, True, True)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, SEED + 17, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[prologue] init llama3.2-3b: {time.perf_counter() - t0:.1f} s")
+    state, steps, launches, peak = run_steps(torch, "prologue", cfg, state,
+                                             PROLOGUE_STEPS, PROLOGUE_PER_STEP)
+    after = wlfl_histogram(state)
+    state, prof = profiled_step(torch, cfg, state, PROLOGUE_STEPS, False)
+    log(f"[profile] prologue train step: wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['busy_ms']:.1f} ms (share {prof['busy_share']:.3f}); no "
+        "library GEMM; by kernel: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in prof["groups_ms"].items()))
+    del state
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches, "peak_gib": peak,
+            "wlfl_after": after, "profile": prof}
+
+
+def step_card_vs_cpu(torch, tag, overrides, seed, loose):
+    """One train step at depth 2, full width, batch 2 x 64, from the same
+    state (drawn on the card, copied to the CPU) and batch: loss within
+    rtol 2e-3, grad_norm within 2e-2 and every leaf's update within 2e-2
+    normwise (``loose`` leaves, which activation quantization makes see
+    one-ulp flips as whole steps first, within 5e-2), the slice-2 bounds
+    of a first step. Returns (card state after the step, the CPU copy of
+    the state before it, the config, the record)."""
+    from repro_torch.config import load_config
+    from repro_torch.train import train_loop
+
+    cfg = load_config("llama3.2-3b", overrides=overrides + [
+        "model.num_layers=2", "train.global_batch=2", "train.seq_len=64"])
+    gpu = train_loop.init_state(cfg, seed, device="cuda")
+    cpu = to_device(gpu, "cpu")
+    before = to_device(gpu, "cpu")
+    p0 = flat_paths(before["params"])
+    batch = train_loop.make_batch(cfg, 0, device="cpu")
+    step = train_loop.make_train_step(cfg)
+    t0 = time.perf_counter()
+    cpu, cm = step(cpu, batch, step=0)
+    r = {"cpu_s": time.perf_counter() - t0}
+    gpu, gm = step(gpu, {k: v.cuda() for k, v in batch.items()}, step=0)
+    torch.cuda.synchronize()
+    for k, rtol in (("loss", 2e-3), ("grad_norm", 2e-2)):
+        c, g = float(cm[k]), float(gm[k])
+        r[k] = {"cpu": c, "card": g}
+        if not abs(c - g) <= rtol * abs(c):
+            raise AssertionError(f"depth-2 {tag} step {k}: cpu {c} card {g}")
+    gp = flat_paths(gpu["params"])
+    rel = {}
+    for path, c in flat_paths(cpu["params"]).items():
+        dc = c - p0[path]
+        dg = gp[path].cpu() - p0[path]
+        rel[path] = float(torch.linalg.vector_norm(dg - dc)
+                          / torch.linalg.vector_norm(dc))
+    over = {p: e for p, e in rel.items()
+            if not e <= (5e-2 if p in loose else 2e-2)}
+    if over:
+        raise AssertionError(f"depth-2 {tag} step: updates over their bound: "
+                             f"{over}")
+    tight = [p for p in rel if p not in loose]
+    worst = max(tight, key=rel.get)
+    r["update_rel"] = rel
+    log(f"[depth2] {tag} step card vs CPU: loss {r['loss']}, grad_norm "
+        f"{r['grad_norm']}, worst leaf update {rel[worst]:.4f} normwise "
+        f"({worst}, bound 2e-2)"
+        + "".join(f", {p} {rel[p]:.4f} (bound 5e-2)" for p in loose)
+        + f"; CPU step {r['cpu_s']:.1f} s")
+    return gpu, before, cfg, r
+
+
+def float_card_vs_cpu(torch):
+    """Path A at depth 2: the float32 container's SR grid values of every
+    leaf bit-equal between the card's kernels and the CPU's plain versions
+    (same state, same seeds); one step within the slice-2 bounds; then,
+    after a second step on the card (every window of two closes), the same
+    state through ``precision_switch`` on the card and on the CPU:
+    identical."""
+    from repro_torch.core import controller
+    gpu, before, cfg, r = step_card_vs_cpu(
+        torch, "float32", FLOAT_OVERRIDES, SEED + 19, ("final_norm", "head"))
+    seeds = controller.leaf_seeds(int(before["rng"]), 0,
+                                  before["adapt"]["tensors"])
+    cq = controller.quantize_params(before["params"], before["adapt"],
+                                    cfg.quant, seeds)
+    gq = controller.quantize_params(to_device(before["params"], "cuda"),
+                                    to_device(before["adapt"], "cuda"),
+                                    cfg.quant, seeds)
+    gflat = flat_paths(gq)
+    for path, c in flat_paths(cq).items():
+        g = gflat[path]
+        if g.dtype != torch.float32 or not torch.equal(g.cpu(), c):
+            raise AssertionError(f"depth-2 float32 grid values of {path} differ")
+    leaves = len(before["adapt"]["tensors"])
+    del cq, gq, gflat
+    # a second step on the card closes every window of two steps
+    from repro_torch.train import train_loop
+    gpu, _ = train_loop.make_train_step(cfg)(
+        gpu, train_loop.make_batch(cfg, 1, device="cuda"), step=1)
+    cpu = to_device(gpu, "cpu")
+    c_out = controller.precision_switch(cpu["adapt"], cpu["params"], cfg.quant)
+    g_out = controller.precision_switch(gpu["adapt"], gpu["params"], cfg.quant)
+    switched = 0
+    for path, cts in c_out["tensors"].items():
+        gts = g_out["tensors"][path]
+        for k in ("wl", "fl", "lb", "res", "count", "sp", "norm_sum",
+                  "grad_sum"):
+            if not torch.equal(gts[k].cpu(), cts[k]):
+                raise AssertionError(f"depth-2 float32 switch {path} {k}")
+        switched += int((cts["count"] == 0).sum())
+    r.update(leaves_bit_equal=leaves, tensor_layers_switched=switched,
+             wlfl=wlfl_histogram({"adapt": c_out}))
+    log(f"[depth2] float32: grid values of {leaves} leaves bit-equal; "
+        f"precision_switch card == CPU ({switched} tensor-layers switched, "
+        f"{r['wlfl']})")
+    del gpu, cpu, before
+    torch.cuda.empty_cache()
+    return r
+
+
+def prologue_card_vs_cpu(torch):
+    """Path B at depth 2: the prologue words of every dense layer-slice,
+    drawn through the regularizer's view (the SR int8 kernel on the card,
+    its plain version on the CPU), bit-equal from the same state and
+    seeds; one step within the slice-2 bounds."""
+    from repro_torch.core import controller
+    from repro_torch.core import fixed_point as fxp
+    gpu, before, cfg, r = step_card_vs_cpu(
+        torch, "prologue", PROLOGUE_OVERRIDES, SEED + 23,
+        ("final_norm", "head"))
+    seeds = controller.leaf_seeds(int(before["rng"]), 0,
+                                  before["adapt"]["tensors"])
+    cq = controller.quantize_params_packed(before["params"], before["adapt"],
+                                           cfg.quant, seeds)
+    gq = controller.quantize_params_packed(to_device(before["params"], "cuda"),
+                                           to_device(before["adapt"], "cuda"),
+                                           cfg.quant, seeds)
+    leaves = 0
+    for path in before["adapt"]["tensors"]:
+        c, g = cq, gq
+        for k in path.split("/"):
+            c, g = c[k], g[k]
+        if not fxp.is_qdense(c):
+            continue
+        cv = fxp.qdense_view(c["wm"], c["seed"], c["flq"], c["mode"])
+        gv = fxp.qdense_view(g["wm"], g["seed"], g["flq"], g["mode"])
+        if not torch.equal(gv.cpu(), cv):
+            raise AssertionError(f"depth-2 prologue view of {path} differs")
+        leaves += 1
+    if leaves != 8:
+        raise AssertionError(f"{leaves} prologue leaves, expected 8")
+    r["views_bit_equal"] = leaves
+    log(f"[depth2] prologue: the views of {leaves} prologue leaves bit-equal")
+    del gpu, before, cq, gq
+    torch.cuda.empty_cache()
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1271,7 +1937,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build(["fxp_matmul", "flash_attention", "fxp_matmul_bwd",
                             "flash_attention_bwd", "sr_quantize",
-                            "edf_ladder"])
+                            "edf_ladder", "fxp_qmatmul"])
     log(f"[build] {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
@@ -1286,6 +1952,9 @@ def main() -> int:
     fbwd_rows, fbwd_err = check_flash_bwd(torch, fa, gen)
     sr_rows = check_sr_quantize(torch, sq, gen)
     edf_rows = check_edf_ladder(torch, el, gen)
+    grid_rows = check_sr_grid(torch, sq, gen)
+    q_rows, q_err = check_qmatmul(torch, fm, gen)
+    cublas_rows = check_cublas_reduction(torch, gen)
     torch.cuda.empty_cache()
 
     # 4. serving main path; 5. serving, card against CPU
@@ -1300,9 +1969,20 @@ def main() -> int:
     sr_res = sr_train_path(torch)
     sr_depth2 = sr_card_vs_cpu(torch)
 
-    kernels = kernel_record(main_res, train_res, sr_res, fxp_rows, fxp_err,
-                            flash_rows, flash_err, bwd_rows, bwd_err,
-                            fbwd_rows, fbwd_err, sr_rows, edf_rows)
+    # 10. float containers (path A); 11. card against CPU
+    float_res = float_train_path(torch, fm, fa)
+    float_depth2 = float_card_vs_cpu(torch)
+
+    # 12. the quantize prologue (path B); 13. card against CPU
+    prologue_res = prologue_train_path(torch)
+    prologue_depth2 = prologue_card_vs_cpu(torch)
+
+    runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
+            *(r["launches"] for r in float_res.values()),
+            prologue_res["launches"]]
+    kernels = kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err,
+                            bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows,
+                            edf_rows, grid_rows, q_rows, q_err)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -1310,9 +1990,12 @@ def main() -> int:
         "fxp_matmul": fxp_rows, "flash_attention": flash_rows,
         "matmul_bwd": bwd_rows, "flash_bwd": fbwd_rows,
         "sr_quantize": sr_rows, "edf_ladder": edf_rows,
+        "sr_grid": grid_rows, "qmatmul": q_rows, "cublas": cublas_rows,
         "main_path": main_res, "depth2": depth2, "train": train_res,
         "train_depth2": train_depth2, "sr_train": sr_res,
-        "sr_depth2": sr_depth2, "kernels": kernels,
+        "sr_depth2": sr_depth2, "float_train": float_res,
+        "float_depth2": float_depth2, "prologue_train": prologue_res,
+        "prologue_depth2": prologue_depth2, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -1322,21 +2005,30 @@ def main() -> int:
     return 0
 
 
-def kernel_record(main_res, train_res, sr_res, fxp_rows, fxp_err,
-                  flash_rows, flash_err, bwd_rows, bwd_err, fbwd_rows,
-                  fbwd_err, sr_rows, edf_rows):
-    """One entry per kernel. Every time sums the kernel's launches in the
-    three main paths from the per-shape times of phase 3: serving (the
-    prefill's 196 layer calls at M = 512 and its head call at M = 4, then
-    31 decode steps of 197 calls at M = 4; 28 flash launches), the 3 RTN
-    training steps and the 4 SR training steps (per step 197 fwd, dx and
-    dw calls at M = 2048; 28 flash forward, dq and dkv launches; 7 stacked
-    and 2 flat SR-quantize launches; 9 EDF-ladder launches per switch,
-    after steps 2 and 4)."""
+def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
+                  bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows, grid_rows,
+                  q_rows, q_err):
+    """One entry per kernel. ``launches`` sums the counts of the main
+    paths' runs (``runs``). Every time sums the kernel's launches in those
+    runs from the per-shape times of phase 3: serving (the prefill's 196
+    layer calls at M = 512 and its head call at M = 4, then 31 decode steps
+    of 197 calls at M = 4; 28 flash launches), the 3 RTN and the 4 SR
+    training steps (per step 197 fwd, dx and dw calls at M = 2048; 28
+    flash forward, dq and dkv launches; 7 stacked and 2 flat SR int8
+    launches; 9 EDF-ladder launches per switch, after steps 2 and 4), path
+    A (4 float32 steps with 7 stacked and 2 flat f32 grid-value launches,
+    2 bfloat16 steps with the same launches in bf16, 2 int8-container steps
+    with the SR int8 launches, 2 mode-off steps, 28 flash launches for
+    each step's forward, dq and dkv and for the float32 Engine's prefill,
+    a switch after every second step but the mode-off ones) and path B (4
+    steps of 197 fxp_qmatmul, matmul_qdx and f32-out matmul_dw calls at
+    M = 2048, 1 + 2·197 flat SR int8 launches, a switch after steps 2 and
+    4)."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
 
     def summed(rows_by_shape, calls):
-        out = {key: None if any(rows_by_shape[s][key] is None for s in calls)
+        out = {key: None if any(rows_by_shape[s].get(key) is None
+                                for s in calls)
                else sum(rows_by_shape[s][key] * c for s, c in calls.items())
                for key in keys}
         bytes_part = sum(rows_by_shape[s]["bound_ms"] * c
@@ -1346,32 +2038,61 @@ def kernel_record(main_res, train_res, sr_res, fxp_rows, fxp_err,
                            else "operations")
         return out
 
+    def by_shape(rows):
+        return {(r["m"], r["k"], r["n"]): r for r in rows if "ms" in r}
+
+    def dense_calls(steps, m=TRAIN_M):
+        calls = {(m, k, n): per_layer * N_LAYERS * steps
+                 for (k, n), per_layer in LAYER_SHAPES.items()}
+        calls[(m, *HEAD_SHAPE)] = steps
+        return calls
+
     steps = TRAIN_STEPS + SR_STEPS
-    train_calls = {(TRAIN_M, k, n): per_layer * N_LAYERS * steps
-                   for (k, n), per_layer in LAYER_SHAPES.items()}
-    train_calls[(TRAIN_M, *HEAD_SHAPE)] = steps
+    train_calls = dense_calls(steps)
     fwd_calls = dict(train_calls)
     for (k, n), per_layer in LAYER_SHAPES.items():
         fwd_calls[(BATCH * PROMPT, k, n)] = per_layer * N_LAYERS
         fwd_calls[(BATCH, k, n)] = per_layer * N_LAYERS * (NEW - 1)
     fwd_calls[(BATCH, *HEAD_SHAPE)] = NEW
+    prologue_calls = dense_calls(PROLOGUE_STEPS)
+    dw_by_shape = by_shape(bwd_rows["matmul_dw"])
+    for r in q_rows["matmul_dw_f32"]:            # path B's f32-out dw
+        dw_by_shape[("f32",) + (r["m"], r["k"], r["n"])] = {
+            **dw_by_shape[(r["m"], r["k"], r["n"])], "ms": r["ms"]}
+    dw_calls = {**train_calls,
+                **{("f32",) + s: c for s, c in prologue_calls.items()}}
 
-    def by_shape(rows):
-        return {(r["m"], r["k"], r["n"]): r for r in rows if "ms" in r}
-
+    float_steps = FLOAT_STEPS + 3 * OTHER_STEPS + PROLOGUE_STEPS
     flash_by_case = {r["case"]: r for r in flash_rows if "ms" in r}
-    flash_calls = {"prefill": N_LAYERS, "train": N_LAYERS * steps}
-    launches = {k: main_res["launches"].get(k, 0) + train_res["launches"][k]
-                + sr_res["launches"][k] for k in sr_res["launches"]}
+    flash_calls = {"prefill": 2 * N_LAYERS,
+                   "train": N_LAYERS * (steps + float_steps)}
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in KERNELS}
+    # SR int8: 4 SR steps, 2 int8-container steps; path B's embedding
+    int8_steps = SR_STEPS + OTHER_STEPS
     stacked_by_shape = {tuple(r["shape"]): r
                         for r in sr_rows["sr_quantize_fused_stacked_int8"]}
-    stacked_calls = {(N_LAYERS, k, n): c * SR_STEPS
+    stacked_calls = {(N_LAYERS, k, n): c * int8_steps
                      for (k, n), c in STACKED_SHAPES.items()}
     flat_by_shape = {tuple(r["shape"]): r
                      for r in sr_rows["sr_quantize_fused_int8"]}
-    flat_calls = {shape: SR_STEPS for shape in FLAT_SHAPES}
+    flat_calls = {FLAT_SHAPES[0]: int8_steps + PROLOGUE_STEPS,
+                  FLAT_SHAPES[1]: int8_steps}
+    for (k, n), c in STACKED_SHAPES.items():     # path B's view, fwd + bwd
+        flat_calls[(k, n)] = 2 * c * N_LAYERS * PROLOGUE_STEPS
+    flat_calls[FLAT_SHAPES[1]] += 2 * PROLOGUE_STEPS
+    # grid values: f32 in 4 steps, bf16 in 2
+    grid_calls = {"float32": FLOAT_STEPS, "bfloat16": OTHER_STEPS}
+    gs_by = {(tuple(r["shape"]), r["out"]): r
+             for r in grid_rows["sr_quantize_fused_stacked"]}
+    gs_calls = {((N_LAYERS, k, n), dt): c * s
+                for (k, n), c in STACKED_SHAPES.items()
+                for dt, s in grid_calls.items()}
+    gf_by = {(tuple(r["shape"]), r["out"]): r
+             for r in grid_rows["sr_quantize_fused"]}
+    gf_calls = {(shape, dt): s for shape in FLAT_SHAPES
+                for dt, s in grid_calls.items()}
     edf_by_shape = {tuple(r["shape"]): r for r in edf_rows}
-    switches = SR_STEPS // 2
+    switches = SR_STEPS // 2 + FLOAT_STEPS // 2 + 2 + PROLOGUE_STEPS // 2
     edf_calls = {(N_LAYERS, EDF_SAMPLE): N_STACKED * switches,
                  (1, EDF_SAMPLE): N_FLAT * switches}
 
@@ -1390,17 +2111,16 @@ def kernel_record(main_res, train_res, sr_res, fxp_rows, fxp_err,
               bwd_err["matmul_dx"], summed(by_shape(bwd_rows["matmul_dx"]),
                                            train_calls)),
         entry("matmul_dw", "fxp_matmul_bwd.cu", "fxp_matmul.py:259",
-              bwd_err["matmul_dw"], summed(by_shape(bwd_rows["matmul_dw"]),
-                                           train_calls)),
+              bwd_err["matmul_dw"], summed(dw_by_shape, dw_calls)),
         entry("flash_attention_dq", "flash_attention_bwd.cu",
               "flash_attention.py:245", fbwd_err["flash_attention_dq"],
               {**summed({"train": fbwd_rows["flash_attention_dq"][0]},
-                        {"train": N_LAYERS * steps}),
+                        {"train": N_LAYERS * (steps + float_steps)}),
                "library_covers": "flash_attention_dq+flash_attention_dkv"}),
         entry("flash_attention_dkv", "flash_attention_bwd.cu",
               "flash_attention.py:279", fbwd_err["flash_attention_dkv"],
               {**summed({"train": fbwd_rows["flash_attention_dkv"][0]},
-                        {"train": N_LAYERS * steps}),
+                        {"train": N_LAYERS * (steps + float_steps)}),
                "library_covers": "see flash_attention_dq"}),
         entry("sr_quantize_fused_stacked_int8", "sr_quantize.cu",
               "sr_quantize.py:299", 0.0,
@@ -1409,6 +2129,16 @@ def kernel_record(main_res, train_res, sr_res, fxp_rows, fxp_err,
               0.0, summed(flat_by_shape, flat_calls)),
         entry("edf_ladder_hists", "edf_ladder.cu", "edf_ladder.py:41", 0.0,
               summed(edf_by_shape, edf_calls)),
+        entry("sr_quantize_fused_stacked", "sr_quantize.cu",
+              "sr_quantize.py:282", 0.0, summed(gs_by, gs_calls)),
+        entry("sr_quantize_fused", "sr_quantize.cu", "sr_quantize.py:174", 0.0,
+              summed(gf_by, gf_calls)),
+        entry("fxp_qmatmul", "fxp_qmatmul.cu", "fxp_matmul.py:345",
+              q_err["fxp_qmatmul"],
+              summed(by_shape(q_rows["fxp_qmatmul"]), prologue_calls)),
+        entry("matmul_qdx", "fxp_qmatmul.cu", "fxp_matmul.py:408",
+              q_err["matmul_qdx"],
+              summed(by_shape(q_rows["matmul_qdx"]), prologue_calls)),
     ]
 
 

@@ -1,7 +1,9 @@
 """PrecisionController (counterpart of ``repro/core/controller.py``): the
-state, the quantized copy for the forward (round-to-nearest or
-stochastic-rounding int8 words), the per-step accumulation of the training
-step, and the precision switch (PushDown + PushUp, alg. 2).
+state, the quantized copy for the forward (grid values in a float
+container, packed int8 words, or the quantize prologue's master plus draw
+metadata; round-to-nearest or stochastically rounded), the per-step
+accumulation of the training step, and the precision switch (PushDown +
+PushUp, alg. 2).
 
 State layout (a plain dict tree):
 
@@ -171,6 +173,99 @@ def leaf_seeds(seed: int, step: int, paths: Iterable[str]) -> Dict[str, int]:
     return dict(zip(paths, fold_shard_seed(base, hashes).tolist()))
 
 
+_JAX_RANDOM = ("stochastic-rounding words without quant.use_pallas and "
+               "quant.fused_prng come from jax.random noise in the "
+               "reference, which the port does not carry (ROADMAP.md, "
+               "Queue 1)")
+
+
+def _use_fused_prng(qcfg: QuantConfig, sr: bool, fl: torch.Tensor,
+                    leaf: torch.Tensor) -> bool:
+    """True when ``leaf`` takes the in-kernel-noise SR quantize
+    (``controller.py:245-272`` without sharding): SR on, ``use_pallas`` and
+    ``fused_prng``, and a precision that is a scalar or one per layer of
+    the leaf's leading dim."""
+    if not (sr and qcfg.use_pallas and qcfg.fused_prng):
+        return False
+    return fl.ndim == 0 or (fl.ndim == 1 and fl.shape[0] == leaf.shape[0])
+
+
+def _use_dense_prologue(qcfg: QuantConfig, path: str, fl: torch.Tensor,
+                        leaf: torch.Tensor) -> bool:
+    """True when ``leaf`` skips word materialization and is quantized in
+    the matmul prologue (``controller.py:274-306`` without sharding):
+    ``use_pallas`` and ``dense_prologue``, a dense-layer weight, 2-D with a
+    scalar ⟨WL,FL⟩ or (L, K, N) with one per layer."""
+    if not (qcfg.use_pallas and qcfg.dense_prologue):
+        return False
+    if not fxp.is_dense_param(path):
+        return False
+    if fl.ndim == 0:
+        return leaf.ndim == 2
+    return fl.ndim == 1 and leaf.ndim == 3 and fl.shape[0] == leaf.shape[0]
+
+
+def _per_layer(t: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """An (L,) precision broadcast over a stacked leaf as (L, 1, ...)."""
+    return t.reshape(tuple(t.shape) + (1,) * (leaf.ndim - 1)) if t.ndim else t
+
+
+def _rtn_words(leaf: torch.Tensor, fl: torch.Tensor) -> torch.Tensor:
+    """round(w·2^FL) half to even, clipped to [−128, 127], as f32 values.
+    In place on the one f32 temporary: at full width the largest leaf is
+    2.8 GB in f32, so every extra temporary counts."""
+    x = leaf.to(torch.float32) * fxp.pow2i(_per_layer(fl, leaf))
+    return x.round_().clamp_(-128.0, 127.0)
+
+
+def quantize_params(params, state: Dict[str, Any], qcfg: QuantConfig,
+                    seeds: Optional[Mapping[str, int]] = None,
+                    dtype: torch.dtype = torch.float32):
+    """The quantized copy of the master params as grid values in a float
+    container (``controller.py:308-387``): quantized leaves on their
+    ⟨WL,FL⟩ grid in ``dtype`` (f32 or bf16), every other leaf cast to it.
+
+    With ``quant.stochastic_rounding`` and ``seeds`` (an int32 seed per
+    quantized leaf path, ``leaf_seeds``) the values are stochastically
+    rounded with the noise drawn in the kernel (``quant.use_pallas`` and
+    ``quant.fused_prng``; the other SR branch draws ``jax.random`` noise,
+    which the port does not carry, and raises). Otherwise they are
+    rounded to nearest, half to even (``fixed_point.quantize``).
+
+    ``dtype=torch.int8`` is the reference's int8 branch: int8 words
+    (stochastically rounded, or to nearest; clipped to [−128, 127]) times
+    the bf16 scale 2^-FL, in bf16, as are the other leaves."""
+    int8 = dtype == torch.int8
+    out_dtype = torch.bfloat16 if int8 else dtype
+    sr = seeds is not None and qcfg.stochastic_rounding
+    tensors = state["tensors"]
+    out: Dict[str, Any] = {}
+    for p, leaf in flatten_with_path(params):
+        if p not in tensors:
+            _set_path(out, p, leaf.to(out_dtype))
+            continue
+        wl, fl = tensors[p]["wl"], tensors[p]["fl"]
+        if _use_fused_prng(qcfg, sr, fl, leaf):
+            if int8:
+                q = kops.sr_quantize_fused_int8(leaf, seeds[p], fl,
+                                                use_pallas=True)
+                q = q.to(torch.bfloat16).mul_(_sc_for(p, leaf, fl))
+            else:
+                q = kops.sr_quantize_fused(leaf, seeds[p], wl, fl,
+                                           use_pallas=True,
+                                           out_dtype=out_dtype)
+        elif sr:
+            raise NotImplementedError(f"{p}: {_JAX_RANDOM}")
+        elif int8:
+            q = _rtn_words(leaf, fl).to(torch.bfloat16)
+            q.mul_(_sc_for(p, leaf, fl))
+        else:
+            q = fxp.quantize(leaf, _per_layer(wl, leaf),
+                             _per_layer(fl, leaf)).to(out_dtype)
+        _set_path(out, p, q)
+    return out
+
+
 def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
                            seeds: Optional[Mapping[str, int]] = None):
     """Packed tree: quantized leaves become {"q8", "sc", "wref"} dicts
@@ -183,22 +278,19 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
     ``jax.random`` noise, which the port does not carry, and raises), and
     a leaf takes the stacked kernel when its FL is per layer. Otherwise the
     words are rounded to nearest, half to even. Both clip to [-128, 127].
-    The quantize-prologue format raises (a later slice).
+
+    Dense-layer weights under ``quant.use_pallas`` + ``quant.dense_prologue``
+    (``_use_dense_prologue``) become quantize-prologue dicts
+    ⟨wm, seed, flq, mode⟩ (``fixed_point.QDENSE_KEYS``,
+    ``controller.py:451-462``): "wm" is the f32 master itself, "seed" the
+    leaf's seed (0 under RTN) folded with the layer index on a stacked leaf
+    (``fold_shard_seed``), "mode" 1 for SR and 0 for RTN; the dense kernels
+    draw the words in registers.
 
     "wref" is a bf16 zero of the leaf's shape that nothing reads, so it is
     a zero-stride view that takes no memory; ``grad_receivers`` makes it
     the leaf's gradient receiver, whose gradient autograd materializes."""
     sr = seeds is not None and qcfg.stochastic_rounding
-    if sr and not (qcfg.use_pallas and qcfg.fused_prng):
-        raise NotImplementedError(
-            "stochastic-rounding quantize_params_packed without "
-            "quant.use_pallas and quant.fused_prng draws jax.random noise "
-            "in the reference, which the port does not carry (ROADMAP.md, "
-            "Queue 1)")
-    if qcfg.use_pallas and qcfg.dense_prologue:
-        raise NotImplementedError(
-            "the quantize-prologue format (quant.dense_prologue) is not "
-            "ported yet (ROADMAP.md, Queue 1)")
     tensors = state["tensors"]
     out: Dict[str, Any] = {}
     for p, leaf in flatten_with_path(params):
@@ -206,23 +298,24 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
             _set_path(out, p, leaf.to(torch.bfloat16))
             continue
         fl = tensors[p]["fl"]
-        if sr:
-            if fl.ndim > 1 or (fl.ndim == 1 and fl.shape[0] != leaf.shape[0]):
-                raise NotImplementedError(
-                    f"{p}: SR words for a precision of shape "
-                    f"{tuple(fl.shape)} on a leaf of shape "
-                    f"{tuple(leaf.shape)} take the jax.random noise path, "
-                    "which the port does not carry")
+        if _use_dense_prologue(qcfg, p, fl, leaf):
+            seed = int(seeds[p]) if sr else 0
+            if fl.ndim:
+                seed = fold_shard_seed(seed, torch.arange(fl.shape[0]))
+            else:
+                seed = torch.tensor(seed, dtype=torch.int32)
+            _set_path(out, p, {
+                "wm": leaf.to(torch.float32), "seed": seed, "flq": fl,
+                "mode": torch.full(tuple(fl.shape), int(sr),
+                                   dtype=torch.int32)})
+            continue
+        if _use_fused_prng(qcfg, sr, fl, leaf):
             q8 = kops.sr_quantize_fused_int8(leaf, seeds[p], fl,
                                              use_pallas=True)
+        elif sr:
+            raise NotImplementedError(f"{p}: {_JAX_RANDOM}")
         else:
-            flb = fl.reshape(tuple(fl.shape) + (1,) * (leaf.ndim - 1)) \
-                if fl.ndim else fl
-            # in place on the one f32 temporary: at full width the largest
-            # leaf is 2.8 GB in f32, so every extra temporary counts
-            x = leaf.to(torch.float32) * fxp.pow2i(flb)
-            q8 = x.round_().clamp_(-128.0, 127.0).to(torch.int8)
-            del x
+            q8 = _rtn_words(leaf, fl).to(torch.int8)
         wref = torch.zeros((), dtype=torch.bfloat16,
                            device=leaf.device).expand(leaf.shape)
         _set_path(out, p, {"q8": q8, "sc": _sc_for(p, leaf, fl),
@@ -232,16 +325,22 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
 
 def grad_receivers(qparams) -> Dict[str, torch.Tensor]:
     """The tensors the training step differentiates with respect to, by
-    param path, each set to require grad: a packed leaf's "wref" and every
-    other leaf (the bf16 cast of an unquantized param). The reference
-    differentiates w.r.t. the whole packed tree and then keeps each packed
-    dict's "wref" cotangent (``strip_packed_grads``); asking autograd for
-    the receivers alone gives the same per-param gradients."""
+    param path, each set to require grad: a packed leaf's "wref", a
+    quantize-prologue leaf's "wm" (the master itself) and every other leaf
+    (a grid-value or cast leaf of the quantized copy, or the master where
+    nothing is quantized). The reference differentiates w.r.t. the whole
+    tree and then keeps each packed dict's "wref" and each prologue dict's
+    "wm" cotangent (``strip_packed_grads``); asking autograd for the
+    receivers alone gives the same per-param gradients. The caller clears
+    ``requires_grad`` again once the gradients are taken: a receiver may be
+    a master param, which the optimizer updates in place."""
     out: Dict[str, torch.Tensor] = {}
 
     def visit(tree, prefix: str) -> None:
         if fxp.is_packed(tree):
             out[prefix] = tree["wref"].requires_grad_()
+        elif fxp.is_qdense(tree):
+            out[prefix] = tree["wm"].requires_grad_()
         elif isinstance(tree, dict):
             for k, v in tree.items():
                 visit(v, f"{prefix}/{k}" if prefix else str(k))

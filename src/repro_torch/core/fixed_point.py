@@ -9,9 +9,9 @@ fed whole to the fxp matmul kernels, with gradients routed to "wref".
 Counterpart of ``repro/core/fixed_point.py``: grids, round-to-nearest and
 stochastic-rounding quantization (the noise ``u`` supplied by the caller),
 activation quantization with the straight-through gradient, the packed
-format with ``dequant_packed``'s gradient rule, and ``sparsity``. The
-quantize-prologue format (``qdense_view``) comes later (ROADMAP.md,
-Queue 1).
+format with ``dequant_packed``'s gradient rule, the quantize-prologue
+format ⟨wm, seed, flq, mode⟩ with its value view ``qdense_view``, and
+``sparsity``.
 """
 from __future__ import annotations
 
@@ -110,6 +110,13 @@ def quantize_activation(a: torch.Tensor, wl) -> torch.Tensor:
 
 PACKED_KEYS = frozenset(("q8", "sc", "wref"))
 
+# Quantize-prologue format: the quantized copy of a dense-consumed weight is
+# the f32 MASTER "wm" itself plus ⟨"seed", "flq", "mode"⟩ (int32, (L,) on a
+# stacked leaf); the dense kernels draw the int8 words in registers and the
+# gradient lands on "wm". "seed" and "mode" are host (CPU) tensors, "flq"
+# the controller's device FL.
+QDENSE_KEYS = frozenset(("wm", "seed", "flq", "mode"))
+
 # Param-tree leaf names consumed by models/common.dense (2-D x@W matmuls):
 # only these reach the fxp matmul kernel; every other quantized leaf is
 # dequantized at its use site.
@@ -123,6 +130,10 @@ DENSE_PARAM_NAMES = frozenset((
 
 def is_packed(leaf) -> bool:
     return isinstance(leaf, dict) and frozenset(leaf) == PACKED_KEYS
+
+
+def is_qdense(leaf) -> bool:
+    return isinstance(leaf, dict) and frozenset(leaf) == QDENSE_KEYS
 
 
 def is_dense_param(path: str) -> bool:
@@ -158,11 +169,36 @@ def dequant_packed(q8: torch.Tensor, sc: torch.Tensor, wref=None
     return _DequantPacked.apply(q8, sc, wref)
 
 
+def qdense_view(wm: torch.Tensor, seed, flq, mode) -> torch.Tensor:
+    """The value view of a quantize-prologue leaf (``fixed_point.py:181``):
+    the dequantized ⟨8,FL⟩ words the matmul draws in registers, per layer of
+    a stacked leaf, in wm's dtype, as wm + (view − wm) with the difference
+    detached, so the gradient passes to ``wm`` unchanged."""
+    from repro_torch.kernels import ops
+
+    def one(w, s, f, m):
+        words = ops.qdense_words(w, s, f, m).to(torch.float32)
+        return words * pow2i(-f).to(w.device)
+
+    flq = torch.as_tensor(flq)
+    if flq.ndim:
+        view = torch.stack([one(w, s, f, m) for w, s, f, m in
+                            zip(wm.detach(), seed, flq, mode)])
+    else:
+        view = one(wm.detach(), seed, flq, mode)
+    return wm + (view.to(wm.dtype) - wm).detach()
+
+
 def unpack_tree(tree, keep_dense: bool = False, _prefix: str = ""):
-    """Dequantize every packed leaf in a (sub)tree of dicts; plain leaves
-    pass. ``keep_dense=True`` leaves packed dicts whose path names a
-    dense-layer weight (``is_dense_param``) intact: the kernel dense path
-    consumes them directly (``models/common.dense``)."""
+    """Dequantize every packed leaf, and take the value view of every
+    quantize-prologue leaf, in a (sub)tree of dicts; plain leaves pass.
+    ``keep_dense=True`` leaves the dicts whose path names a dense-layer
+    weight (``is_dense_param``) intact: the kernel dense path consumes them
+    directly (``models/common.dense``)."""
+    if is_qdense(tree):
+        if keep_dense and is_dense_param(_prefix):
+            return tree
+        return qdense_view(tree["wm"], tree["seed"], tree["flq"], tree["mode"])
     if is_packed(tree):
         if keep_dense and is_dense_param(_prefix):
             return tree

@@ -11,7 +11,11 @@ leaf may be passed as it is: it is read through its bf16 view
 (``dequant_packed``) one leaf at a time, inside an autograd Function that
 keeps no f32 temporary past its own leaf and routes the gradient
 β·w ± α to "wref" in bf16, the gradient the reference's ``dequant_packed``
-rule gives it.
+rule gives it. A quantize-prologue ⟨wm, seed, flq, mode⟩ leaf is read
+through its f32 view (``fixed_point.qdense_view``), layer by layer: the
+words are drawn again (on the card by the SR int8 kernel, whose words are
+the prologue's for a 2-D slice) in the forward and once more in the
+backward, and the gradient passes straight to "wm" in f32.
 """
 from __future__ import annotations
 
@@ -82,9 +86,44 @@ class _PackedElasticNet(torch.autograd.Function):
         return None, None, dw, None, None
 
 
+class _QdenseElasticNet(torch.autograd.Function):
+    """α‖v‖₁ + β/2‖v‖₂² of the view v of a prologue leaf, layer by layer,
+    without saving the view: the backward draws the words again and writes
+    g·(β·v ± α) into the f32 gradient of "wm"."""
+
+    @staticmethod
+    def forward(ctx, wm, seed, flq, mode, alpha, beta):
+        ctx.save_for_backward(wm)
+        ctx.meta = (seed, flq, mode)
+        ctx.coef = (alpha, beta)
+        total = None
+        for args in _qdense_layers(wm, seed, flq, mode):
+            term = _leaf_terms(fxp.qdense_view(*args), alpha, beta)
+            total = term if total is None else total + term
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        (wm,) = ctx.saved_tensors
+        dw = torch.empty_like(wm)
+        for args, out in zip(_qdense_layers(wm, *ctx.meta),
+                             _qdense_layers(dw, *ctx.meta)):
+            out[0].copy_(_leaf_grad(fxp.qdense_view(*args), *ctx.coef, g))
+        return dw, None, None, None, None, None
+
+
+def _qdense_layers(wm, seed, flq, mode):
+    """(w, seed, fl, mode) of each 2-D layer of a prologue leaf: one per
+    layer of a stacked leaf (its (L,) seed, FL and mode unbound with it),
+    else the leaf whole."""
+    return unbind_layers(wm, seed, flq, mode, stacked=flq.ndim > 0)
+
+
 def _leaves(tree, prefix: str = ""):
-    """(path, leaf) of a tree of dicts, a packed dict counting as a leaf."""
-    if isinstance(tree, dict) and not fxp.is_packed(tree):
+    """(path, leaf) of a tree of dicts, a packed or prologue dict counting
+    as a leaf."""
+    if isinstance(tree, dict) and not (fxp.is_packed(tree)
+                                       or fxp.is_qdense(tree)):
         for k, v in tree.items():
             yield from _leaves(v, f"{prefix}/{k}" if prefix else str(k))
     else:
@@ -101,6 +140,10 @@ def elastic_net(params, alpha: float, beta: float, quantized_paths
         if fxp.is_packed(leaf):
             term = _PackedElasticNet.apply(leaf["q8"], leaf["sc"],
                                            leaf["wref"], alpha, beta)
+        elif fxp.is_qdense(leaf):
+            term = _QdenseElasticNet.apply(leaf["wm"], leaf["seed"],
+                                           leaf["flq"], leaf["mode"], alpha,
+                                           beta)
         else:
             term = _ElasticNet.apply(leaf, alpha, beta)
         total = term if total is None else total + term

@@ -1,7 +1,8 @@
-// Stochastic-rounding int8 words of the f32 master, the noise drawn inside
-// the kernel from the portable counter-hash stream (paper alg. 1 ln. 9-11:
-// the quantized copy of every weight tensor, once per optimizer step).
+// Stochastic-rounding quantize of the f32 master, the noise drawn inside the
+// kernel from the portable counter-hash stream (paper alg. 1 ln. 9-11: the
+// quantized copy of every weight tensor, once per optimizer step).
 //
+// Int8 words (the int8_packed container):
 //  * sr_quantize_fused_int8_launch replaces the TPU kernel
 //    `_sr_fused_int8_kernel` of src/repro/kernels/sr_quantize.py (reached
 //    through `sr_quantize_fused_int8`): an unstacked tensor of n elements,
@@ -12,22 +13,35 @@
 //    own FL, element i of layer l drawing u from index l * rows * 512 + i,
 //    rows = ceil(n_l / 512). The layer stride is the TPU kernel's padded
 //    plane; no padding is needed here, only the index.
+// Grid values in a float container (float32 / bfloat16):
+//  * sr_quantize_fused_launch replaces `_sr_fused_kernel` (reached through
+//    `sr_quantize_fused`), flat, at one <WL,FL>;
+//  * sr_quantize_fused_stacked_launch replaces `_sr_fused_stacked_kernel`
+//    (reached through `sr_quantize_fused_stacked`), layer l at
+//    <wl[l], fl[l]>, with the same layer stride as the int8 stack.
 //
-// Each element: s = x * 2^fl, f = floor(s), q = f + [u < s - f], clipped to
-// [-128, 127] as int8; u = (h >> 8) * 2^-24 with h the murmur3 finalizer of
-// idx + (uint32)seed * 0x9E3779B9 (uint32 arithmetic, wrapping). 2^fl is
-// built from the exponent bits (fl clamped to [-126, 127]), never exp2f.
-// The products and differences are written as __fmul_rn / __fsub_rn so that
-// no fused multiply-add changes a rounding: the words are bit for bit those
-// of the reference's portable stream.
+// Each element: s = x * 2^fl, f = floor(s), q = f + [u < s - f]; u = (h >> 8)
+// * 2^-24 with h the murmur3 finalizer of idx + (uint32)seed * 0x9E3779B9
+// (uint32 arithmetic, wrapping). Int8 words clip q to [-128, 127]. Grid
+// values clip q to [-qmax - 1, qmax], qmax = 2^(wl-1) - 1 computed in f32 (at
+// WL 32 it rounds to 2^31, as the reference's), and write q / 2^fl, an IEEE
+// division (__fdiv_rn: 2^fl is clamped to the normal range, so 2^-fl is not
+// always its reciprocal), as f32 or as bf16 rounded to nearest even. 2^e is
+// built from the exponent bits (e clamped to [-126, 127]), never exp2f. The
+// products and differences are written as __fmul_rn / __fsub_rn so that no
+// fused multiply-add changes a rounding: the values are bit for bit those of
+// the reference's portable stream.
 //
-// What bounds it on an H100: the bytes, 4 read and 1 written per element
-// (3.6 G elements a training step of llama3.2-3b, 18 GB, >= 5.4 ms at
-// 3.35 TB/s). Design: elementwise with no reduction; a grid-stride loop
-// with one float4 load and one 4-byte store per thread and step wherever
-// the layer's length and the pointers allow it, the layer on grid.y, FL
-// read once per thread from device memory (no host synchronisation).
+// What bounds them on an H100: the bytes, 4 read per element and 1 (int8),
+// 4 (f32) or 2 (bf16) written (3.6 G elements a training step of
+// llama3.2-3b: 18 GB for int8 words, 28.9 GB for f32 grid values, >= 5.4
+// and 8.6 ms at 3.35 TB/s). Design: elementwise with no reduction; a
+// grid-stride loop with one float4 load and one 4-word store per thread and
+// step wherever the layer's length and the pointers allow it, the layer on
+// grid.y, <WL,FL> read once per thread from device memory (no host
+// synchronisation).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,53 +65,110 @@ __device__ __forceinline__ float uniform(uint32_t idx, uint32_t seed_mix) {
   return __fmul_rn((float)(h >> 8), 1.0f / 16777216.0f);
 }
 
-__device__ __forceinline__ int8_t sr_word(float x, float scale, float u) {
+// floor(s) + [u < s - floor(s)], s = x * scale
+__device__ __forceinline__ float sr_round(float x, float scale, float u) {
   const float s = __fmul_rn(x, scale);
   const float f = floorf(s);
-  float q = __fadd_rn(f, u < __fsub_rn(s, f) ? 1.0f : 0.0f);
-  q = fminf(fmaxf(q, -128.0f), 127.0f);
+  return __fadd_rn(f, u < __fsub_rn(s, f) ? 1.0f : 0.0f);
+}
+
+// The grid of one layer: the scale 2^fl and, for grid values, the clip
+// bounds [-qmax - 1, qmax].
+struct Grid {
+  float scale, lo, hi;
+};
+
+__device__ __forceinline__ Grid grid_of(const int* wl, const int* fl, int l) {
+  Grid g;
+  g.scale = pow2i(fl[l]);
+  if (wl != nullptr) {
+    g.hi = __fsub_rn(pow2i(wl[l] - 1), 1.0f);
+    g.lo = __fsub_rn(-g.hi, 1.0f);
+  }
+  return g;
+}
+
+template <typename T>
+__device__ __forceinline__ T word(float x, const Grid& g, float u);
+
+// int8 words: clip to [-128, 127]
+template <>
+__device__ __forceinline__ int8_t word<int8_t>(float x, const Grid& g, float u) {
+  const float q = fminf(fmaxf(sr_round(x, g.scale, u), -128.0f), 127.0f);
   return (int8_t)(int)q;
 }
 
+// grid values: clip (a NaN passes, as torch.clamp's and jnp.clip's), divide
+__device__ __forceinline__ float grid_value(float x, const Grid& g, float u) {
+  float q = sr_round(x, g.scale, u);
+  q = q < g.lo ? g.lo : (q > g.hi ? g.hi : q);
+  return __fdiv_rn(q, g.scale);
+}
+template <>
+__device__ __forceinline__ float word<float>(float x, const Grid& g, float u) {
+  return grid_value(x, g, u);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 word<__nv_bfloat16>(float x, const Grid& g,
+                                                            float u) {
+  return __float2bfloat16_rn(grid_value(x, g, u));
+}
+
+// Four consecutive outputs by one store (the caller has checked alignment).
+__device__ __forceinline__ void store4(int8_t* p, const int8_t (&w)[4]) {
+  *reinterpret_cast<char4*>(p) = make_char4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store4(float* p, const float (&w)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const __nv_bfloat16 (&w)[4]) {
+  __nv_bfloat162 a, b;
+  a.x = w[0]; a.y = w[1]; b.x = w[2]; b.y = w[3];
+  uint2 v;
+  v.x = *reinterpret_cast<const unsigned*>(&a);
+  v.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = v;
+}
+
 // grid.y = layer; grid.x strides over the layer's elements (VEC: over
-// groups of four).
-template <bool VEC>
+// groups of four). `wl` is null for int8 words.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(NT)
-sr_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-               const int* __restrict__ fl, uint32_t seed_mix, long long n_l,
-               uint32_t stride) {
+sr_kernel(const float* __restrict__ x, T* __restrict__ q,
+          const int* __restrict__ wl, const int* __restrict__ fl,
+          uint32_t seed_mix, long long n_l, uint32_t stride) {
   const int l = blockIdx.y;
-  const float scale = pow2i(fl[l]);
+  const Grid g = grid_of(wl, fl, l);
   const uint32_t base = (uint32_t)l * stride;
   const float* xl = x + (long long)l * n_l;
-  int8_t* ql = q + (long long)l * n_l;
+  T* ql = q + (long long)l * n_l;
   const long long step = (long long)gridDim.x * NT;
   if (VEC) {
     const long long groups = n_l / 4;
-    for (long long g = (long long)blockIdx.x * NT + threadIdx.x; g < groups;
-         g += step) {
-      const float4 v = reinterpret_cast<const float4*>(xl)[g];
-      const uint32_t i = base + (uint32_t)(4 * g);
-      char4 w;
-      w.x = sr_word(v.x, scale, uniform(i, seed_mix));
-      w.y = sr_word(v.y, scale, uniform(i + 1u, seed_mix));
-      w.z = sr_word(v.z, scale, uniform(i + 2u, seed_mix));
-      w.w = sr_word(v.w, scale, uniform(i + 3u, seed_mix));
-      reinterpret_cast<char4*>(ql)[g] = w;
+    for (long long e = (long long)blockIdx.x * NT + threadIdx.x; e < groups;
+         e += step) {
+      const float4 v = reinterpret_cast<const float4*>(xl)[e];
+      const uint32_t i = base + (uint32_t)(4 * e);
+      const T w[4] = {word<T>(v.x, g, uniform(i, seed_mix)),
+                      word<T>(v.y, g, uniform(i + 1u, seed_mix)),
+                      word<T>(v.z, g, uniform(i + 2u, seed_mix)),
+                      word<T>(v.w, g, uniform(i + 3u, seed_mix))};
+      store4(ql + 4 * e, w);
     }
   } else {
     for (long long e = (long long)blockIdx.x * NT + threadIdx.x; e < n_l;
          e += step)
-      ql[e] = sr_word(xl[e], scale, uniform(base + (uint32_t)e, seed_mix));
+      ql[e] = word<T>(xl[e], g, uniform(base + (uint32_t)e, seed_mix));
   }
 }
 
-cudaError_t launch(const float* x, int8_t* q, const int* fl, int seed, int L,
-                   long long n_l, uint32_t stride, cudaStream_t st) {
+template <typename T>
+cudaError_t launch(const float* x, T* q, const int* wl, const int* fl, int seed,
+                   int L, long long n_l, uint32_t stride, cudaStream_t st) {
   if (L <= 0 || n_l <= 0) return cudaGetLastError();
   const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B9u;
   const bool vec = n_l % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % 4 == 0;
+                   reinterpret_cast<uintptr_t>(q) % (4 * sizeof(T)) == 0;
   const long long work = vec ? n_l / 4 : n_l;
   // about 16 resident blocks per SM of the 132 in all, split over layers
   long long bx = (work + NT - 1) / NT;
@@ -105,10 +176,28 @@ cudaError_t launch(const float* x, int8_t* q, const int* fl, int seed, int L,
   if (bx > cap) bx = cap;
   const dim3 grid((unsigned)bx, (unsigned)L);
   if (vec)
-    sr_int8_kernel<true><<<grid, NT, 0, st>>>(x, q, fl, seed_mix, n_l, stride);
+    sr_kernel<T, true><<<grid, NT, 0, st>>>(x, q, wl, fl, seed_mix, n_l, stride);
   else
-    sr_int8_kernel<false><<<grid, NT, 0, st>>>(x, q, fl, seed_mix, n_l, stride);
+    sr_kernel<T, false><<<grid, NT, 0, st>>>(x, q, wl, fl, seed_mix, n_l, stride);
   return cudaGetLastError();
+}
+
+uint32_t layer_stride(long long n_l) {
+  return (uint32_t)((n_l + LANES - 1) / LANES) * LANES;
+}
+
+// Grid values as f32 (out_dtype 0) or bf16 (out_dtype 1).
+cudaError_t launch_grid(const void* x, void* q, int out_dtype, const void* wl,
+                        const void* fl, int seed, int L, long long n_l,
+                        uint32_t stride, void* stream) {
+  const float* xp = static_cast<const float*>(x);
+  const int* wlp = static_cast<const int*>(wl);
+  const int* flp = static_cast<const int*>(fl);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 1)
+    return launch(xp, static_cast<__nv_bfloat16*>(q), wlp, flp, seed, L, n_l,
+                  stride, st);
+  return launch(xp, static_cast<float*>(q), wlp, flp, seed, L, n_l, stride, st);
 }
 
 }  // namespace
@@ -120,7 +209,7 @@ extern "C" {
 int sr_quantize_fused_int8_launch(const void* x, void* q, const void* fl,
                                   int seed, long long n, void* stream) {
   return (int)launch(static_cast<const float*>(x), static_cast<int8_t*>(q),
-                     static_cast<const int*>(fl), seed, 1, n, 0u,
+                     nullptr, static_cast<const int*>(fl), seed, 1, n, 0u,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -130,10 +219,28 @@ int sr_quantize_fused_stacked_int8_launch(const void* x, void* q,
                                           const void* fl, int seed, int L,
                                           long long n_l, void* stream) {
   if (L > 65535) return (int)cudaErrorInvalidValue;
-  const uint32_t rows = (uint32_t)((n_l + LANES - 1) / LANES);
   return (int)launch(static_cast<const float*>(x), static_cast<int8_t*>(q),
-                     static_cast<const int*>(fl), seed, L, n_l, rows * LANES,
-                     static_cast<cudaStream_t>(stream));
+                     nullptr, static_cast<const int*>(fl), seed, L, n_l,
+                     layer_stride(n_l), static_cast<cudaStream_t>(stream));
+}
+
+// q (n) = SR grid values of x (n) f32 at <*wl, *fl> (device int32 scalars),
+// f32 (out_dtype 0) or bf16 (1). Returns cudaGetLastError().
+int sr_quantize_fused_launch(const void* x, void* q, int out_dtype,
+                             const void* wl, const void* fl, int seed,
+                             long long n, void* stream) {
+  return (int)launch_grid(x, q, out_dtype, wl, fl, seed, 1, n, 0u, stream);
+}
+
+// q (L, n_l) = SR grid values of x (L, n_l) f32, layer l at <wl[l], fl[l]>
+// (device int32 (L,) each), f32 (out_dtype 0) or bf16 (1). Returns
+// cudaGetLastError().
+int sr_quantize_fused_stacked_launch(const void* x, void* q, int out_dtype,
+                                     const void* wl, const void* fl, int seed,
+                                     int L, long long n_l, void* stream) {
+  if (L > 65535) return (int)cudaErrorInvalidValue;
+  return (int)launch_grid(x, q, out_dtype, wl, fl, seed, L, n_l,
+                          layer_stride(n_l), stream);
 }
 
 }  // extern "C"

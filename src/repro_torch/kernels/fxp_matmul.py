@@ -1,7 +1,8 @@
 """Fixed-point matmul y = (x @ wq) · 2^-FL, int8 words dequantized in
-registers, and its two backward products: the CUDA kernels of
-``csrc/fxp_matmul.cu`` and ``csrc/fxp_matmul_bwd.cu``, each beside its
-plain version.
+registers, its two backward products, and the quantize-prologue pair that
+draws the words from the f32 master in registers: the CUDA kernels of
+``csrc/fxp_matmul.cu``, ``csrc/fxp_matmul_bwd.cu`` and
+``csrc/fxp_qmatmul.cu``, each beside its plain version.
 
 * ``fxp_matmul`` replaces the TPU kernel ``_fxp_matmul_kernel`` of
   ``repro/kernels/fxp_matmul.py``. On an H100 a decode call is bound by
@@ -10,9 +11,15 @@ plain version.
   reading the forward's (K, N) words in place.
 * ``matmul_dw`` replaces ``_matmul_dw_kernel``: dw = xᵀ @ dy, f32
   accumulation, out in f32 or bf16.
+* ``fxp_qmatmul`` replaces ``_fxp_qmatmul_kernel``: y = (x @ Q(w))·2^-FL,
+  the ⟨8,FL⟩ words Q(w) of the (K, N) f32 master drawn in registers
+  (stochastically rounded with the portable stream of index k·N + n, or
+  rounded to nearest).
+* ``matmul_qdx`` replaces ``_matmul_qdx_kernel``: dx = (dy @ Q(w)ᵀ)·2^-FL
+  on the same words.
 
-No kernel writes a dequantized weight to device memory (see the notes at
-the top of the CUDA sources for their designs).
+No kernel writes a dequantized weight or a word tensor to device memory
+(see the notes at the top of the CUDA sources for their designs).
 """
 from __future__ import annotations
 
@@ -21,12 +28,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (ref_fxp_matmul, ref_matmul_dw,
-                                     ref_matmul_dx)
+from repro_torch.kernels.ref import (ref_fxp_matmul, ref_fxp_qdense,
+                                     ref_matmul_dw, ref_matmul_dx,
+                                     ref_matmul_qdx)
 
 plain = ref_fxp_matmul
 plain_dx = ref_matmul_dx
 plain_dw = ref_matmul_dw
+plain_q = ref_fxp_qdense
+plain_qdx = ref_matmul_qdx
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SPLITK_MAX_M = 16          # the kernel's GEMV path takes M <= 16
@@ -176,3 +186,84 @@ def matmul_dw(x: torch.Tensor, dy: torch.Tensor, *,
 
 
 matmul_dw.launches = 0
+
+
+def _q_lib():
+    lib = _build.load("fxp_qmatmul")
+    fns = lib.fxp_qmatmul_launch, lib.matmul_qdx_launch
+    if fns[0].argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in fns:
+            fn.argtypes = [p, i, p, p, i, i, p, i, i, i, i, p]
+            fn.restype = ctypes.c_int
+    return fns
+
+
+def _seed32(seed) -> int:
+    """The seed as the int32 the kernels reinterpret as uint32."""
+    s = int(seed) & 0xFFFFFFFF
+    return s - (1 << 32) if s >= (1 << 31) else s
+
+
+def _prologue(name: str, a: torch.Tensor, w: torch.Tensor, seed, fl, mode,
+              out_dtype, out_shape, entry: int) -> torch.Tensor:
+    check_card(a)
+    if a.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtypes {a.dtype} -> {out_dtype}, want "
+                        "bf16/f32")
+    if w.dtype != torch.float32:
+        raise TypeError(f"{name}: the master must be float32, got {w.dtype}")
+    fl = torch.as_tensor(fl, dtype=torch.int32, device=a.device)
+    if fl.numel() != 1:
+        raise ValueError(f"{name}: fl must hold one element")
+    if int(mode) not in (0, 1):
+        raise ValueError(f"{name}: mode must be 1 (SR) or 0 (RTN), got {mode}")
+    _check_operands(name, a, a=a, w=w, fl=fl)
+    M, N, K = out_shape[0], w.shape[1], w.shape[0]
+    out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _q_lib()[entry](a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(),
+                          fl.data_ptr(), _seed32(seed), int(mode),
+                          out.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
+                          stream)
+    _build.check(err, name)
+    return out
+
+
+def fxp_qmatmul(x: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel: y = (x @ Q⟨8,fl⟩(w))·2^-fl, the words drawn
+    from the master in registers, f32 accumulation.
+
+    x: (M, K) bf16/f32 contiguous; w: (K, N) f32 master, contiguous; fl: a
+    one-element int32 tensor on the device, read by the kernel (no host
+    sync); seed (int32 bits) and mode (1 SR, 0 RTN): host ints.
+    ``out_dtype`` (bf16/f32) defaults to x's."""
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"fxp_qmatmul: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    y = _prologue("fxp_qmatmul", x, w, seed, fl, mode, out_dtype or x.dtype,
+                  (x.shape[0], w.shape[1]), 0)
+    fxp_qmatmul.launches += 1
+    return y
+
+
+fxp_qmatmul.launches = 0
+
+
+def matmul_qdx(dy: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel: dx = (dy @ Q⟨8,fl⟩(w)ᵀ)·2^-fl on the words
+    the forward drew. dy: (M, N) bf16/f32 contiguous; w: the (K, N) f32
+    master, read in place along n; fl, seed, mode as ``fxp_qmatmul``.
+    ``out_dtype`` defaults to dy's."""
+    if dy.ndim != 2 or w.ndim != 2 or dy.shape[1] != w.shape[1]:
+        raise ValueError(f"matmul_qdx: shapes {tuple(dy.shape)}, "
+                         f"{tuple(w.shape)}")
+    dx = _prologue("matmul_qdx", dy, w, seed, fl, mode, out_dtype or dy.dtype,
+                   (dy.shape[0], w.shape[0]), 1)
+    matmul_qdx.launches += 1
+    return dx
+
+
+matmul_qdx.launches = 0

@@ -1,6 +1,8 @@
 """Dispatch over the port's kernels (counterpart of ``repro/kernels/ops.py``):
-the fxp matmul, the model's differentiable dense layer and attention, the
-stochastic-rounding int8 words and PushDown's EDF ladder.
+the fxp matmul, the model's differentiable dense layers (over int8 words,
+and the quantize prologue over the f32 master) and attention, the
+stochastic-rounding words (int8, and grid values in a float container) and
+PushDown's EDF ladder.
 
 The rule, by the device of the tensor each op is given:
 
@@ -11,10 +13,11 @@ The rule, by the device of the tensor each op is given:
 There is no fallback from the kernel to the plain version and no switch to
 force one. ``use_pallas`` keeps the reference's meaning: ``False`` is the
 plain XLA-style path (dequantize-then-matmul, masked attention) on any
-device. Under ``use_pallas``, ``fxp_dense`` and ``attention`` are
-``torch.autograd.Function``s whose backward passes are kernels too (dx/dw
-for the dense layer, dq/dkv for attention), as the reference's custom
-VJPs are (``fxp_matmul.py:556-592``, ``flash_attention.py:419-453``).
+device. Under ``use_pallas``, ``fxp_dense``, ``fxp_qdense`` and
+``attention`` are ``torch.autograd.Function``s whose backward passes are
+kernels too (dx/dw for the dense layers, dq/dkv for attention), as the
+reference's custom VJPs are (``fxp_matmul.py:556-630``,
+``flash_attention.py:419-453``).
 """
 from __future__ import annotations
 
@@ -153,6 +156,84 @@ def sr_quantize_fused_int8(x: torch.Tensor, seed, fl, *,
     if fl.ndim:
         return _sq.sr_quantize_fused_stacked_int8(x, seed, fl)
     return _sq.sr_quantize_fused_int8(x, seed, fl)
+
+
+def sr_quantize_fused(x: torch.Tensor, seed, wl, fl, *,
+                      use_pallas: bool = False,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """SR grid values of the f32 master on ⟨WL,FL⟩ with in-kernel noise, in
+    ``out_dtype`` (f32, or bf16 rounded to nearest even): an (L,) ⟨WL,FL⟩
+    selects the stacked kernel (layer l at ⟨wl[l], fl[l]⟩, one launch), a
+    scalar the flat one (``repro/kernels/ops.py:79-126``). ``seed`` is a
+    host int. Without ``use_pallas`` the reference draws ``jax.random``
+    noise, which the port does not carry: that raises."""
+    if not use_pallas:
+        raise NotImplementedError(
+            "sr_quantize_fused without use_pallas draws jax.random noise in "
+            "the reference, which the port does not carry (ROADMAP.md, "
+            "Queue 1)")
+    wl = torch.as_tensor(wl, dtype=torch.int32, device=x.device)
+    fl = torch.as_tensor(fl, dtype=torch.int32, device=x.device)
+    if wl.ndim:
+        return _sq.sr_quantize_fused_stacked(x, seed, wl, fl,
+                                             out_dtype=out_dtype)
+    return _sq.sr_quantize_fused(x, seed, wl, fl, out_dtype=out_dtype)
+
+
+class _FxpQDense(torch.autograd.Function):
+    """The quantize-prologue dense layer (``fxp_qdense_vjp``): forward
+    y = (x @ Q(w))·2^-fl with the words drawn from the master ``w`` in
+    registers; backward dx = (dy @ Q(w)ᵀ)·2^-fl on the same words and the
+    straight-through dw = xᵀ @ dy in f32, onto the master itself. Seed, FL
+    and mode get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, seed, fl, mode, out_dtype):
+        ctx.save_for_backward(x, w, fl)
+        ctx.seed, ctx.mode = seed, mode
+        if _on_card(x):
+            return _fm.fxp_qmatmul(x, w, seed, fl, mode, out_dtype=out_dtype)
+        return ref.ref_fxp_qdense(x, w, seed, fl, mode, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, fl = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        card = _on_card(dy)
+        if ctx.needs_input_grad[0]:
+            dx = (_fm.matmul_qdx(dy, w, ctx.seed, fl, ctx.mode,
+                                 out_dtype=x.dtype) if card
+                  else ref.ref_matmul_qdx(dy, w, ctx.seed, fl, ctx.mode,
+                                          out_dtype=x.dtype))
+        if ctx.needs_input_grad[1]:
+            dw = (_fm.matmul_dw(x, dy) if card
+                  else ref.ref_matmul_dw(x, dy)).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
+def fxp_qdense(x: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The quantize-prologue dense layer (``repro/kernels/ops.py:225``):
+    x (M, K) against the f32 master ``w`` (K, N), whose ⟨8,FL⟩ words are
+    drawn inside the matmul (mode 1 SR with the portable stream of index
+    k·N + n, mode 0 round to nearest); the words never exist in device
+    memory. ``seed`` and ``mode`` are host ints, ``fl`` a one-element
+    tensor. A prologue leaf exists only under ``use_pallas``, so there is
+    no plain-XLA branch: the kernels on the card, their plain versions on
+    the CPU."""
+    return _FxpQDense.apply(x.contiguous(), w, int(seed), fl.reshape(()),
+                            int(mode), out_dtype or x.dtype)
+
+
+def qdense_words(w: torch.Tensor, seed, fl, mode) -> torch.Tensor:
+    """The prologue's int8 words of a 2-D master slice, materialized (the
+    value view of the regularizer): mode 1 through the SR int8 kernel
+    (``sr_quantize_fused_int8``, whose words are the prologue's for a 2-D
+    leaf; its plain version on the CPU), mode 0 rounded to nearest."""
+    if int(mode) == 1:
+        return _sq.sr_quantize_fused_int8(w, int(seed), fl)
+    return ref.ref_qdense_words(w, seed, fl, 0)
 
 
 def edf_ladder_hists(w: torch.Tensor, fls: torch.Tensor, r, *,

@@ -114,6 +114,81 @@ def ref_sr_quantize_fused_stacked_int8_words(x: torch.Tensor, seed,
     return out
 
 
+def _sr_grid(x: torch.Tensor, u: torch.Tensor, wl, fl) -> torch.Tensor:
+    """SR onto the ⟨WL,FL⟩ grid in f32 (``repro/kernels/ref.py:22``):
+    s = x·2^fl, q = floor(s) + [u < frac], clipped to [−qmax − 1, qmax]
+    with qmax = 2^(wl−1) − 1 rounded to f32, then q / 2^fl (a division,
+    as the reference's)."""
+    scale = pow2i(fl).to(x.device)
+    qmax = pow2i(torch.as_tensor(wl) - 1).to(x.device) - 1.0
+    s = x.to(torch.float32) * scale
+    f = torch.floor(s)
+    q = f + (u < (s - f)).to(torch.float32)
+    return torch.clamp(q, -qmax - 1.0, qmax).div_(scale)
+
+
+def ref_sr_quantize_fused_words(x: torch.Tensor, seed, wl, fl, *,
+                                out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of ``sr_quantize_fused`` (the portable stream's grid
+    values, ``repro/kernels/ref.py:97``): element i of the flat tensor
+    takes the noise of index i; the f32 result cast to ``out_dtype``
+    (round to nearest even)."""
+    u = ref_fused_noise(seed, x.numel(), device=x.device).reshape(x.shape)
+    return _sr_grid(x, u, wl, fl).to(out_dtype)
+
+
+def ref_sr_quantize_fused_stacked_words(x: torch.Tensor, seed, wl, fl, *,
+                                        out_dtype=torch.float32
+                                        ) -> torch.Tensor:
+    """Plain version of ``sr_quantize_fused_stacked``
+    (``repro/kernels/ref.py:150``): layer l on the ⟨wl[l], fl[l]⟩ grid,
+    noise from flat offset l·rows·512 of the shared stream, one layer at a
+    time."""
+    n, stride = _stacked_stride(x)
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    for l in range(x.shape[0]):
+        u = ref_fused_noise(seed, n, offset=l * stride, device=x.device)
+        out[l] = _sr_grid(x[l].reshape(-1), u, wl[l], fl[l]).reshape(
+            x.shape[1:])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The quantize prologue: int8 words drawn from the f32 master inside the
+# matmul. Element (k, n) of a (K, N) master hashes its flat index k·N + n,
+# so for a 2-D leaf the SR words are ``sr_quantize_fused_int8``'s.
+
+
+def ref_qdense_words(w: torch.Tensor, seed, fl, mode) -> torch.Tensor:
+    """Plain version of the prologue's word draw (``repro/kernels/ref.py:113``):
+    ``mode`` 1 rounds stochastically with the portable stream, 0 to
+    nearest (half to even); clipped to [−128, 127], int8."""
+    if int(mode) == 1:
+        return ref_sr_quantize_fused_int8_words(w, seed, fl)
+    s = w.to(torch.float32) * pow2i(fl).to(w.device)
+    return s.round_().clamp_(-128.0, 127.0).to(torch.int8)
+
+
+def ref_fxp_qdense(x: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version of the prologue matmul (``repro/kernels/ref.py:131``):
+    y = (x @ Q⟨8,fl⟩(w))·2^-fl with f32 accumulation, x's dtype out."""
+    words = ref_qdense_words(w, seed, fl, mode).to(torch.float32)
+    acc = torch.matmul(x.to(torch.float32), words)
+    return (acc * pow2i(-torch.as_tensor(fl)).to(x.device)).to(
+        out_dtype or x.dtype)
+
+
+def ref_matmul_qdx(dy: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version of the prologue's dx: (dy @ Q⟨8,fl⟩(w)ᵀ)·2^-fl, the
+    same words as the forward, f32 accumulation, dy's dtype out."""
+    words = ref_qdense_words(w, seed, fl, mode).to(torch.float32)
+    acc = torch.matmul(dy.to(torch.float32), words.T)
+    return (acc * pow2i(-torch.as_tensor(fl)).to(dy.device)).to(
+        out_dtype or dy.dtype)
+
+
 def _edf_bins(v: torch.Tensor, lo, span, rf) -> torch.Tensor:
     """Bin of each value, clip(floor((v − lo) / span · r), 0, r − 1) in
     f32 in the reference's expression order; NaN where that is NaN."""

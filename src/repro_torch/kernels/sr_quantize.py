@@ -1,6 +1,8 @@
-"""Stochastic-rounding int8 words with the noise drawn inside the kernel:
-the CUDA kernels of ``csrc/sr_quantize.cu`` beside their plain versions,
-and the contract pieces of the portable noise stream.
+"""Stochastic rounding of the f32 master with the noise drawn inside the
+kernel: the CUDA kernels of ``csrc/sr_quantize.cu`` beside their plain
+versions, and the contract pieces of the portable noise stream.
+
+Int8 words (the packed container; dequant = q8·2^-FL at the consumer):
 
 * ``sr_quantize_fused_int8`` replaces the TPU kernel
   ``_sr_fused_int8_kernel`` of ``repro/kernels/sr_quantize.py`` (an
@@ -9,12 +11,22 @@ and the contract pieces of the portable noise stream.
   ``_sr_fused_stacked_int8_kernel`` (an (L, ...) leaf with a per-layer FL:
   element i of layer l hashes l·rows·512 + i, rows = ⌈n_l / 512⌉).
 
-Both give q = clip(floor(x·2^fl) + [u < frac], −128, 127) as int8 from the
-f32 master, u = ``uniform_from_index(seed, idx)``: the words are bit for
-bit those of the reference's portable stream (its interpret mode). The TPU
-hardware PRNG has no counterpart. On an H100 both are bound by their bytes
-(4 read and 1 written per element). A CPU tensor takes the plain version;
-a CUDA tensor takes the kernel or raises.
+Both give q = clip(floor(x·2^fl) + [u < frac], −128, 127) as int8,
+u = ``uniform_from_index(seed, idx)``.
+
+Grid values in a float container (``controller.quantize_params``):
+
+* ``sr_quantize_fused`` replaces ``_sr_fused_kernel`` (flat, one ⟨WL,FL⟩);
+* ``sr_quantize_fused_stacked`` replaces ``_sr_fused_stacked_kernel``
+  (layer l at ⟨wl[l], fl[l]⟩, the same index stride as the int8 stack).
+
+They clip q to [−2^(WL−1), 2^(WL−1) − 1] and return q / 2^FL in f32 or
+bf16 (rounded to nearest even).
+
+All four are bit for bit the reference's portable stream (its interpret
+mode); the TPU hardware PRNG has no counterpart. On an H100 they are bound
+by their bytes (4 read per element, 1, 4 or 2 written). A CPU tensor takes
+the plain version; a CUDA tensor takes the kernel or raises.
 """
 from __future__ import annotations
 
@@ -24,10 +36,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.fxp_matmul import check_card
+from repro_torch.kernels.fxp_matmul import _seed32, check_card
 
 plain = ref.ref_sr_quantize_fused_int8_words
 plain_stacked = ref.ref_sr_quantize_fused_stacked_int8_words
+plain_grid = ref.ref_sr_quantize_fused_words
+plain_grid_stacked = ref.ref_sr_quantize_fused_stacked_words
+
+_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # One implementation of the shard-seed fold; tests pin it to the golden file.
 fold_shard_seed = ref.ref_fold_shard_seed
@@ -42,34 +58,33 @@ def uniform_from_index(seed, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _lib():
+    """The four entry points: int8 flat and stacked, grid flat and
+    stacked."""
     lib = _build.load("sr_quantize")
-    flat, stacked = (lib.sr_quantize_fused_int8_launch,
-                     lib.sr_quantize_fused_stacked_int8_launch)
-    if flat.argtypes is None:
+    fns = (lib.sr_quantize_fused_int8_launch,
+           lib.sr_quantize_fused_stacked_int8_launch,
+           lib.sr_quantize_fused_launch, lib.sr_quantize_fused_stacked_launch)
+    if fns[0].argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        flat.argtypes = [p, p, p, i, ll, p]
-        flat.restype = ctypes.c_int
-        stacked.argtypes = [p, p, p, i, i, ll, p]
-        stacked.restype = ctypes.c_int
-    return flat, stacked
+        for fn, args in zip(fns, ([p, p, p, i, ll, p], [p, p, p, i, i, ll, p],
+                                  [p, p, i, p, p, i, ll, p],
+                                  [p, p, i, p, p, i, i, ll, p])):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return fns
 
 
-def _seed32(seed) -> int:
-    """The seed as the int32 the kernels reinterpret as uint32."""
-    s = int(seed) & ref._M32
-    return s - (1 << 32) if s >= (1 << 31) else s
-
-
-def _check(name: str, x: torch.Tensor, fl: torch.Tensor, fl_shape) -> None:
+def _check(name: str, x: torch.Tensor, fl_shape, **prec) -> None:
     check_card(x)
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous float32, got "
                          f"{x.dtype}")
-    if fl.dtype != torch.int32 or fl.device != x.device \
-            or tuple(fl.shape) != fl_shape:
-        raise ValueError(f"{name}: fl must be int32 {fl_shape} on "
-                         f"{x.device}, got {fl.dtype} {tuple(fl.shape)} on "
-                         f"{fl.device}")
+    for key, t in prec.items():
+        if t.dtype != torch.int32 or t.device != x.device \
+                or tuple(t.shape) != fl_shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous int32 "
+                             f"{fl_shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def _fl_on(fl, x: torch.Tensor) -> torch.Tensor:
@@ -84,7 +99,7 @@ def sr_quantize_fused_int8(x: torch.Tensor, seed, fl) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain(x, seed, fl)
     x = x.to(torch.float32).contiguous()
-    _check("sr_quantize_fused_int8", x, fl, ())
+    _check("sr_quantize_fused_int8", x, (), fl=fl)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib()[0](x.data_ptr(), q.data_ptr(), fl.data_ptr(), _seed32(seed),
@@ -106,7 +121,7 @@ def sr_quantize_fused_stacked_int8(x: torch.Tensor, seed, fl) -> torch.Tensor:
         return plain_stacked(x, seed, fl)
     x = x.to(torch.float32).contiguous()
     L = x.shape[0]
-    _check("sr_quantize_fused_stacked_int8", x, fl, (L,))
+    _check("sr_quantize_fused_stacked_int8", x, (L,), fl=fl)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib()[1](x.data_ptr(), q.data_ptr(), fl.data_ptr(), _seed32(seed),
@@ -117,3 +132,58 @@ def sr_quantize_fused_stacked_int8(x: torch.Tensor, seed, fl) -> torch.Tensor:
 
 
 sr_quantize_fused_stacked_int8.launches = 0
+
+
+def _out_code(name: str, out_dtype: torch.dtype) -> int:
+    if out_dtype not in _OUT_CODE:
+        raise TypeError(f"{name}: out_dtype {out_dtype} not in f32/bf16")
+    return _OUT_CODE[out_dtype]
+
+
+def sr_quantize_fused(x: torch.Tensor, seed, wl, fl, *,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """SR grid values of an unstacked tensor at one ⟨WL,FL⟩ (0-dim int32
+    tensors, read by the kernel on the card), in ``out_dtype`` (f32, or
+    bf16 rounded to nearest even). ``seed``: a host int (int32 bits)."""
+    wl, fl = _fl_on(wl, x), _fl_on(fl, x)
+    if x.device.type == "cpu":
+        return plain_grid(x, seed, wl, fl, out_dtype=out_dtype)
+    x = x.to(torch.float32).contiguous()
+    _check("sr_quantize_fused", x, (), wl=wl, fl=fl)
+    code = _out_code("sr_quantize_fused", out_dtype)
+    q = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()[2](x.data_ptr(), q.data_ptr(), code, wl.data_ptr(),
+                    fl.data_ptr(), _seed32(seed), x.numel(), stream)
+    _build.check(err, "sr_quantize_fused")
+    sr_quantize_fused.launches += 1
+    return q
+
+
+sr_quantize_fused.launches = 0
+
+
+def sr_quantize_fused_stacked(x: torch.Tensor, seed, wl, fl, *,
+                              out_dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """SR grid values of an (L, ...) stacked tensor, layer l at
+    ⟨wl[l], fl[l]⟩ ((L,) int32 tensors, read by the kernel on the card), in
+    one launch, in ``out_dtype``."""
+    wl, fl = _fl_on(wl, x), _fl_on(fl, x)
+    if x.device.type == "cpu":
+        return plain_grid_stacked(x, seed, wl, fl, out_dtype=out_dtype)
+    x = x.to(torch.float32).contiguous()
+    L = x.shape[0]
+    _check("sr_quantize_fused_stacked", x, (L,), wl=wl, fl=fl)
+    code = _out_code("sr_quantize_fused_stacked", out_dtype)
+    q = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()[3](x.data_ptr(), q.data_ptr(), code, wl.data_ptr(),
+                    fl.data_ptr(), _seed32(seed), L,
+                    x[0].numel() if L else 0, stream)
+    _build.check(err, "sr_quantize_fused_stacked")
+    sr_quantize_fused_stacked.launches += 1
+    return q
+
+
+sr_quantize_fused_stacked.launches = 0

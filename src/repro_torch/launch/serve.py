@@ -6,6 +6,11 @@ with the ``Engine``:
         --override quant.container_dtype=int8_packed \
         --override quant.use_pallas=true --override quant.init_fl=10
 
+Without the ``quant.container_dtype`` override the registry's float32
+container is served from f32 grid values (dense layers as library
+products). Serving always materializes the words: ``quant.dense_prologue``
+is turned off.
+
 Runs on ``cuda`` unless ``--device cpu``. ``--continuous`` (the
 overload-robust batcher) and ``--checkpoint-dir`` are not ported yet.
 """

@@ -1,5 +1,5 @@
 """Training launcher of the port: fresh TNVS init from a seed, then AdaPT-SGD
-steps through ``train_loop.train``:
+steps through ``train_loop.train``. Packed int8 words (the fxp kernels):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --override quant.container_dtype=int8_packed \
@@ -7,6 +7,12 @@ steps through ``train_loop.train``:
         --override quant.init_fl=10 --override train.remat=none \
         --override train.accum_steps=1 --override train.global_batch=4 \
         --override train.seq_len=512 --steps 3
+
+The registry's float32 container (grid values from the float SR kernels,
+dense layers as library products): the same command without the
+``quant.container_dtype`` override. The quantize prologue (the dense
+layers draw their words from the f32 master inside the matmul): add
+``--override quant.dense_prologue=true`` to the int8_packed command.
 
 Runs on ``cuda`` unless ``--device cpu`` (``--arch tiny`` is the size for
 the CPU). ``--checkpoint-dir``, ``--resume`` and ``--metrics-dir`` are not

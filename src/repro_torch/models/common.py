@@ -3,6 +3,8 @@ plain functions over tensors and param dicts. The reference's sharding
 annotations are no-ops on one device and are left out."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core import fixed_point as fxp
@@ -32,36 +34,91 @@ def act_fn(x: torch.Tensor, kind: str) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+@contextlib.contextmanager
+def _full_precision_reduction():
+    """cuBLAS may reduce a bf16 GEMM's split-K partial sums in bf16
+    (``allow_bf16_reduced_precision_reduction``, on by default); turned
+    off, a bf16 product accumulates in f32 and rounds once, as the
+    reference's ``preferred_element_type=f32`` dot."""
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = before
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for two tensors of one dtype: f32 accumulation, rounded once to
+    that dtype. On the card a bf16 product is cuBLAS's bf16 GEMM; on the
+    CPU the factors are widened to f32 first."""
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        with _full_precision_reduction():
+            return torch.matmul(a, b)
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
+
+
+class _PlainDense(torch.autograd.Function):
+    """y = x @ w.astype(x.dtype), f32 accumulation, in x's dtype, as the
+    reference's ``jnp.dot`` (``models/common.py:64-68``), with the
+    gradients of its dtype chain: dx in x's dtype, dw rounded to x's dtype
+    (the transpose of the cast) and then to w's. Saves x and the weight
+    leaf itself and recasts in the backward, so no f32 or bf16 copy of a
+    weight outlives its own product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm(x, w.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm(dy, w.to(x.dtype).T)
+        if ctx.needs_input_grad[1]:
+            x2 = x.reshape(-1, x.shape[-1])
+            dw = _mm(x2.T, dy.reshape(-1, dy.shape[-1])).to(w.dtype)
+        return dx, dw
+
+
 def dense(x: torch.Tensor, w, *, use_pallas: bool = False) -> torch.Tensor:
     """x @ w with f32 accumulation, returned in x's dtype.
 
-    ``w`` is a plain weight (cast to x's dtype first, as the reference's
-    ``jnp.dot(x, w.astype(x.dtype))``) or a packed ⟨q8, sc, wref⟩ dict,
-    which under ``use_pallas`` goes whole to the fxp matmul (the kernel on
-    the card, so no dequantized weight exists in device memory)."""
+    ``w`` is a plain weight (a grid-value leaf of a float container, or
+    the master: cast to x's dtype first, as the reference's
+    ``jnp.dot(x, w.astype(x.dtype))``, a library product as the reference
+    leaves it to XLA), a packed ⟨q8, sc, wref⟩ dict, which under
+    ``use_pallas`` goes whole to the fxp matmul (the kernel on the card,
+    so no dequantized weight exists in device memory), or a
+    quantize-prologue ⟨wm, seed, flq, mode⟩ dict, whose words the prologue
+    kernels draw from the master in registers."""
     if isinstance(w, dict):
         return _dense_quantized(x, w, use_pallas)
-    y = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
-    return y.to(x.dtype)
+    return _PlainDense.apply(x, w)
 
 
 def _dense_quantized(x: torch.Tensor, w: dict, use_pallas: bool
                      ) -> torch.Tensor:
-    """Dense over a packed dict; x may be (..., K): leading dims are
-    flattened into M for the 2-D kernel."""
+    """Dense over a packed or prologue dict; x may be (..., K): leading
+    dims are flattened into M for the 2-D kernels."""
     from repro_torch.kernels import ops
 
-    if not fxp.is_packed(w):
-        raise TypeError(f"dense: unrecognized weight dict keys {set(w)}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if use_pallas:
+    if fxp.is_qdense(w):
+        y2 = ops.fxp_qdense(x2, w["wm"], w["seed"], w["flq"], w["mode"],
+                            out_dtype=x.dtype)
+    elif not fxp.is_packed(w):
+        raise TypeError(f"dense: unrecognized weight dict keys {set(w)}")
+    elif use_pallas:
         y2 = ops.fxp_dense(x2, w["q8"], w["sc"].reshape(()), w["wref"],
                            use_pallas=True, out_dtype=x.dtype)
     else:
-        wd = fxp.dequant_packed(w["q8"], w["sc"], w["wref"])
-        y2 = torch.matmul(x2.to(torch.float32),
-                          wd.to(x.dtype).to(torch.float32)).to(x.dtype)
+        y2 = _PlainDense.apply(x2, fxp.dequant_packed(w["q8"], w["sc"],
+                                                      w["wref"]))
     return y2.reshape(lead + (y2.shape[-1],))
 
 

@@ -1,10 +1,13 @@
 """Batch serving engine (counterpart of ``repro/serve/engine.py``).
 
 The engine takes the AdaPT controller's final ⟨WL,FL⟩ map, quantizes the
-weights ONCE at load (round-to-nearest int8 words in the packed
-⟨q8, sc, wref⟩ format), and serves from the words: under
-``quant.use_pallas`` every dense layer and the LM head run the fxp matmul
-kernel on them, and the prefill's attention runs the flash kernel.
+weights ONCE at load (rounded to nearest) and serves from the quantized
+copy. With ``quant.container_dtype=int8_packed`` that is int8 words in the
+packed ⟨q8, sc, wref⟩ format: under ``quant.use_pallas`` every dense layer
+and the LM head run the fxp matmul kernel on them. Any other container is
+served from f32 grid values (``controller.quantize_params``), whose dense
+layers are library products, as the reference leaves them to XLA. Under
+``quant.use_pallas`` the prefill's attention runs the flash kernel.
 
 ``quantize_serving_levels`` (the AdaBits word-set ladder) comes with the
 scheduler slice.
@@ -26,19 +29,20 @@ from repro_torch.models import transformer
 def quantize_for_serving(params, adapt_state, qcfg, max_wl=None):
     """One-shot weight quantization at the final ⟨WL,FL⟩ (deterministic —
     nearest rounding). ``max_wl`` optionally clamps every tensor's word
-    length first (``controller.clamp_adapt_state``). Serving always
-    materializes the words (the quantize-prologue format is turned off)."""
+    length first (``controller.clamp_adapt_state``). The packed container
+    always materializes the words (the quantize-prologue format is turned
+    off); every other container quantizes into f32 grid values, as the
+    reference passes no dtype (``serve/engine.py:57``). Without
+    controller tensors (``quant.mode=off``) the params are served as they
+    are."""
     if not adapt_state or not adapt_state.get("tensors"):
         return params
     if max_wl is not None:
         adapt_state = controller.clamp_adapt_state(adapt_state, max_wl)
-    if qcfg.container_dtype != "int8_packed":
-        raise NotImplementedError(
-            f"serving from container_dtype={qcfg.container_dtype!r} (float "
-            "grid containers) is not ported yet (ROADMAP.md, Queue 1); use "
-            "quant.container_dtype=int8_packed")
-    qcfg = dataclasses.replace(qcfg, dense_prologue=False)
-    return controller.quantize_params_packed(params, adapt_state, qcfg)
+    if qcfg.container_dtype == "int8_packed":
+        qcfg = dataclasses.replace(qcfg, dense_prologue=False)
+        return controller.quantize_params_packed(params, adapt_state, qcfg)
+    return controller.quantize_params(params, adapt_state, qcfg)
 
 
 def make_prefill(cfg: Config):

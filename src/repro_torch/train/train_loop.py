@@ -2,31 +2,44 @@
 ``repro/train/train_loop.py``), dense LM family.
 
 Each ``train_step``:
-    1. L̂ = Quantize(L, Q)            — int8 words of the f32 master at the
-                                        controller's ⟨WL,FL⟩ (packed):
-                                        stochastically rounded with a seed
-                                        per ⟨run seed, step, leaf⟩
-                                        (``quant.stochastic_rounding``,
+    1. L̂ = Quantize(L, Q)            — the quantized copy of the f32 master
+                                        at the controller's ⟨WL,FL⟩, in the
+                                        container ``quant.container_dtype``
+                                        names: grid values in float32 or
+                                        bfloat16, int8 words times 2^-FL in
+                                        bf16 (``int8``), packed int8 words
+                                        (``int8_packed``), or, for dense
+                                        layers under
+                                        ``quant.dense_prologue``, the master
+                                        itself with the words drawn inside
+                                        the matmul; stochastically rounded
+                                        with a seed per ⟨run seed, step,
+                                        leaf⟩ (``quant.stochastic_rounding``,
                                         the kernel draws the noise) or
-                                        rounded to nearest;
-    2. the forward through the fxp and flash kernels (``quant.use_pallas``),
+                                        rounded to nearest. With
+                                        ``quant.mode=off`` the master itself;
+    2. the forward (flash attention under ``quant.use_pallas``; dense
+       layers through the fxp kernels on packed words and prologue leaves,
+       as library products on a float container's grid values),
        activations quantized per slot; the loss with the elastic net and
        the WL penalty;
-    3. the backward through the dx/dw and dq/dkv kernels, the gradients
-       landing straight-through on each packed leaf's "wref";
+    3. the backward (dq/dkv and, on packed and prologue leaves, dx/dw
+       kernels), the gradients taken with respect to the quantized copy's
+       leaves: a packed leaf's "wref", a prologue leaf's master, a float
+       leaf itself;
     4. controller.accumulate, per-tensor grad normalization, clipping, ROP
-       and the optimizer update of the master (in place).
+       and the optimizer update of the master (in place). ``quant.mode=off``
+       skips the regularizer, accumulate and normalization.
 
 Every ``adapt_interval`` steps the precision switch (alg. 2: PushDown
 through the EDF-ladder kernel under ``quant.use_pallas``, then PushUp and
 the adaptation of strategy, lookback and resolution) moves each tensor
-whose window is full to its new ⟨WL,FL⟩.
+whose window is full to its new ⟨WL,FL⟩ (never with ``quant.mode=off``).
 
 What is not ported raises, by name: SR words from ``jax.random`` noise
 (stochastic rounding without ``quant.use_pallas`` and
 ``quant.fused_prng``), gradient accumulation (``train.accum_steps > 1``),
-QSGD pod compression, remat, float and ``quant.mode=off`` containers, and
-the CNN family.
+QSGD pod compression, remat, and the CNN family.
 """
 from __future__ import annotations
 
@@ -48,11 +61,6 @@ def _check_ported(cfg: Config) -> None:
     if cfg.model.family == "cnn":
         raise NotImplementedError("the CNN family comes with the CNN slice of "
                                   "the port (ROADMAP.md, Queue 1)")
-    if q.mode == "off" or q.container_dtype != "int8_packed":
-        raise NotImplementedError(
-            f"the port's train step takes quant.container_dtype=int8_packed; "
-            f"quant.mode={q.mode!r} with container {q.container_dtype!r} is "
-            "not ported yet (ROADMAP.md, Queue 1)")
     if t.accum_steps > 1:
         raise NotImplementedError(
             f"train.accum_steps={t.accum_steps} (microbatch accumulation, "
@@ -75,11 +83,13 @@ def init_state(cfg: Config, seed: Optional[int] = None, *, device=None
     dev = resolve_device(device)
     seed = cfg.train.seed if seed is None else int(seed)
     params = transformer.init_params(seed, cfg.model, device=dev)
+    adapt = (controller.init_adapt_state(params, cfg.quant)
+             if cfg.quant.mode != "off" else {"tensors": {}})
     return {
         "params": params,
         "stats": {},
         "opt": opt_lib.init_opt_state(params, cfg.optimizer),
-        "adapt": controller.init_adapt_state(params, cfg.quant),
+        "adapt": adapt,
         "step": torch.tensor(0, dtype=torch.int32, device=dev),
         "rng": torch.tensor(seed, dtype=torch.int64),
     }
@@ -108,6 +118,23 @@ def _set_path(tree: dict, path: str, value) -> None:
     tree[last] = value
 
 
+# The float container of each ``quant.container_dtype`` other than
+# int8_packed (``train_loop.py:147-149``: anything else is float32).
+_CONTAINERS = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def _quantized_copy(cfg: Config, params, adapt, seeds):
+    """The quantized copy the forward reads: the master itself under
+    ``quant.mode=off``."""
+    qcfg = cfg.quant
+    if qcfg.mode == "off":
+        return params
+    if qcfg.container_dtype == "int8_packed":
+        return controller.quantize_params_packed(params, adapt, qcfg, seeds)
+    dtype = _CONTAINERS.get(qcfg.container_dtype, torch.float32)
+    return controller.quantize_params(params, adapt, qcfg, seeds, dtype=dtype)
+
+
 def make_train_step(cfg: Config) -> Callable:
     """``train_step(state, batch, step=None) -> (state, metrics)``. The
     step updates the master params, the optimizer's moments and the
@@ -117,36 +144,46 @@ def make_train_step(cfg: Config) -> Callable:
     given, ``state["step"]`` is read once."""
     _check_ported(cfg)
     qcfg, ocfg = cfg.quant, cfg.optimizer
+    adaptive = qcfg.mode != "off"
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
                    step: Optional[int] = None
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         params, adapt = state["params"], state["adapt"]
         seeds = None
-        if qcfg.stochastic_rounding:
+        if adaptive and qcfg.stochastic_rounding:
             i = int(state["step"]) if step is None else step
             seeds = controller.leaf_seeds(int(state["rng"]), i,
                                           adapt["tensors"])
-        qparams = controller.quantize_params_packed(params, adapt, qcfg, seeds)
+        qparams = _quantized_copy(cfg, params, adapt, seeds)
         act_wl = (transformer.act_wl_from_state(adapt)
-                  if qcfg.quantize_activations else None)
+                  if adaptive and qcfg.quantize_activations else None)
         receivers = controller.grad_receivers(qparams)
-        task = _task_loss(cfg, qparams, batch, act_wl)
-        # the regularizer reads the packed leaves through their bf16 view;
-        # its gradients add onto the same receivers
-        full = sparsity.adapt_loss(
-            task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
-            penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl)
-        flat = torch.autograd.grad(full, list(receivers.values()),
-                                   materialize_grads=True)
+        try:
+            task = _task_loss(cfg, qparams, batch, act_wl)
+            full = task
+            if adaptive:
+                # the regularizer reads packed and prologue leaves through
+                # their value views; its gradients add onto the same
+                # receivers
+                full = sparsity.adapt_loss(
+                    task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
+                    penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl)
+            flat = torch.autograd.grad(full, list(receivers.values()),
+                                       materialize_grads=True)
+        finally:
+            # a receiver may be a master param: no graph outlives the step
+            for t in receivers.values():
+                t.requires_grad_(False)
         grads: Dict[str, Any] = {}
         for path, g in zip(receivers, flat):
             _set_path(grads, path, g)
         del qparams, receivers, flat
         with torch.no_grad():
             task, full = task.detach(), full.detach()
-            adapt = controller.accumulate(adapt, grads, task)
-            grads = opt_lib.normalize_grads(grads, set(adapt["tensors"]))
+            if adaptive:
+                adapt = controller.accumulate(adapt, grads, task)
+                grads = opt_lib.normalize_grads(grads, set(adapt["tensors"]))
             grads = opt_lib.clip_by_global_norm(grads, ocfg.grad_clip)
             opt = opt_lib.rop_update(state["opt"], task, ocfg)
             params, opt = opt_lib.apply_updates(params, grads, opt, ocfg)
@@ -190,7 +227,7 @@ def train(cfg: Config, *, steps: Optional[int] = None,
     """Run the loop on ``device`` (default ``cuda``); returns (state,
     history). The precision switch is called after every
     ``adapt_interval``-th step (``quant.lb_lwr`` when 0), as in the
-    reference."""
+    reference, and never with ``quant.mode=off``."""
     steps = steps if steps is not None else cfg.train.steps
     dev = resolve_device(device)
     if state is None:
@@ -205,7 +242,7 @@ def train(cfg: Config, *, steps: Optional[int] = None,
         t0 = time.perf_counter()
         batch = make_batch(cfg, i, device=dev)
         state, metrics = step_fn(state, batch, step=i)
-        if (i + 1) % interval == 0:
+        if cfg.quant.mode != "off" and (i + 1) % interval == 0:
             state = switch_fn(state)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
