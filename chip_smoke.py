@@ -3,8 +3,10 @@
 each against its plain version, serve llama3.2-3b through the ``Engine``,
 train it with AdaPT-SGD through ``train_loop.train`` (round-to-nearest
 words, stochastically rounded words through a precision switch, the float
-containers, the quantize prologue), and compare the card with the CPU at
-depth 2 for each.
+containers, the quantize prologue, the registry's default quantizer with
+the reference's jax.random noise), drive the three kernels only
+``kernels/ops`` reaches, and compare the card with the CPU at depth 2 for
+each.
 
     python3 chip_smoke.py
 
@@ -24,7 +26,14 @@ Phases (any failure exits non-zero; nothing is caught):
      and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28;
      ``fxp_qmatmul``/``matmul_qdx`` at every training shape and ragged
      shapes in both modes; the float containers' cuBLAS bf16 GEMMs with
-     and without bf16 split-K reduction;
+     and without bf16 split-K reduction; ``sr_quantize`` (the noise given)
+     bit for bit on the stacked (28, 3072, 8192) leaf at <8,4> and <16,13>,
+     one layer of it, bf16 x, a ragged size and the pathological values;
+     ``int8_matmul`` bit for bit at M = 2048 on the four dense shapes and
+     the head, at 509 x 1031 x 127, at M = 4 and on the largest sums, its
+     scale gradients within 1e-5; ``kl_hist`` bit for bit on that leaf
+     against its SR copy at 256 and 150 bins and on the pathological
+     values;
   4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
      weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
      prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward;
@@ -58,7 +67,23 @@ Phases (any failure exits non-zero; nothing is caught):
      fxp_qmatmul, matmul_qdx and matmul_dw launches a step), a profiled
      step with no library GEMM;
  13. path B, card against CPU at depth 2: the prologue words of every
-     dense leaf (through the regularizer's view) bit-equal, one step.
+     dense leaf (through the regularizer's view) bit-equal, one step;
+ 14. the registry's default quantizer: full llama3.2-3b under the
+     QuantConfig defaults (float32 container, SR, quant.use_pallas=false:
+     cuBLAS dense layers, plain attention, the plain EDF ladder, the SR
+     noise from the plain-PyTorch threefry of ``core/threefry.py``), cut
+     as path A, 4 steps through two switches with no hand-written kernel
+     launched, step times, tokens/s, peak memory, a profiled step and the
+     share of its device time that the noise alone takes; then the ops
+     path: ``ops.sr_quantize`` on every
+     layer of one of the step's stacked leaves with the step's own noise
+     (equal to the controller's grid values bit for bit), ``ops.kl_hist``
+     of that leaf against its SR copy and ``ops.int8_matmul`` forward and
+     backward on words of the step, each launch counted;
+ 15. phase 14's configuration, card against CPU at depth 2: the quantized
+     copy each step read bit-equal, one step within the slice-2 bounds
+     (the CPU taking the plain attention's AV product in the card's bf16),
+     the switch identical.
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -124,7 +149,12 @@ KERNELS = ("fxp_matmul", "matmul_dx", "matmul_dw", "flash_attention",
            "flash_attention_dq", "flash_attention_dkv",
            "sr_quantize_fused_stacked_int8", "sr_quantize_fused_int8",
            "edf_ladder_hists", "sr_quantize_fused_stacked", "sr_quantize_fused",
-           "fxp_qmatmul", "matmul_qdx")
+           "fxp_qmatmul", "matmul_qdx", "sr_quantize", "int8_matmul",
+           "kl_hist")
+SOURCES = ("fxp_matmul", "flash_attention", "fxp_matmul_bwd",
+           "flash_attention_bwd", "sr_quantize", "edf_ladder", "fxp_qmatmul",
+           "int8_matmul", "kl_hist")
+INT8_OPS = 1979e12                     # H100 SXM dense int8 tensor-core rate
 ZERO = {k: 0 for k in KERNELS}
 DENSE_CALLS = 7 * N_LAYERS + 1          # dense layers and the head
 FLASH_STEP = {**ZERO, "flash_attention": N_LAYERS,
@@ -168,6 +198,16 @@ PROLOGUE_STEPS = 4
 PROLOGUE_PER_STEP = {**FLASH_STEP, "fxp_qmatmul": DENSE_CALLS,
                      "matmul_qdx": DENSE_CALLS, "matmul_dw": DENSE_CALLS,
                      "sr_quantize_fused_int8": 1 + 2 * DENSE_CALLS}
+# The registry's default quantizer (phase 14): path A's cut without
+# quant.use_pallas, so the QuantConfig defaults stand (float32 container,
+# SR with jax.random noise, no hand-written kernel).
+DEFAULT_OVERRIDES = [o for o in FLOAT_OVERRIDES if o != "quant.use_pallas=true"]
+DEFAULT_STEPS = 4
+# The ops path of phase 14: one launch of sr_quantize per layer of the
+# (28, 3072, 8192) leaf below, one kl_hist of it, int8_matmul forward and
+# its backward (the kernel again at unit scale) at M = 2048.
+OPS_LEAF = "blocks/s0_mlp/wi_gate"
+OPS_PATH = {**ZERO, "sr_quantize": N_LAYERS, "kl_hist": 1, "int8_matmul": 2}
 # PyTorch ops that would run a library GEMM: none may appear in a step.
 LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
                  "aten::matmul", "aten::linear", "aten::einsum"}
@@ -849,6 +889,179 @@ def check_cublas_reduction(torch, gen):
     return rows
 
 
+def check_ops_kernels(torch, gen):
+    """The three kernels only ``kernels/ops`` reaches, each against its
+    plain version on the same inputs. ``sr_quantize`` (the noise given),
+    values bit for bit: the stacked (28, 3072, 8192) f32 leaf at <8,4> and
+    <16,13>, one (3072, 8192) layer of it (the shape of the ops path), bf16
+    x, a ragged 1-D size, the pathological values. ``int8_matmul`` bit for
+    bit against the f64 plain version (exact: |acc| < 2^31 << 2^53, and
+    f64 -> f32 rounds as int32 -> f32 does) at M = 2048 on the four dense
+    shapes and the head, at 509 x 1031 x 127, at M = 4 and on the largest
+    sums (all words -128 with K = 8192: acc = 2^27; all 127: 132 128 768,
+    which f32 rounds); its scale gradients through ``ops.int8_matmul``
+    within 1e-5 relative of the plain version's (Σ dy·acc in another
+    order). ``kl_hist`` counts bit for bit on that leaf against its SR copy
+    at 256 and 150 bins and on the pathological values. Times: the kernel,
+    the plain version, a library yardstick (``torch._int_mm``, cuBLASLt's
+    int8 product with int32 out; two ``torch.histc`` calls over [lo, hi],
+    timed only, since histc bins by its own formula; none for the SR
+    values) and the bound."""
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import kl_hist as kh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sr_quantize as sq
+    dev = "cuda"
+    rows = {"sr_quantize": [], "int8_matmul": [], "kl_hist": []}
+
+    def i32(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def scalars(wl, fl):
+        return (torch.tensor(wl, dtype=torch.int32, device=dev),
+                torch.tensor(fl, dtype=torch.int32, device=dev))
+
+    def sr_case(x, u, wl, fl, timed):
+        wlt, flt = scalars(wl, fl)
+        got, want = sq.sr_quantize(x, u, wlt, flt), sq.plain_given(x, u, wlt, flt)
+        torch.cuda.synchronize()
+        if got.dtype != x.dtype or not torch.equal(i32(got), i32(want)):
+            bad = int((i32(got) != i32(want)).sum())
+            raise AssertionError(f"sr_quantize {tuple(x.shape)} {x.dtype} "
+                                 f"<{wl},{fl}>: {bad} values differ")
+        if not timed:
+            return got
+        n, xb = x.numel(), x.element_size()
+        row = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+               "max_abs_err": 0.0,
+               "ms": cuda_time_ms([lambda: sq.sr_quantize(x, u, wlt, flt)], 5),
+               "plain_ms": cuda_time_ms([lambda: sq.plain_given(
+                   x, u, wlt, flt)], 2),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = max(
+            ((2 * xb + 4.0) * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (12.0 * n / F32_OPS * 1e3, "operations"))
+        rows["sr_quantize"].append(row)
+        log(f"[kernels] sr_quantize {row['shape']} {row['dtype']}: bit-equal, "
+            f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
+            f"bound_ms={row['bound_ms']:.4g}")
+        return got
+
+    x = torch.randn(N_LAYERS, D_MODEL, D_FF, generator=gen, device=dev) * 0.05
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    sr_case(x, u, 8, 4, False)
+    q = sr_case(x, u, 16, 13, True)
+    sr_case(x[0].contiguous(), u[0].contiguous(), 16, 13, True)
+    del u
+    # kl_hist on the leaf against its SR copy
+    for nb in (256, 150):
+        got, want = kh.kl_hist(x, q, nb), kh.plain(x, q, nb)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or float(got[0].sum()) != x.numel():
+            raise AssertionError(f"kl_hist {tuple(x.shape)} {nb} bins: counts "
+                                 f"differ by {(got - want).abs().max().item()}")
+        if nb != 256:
+            continue
+        lo, hi = (float(v) for v in torch.aminmax(x))
+        n = x.numel()
+        row = {"shape": list(x.shape), "bins": nb, "max_abs_err": 0.0,
+               "ms": cuda_time_ms([lambda: kh.kl_hist(x, q, nb)], 5),
+               "plain_ms": cuda_time_ms([lambda: kh.plain(x, q, nb)], 2),
+               "library_ms": cuda_time_ms([lambda: (
+                   torch.histc(x, nb, lo, hi), torch.histc(q, nb, lo, hi))], 5),
+               "library_covers": "two torch.histc calls (their own bin formula)"}
+        row["bound_ms"], row["bound_by"] = max(
+            (8.0 * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (12.0 * n / F32_OPS * 1e3, "operations"))
+        rows["kl_hist"].append(row)
+        log(f"[kernels] kl_hist {row['shape']} {nb} bins: bit-equal, "
+            f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
+            f"histc x2 {row['library_ms']:.4g}, bound_ms={row['bound_ms']:.4g}")
+    del x, q
+    torch.cuda.empty_cache()
+    # bf16 x, a ragged size, the pathological values
+    xb = (torch.randn(D_MODEL, D_FF, generator=gen, device=dev) * 0.05).to(
+        torch.bfloat16)
+    sr_case(xb, torch.rand(xb.shape, generator=gen, device=dev), 8, 4, True)
+    for dt in (torch.float32, torch.bfloat16):
+        xr = (torch.randn(1000003, generator=gen, device=dev) * 3).to(dt)
+        for wl, fl in ((8, 4), (16, 13), (32, 20), (2, -3)):
+            sr_case(xr, torch.rand(xr.shape, generator=gen, device=dev), wl, fl,
+                    False)
+    for case in pathological(torch):
+        xp = case.to(dev)
+        up = torch.rand(xp.shape, generator=gen, device=dev)
+        up[::7] = 0.0
+        for wl, fl in ((8, 0), (8, 4), (16, 12), (32, 20)):
+            sr_case(xp, up, wl, fl, False)
+        for nb in (50, 256):
+            qp = sq.plain_given(xp, up, *scalars(8, 4))
+            if not torch.equal(kh.kl_hist(xp, qp, nb), kh.plain(xp, qp, nb)):
+                raise AssertionError(f"kl_hist pathological at {nb} bins")
+    log("[kernels] sr_quantize bf16, ragged and pathological; kl_hist "
+        "pathological: bit-equal")
+
+    # int8_matmul
+    s = torch.tensor(0.02 * 0.3, dtype=torch.float32, device=dev)
+    cases = [(TRAIN_M, k, n) for (k, n) in LAYER_SHAPES] + [(TRAIN_M, *HEAD_SHAPE)]
+    cases += [(509, 1031, 127), (BATCH, D_MODEL, D_MODEL), (37, 3071, 1025)]
+    for (m, k, n) in cases:
+        xq = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        got, want = im.int8_matmul(xq, wq, s), im.plain(xq, wq, s)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            raise AssertionError(f"int8_matmul ({m},{k},{n}): max err "
+                                 f"{(got - want).abs().max().item()}")
+        del got, want
+        if m != TRAIN_M:
+            continue
+        reps = 10 if k * n < 1e8 else 3
+        row = {"m": m, "k": k, "n": n, "max_abs_err": 0.0,
+               "ms": cuda_time_ms([lambda: im.int8_matmul(xq, wq, s)], reps),
+               "plain_ms": cuda_time_ms([lambda: im.plain(xq, wq, s)],
+                                        max(2, reps // 3)),
+               "library_ms": cuda_time_ms([lambda: torch._int_mm(xq, wq)], reps),
+               "library_covers": "torch._int_mm (int32 out, no scale)"}
+        row["bound_ms"], row["bound_by"] = max(
+            ((m * k + k * n + 4.0 * m * n) / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (2.0 * m * k * n / INT8_OPS * 1e3, "operations"))
+        rows["int8_matmul"].append(row)
+        log(f"[kernels] int8_matmul {m}x{k}x{n}: bit-equal, ms={row['ms']:.4g}, "
+            f"plain_ms={row['plain_ms']:.4g}, _int_mm {row['library_ms']:.4g}, "
+            f"bound_ms={row['bound_ms']:.4g} ({row['bound_by']})")
+        del xq, wq
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    for word, want_acc in ((-128, 2.0 ** 27), (127, 132128768.0)):
+        xq = torch.full((64, 8192), word, dtype=torch.int8, device=dev)
+        got = im.int8_matmul(xq, xq.T.contiguous(), one)
+        if not torch.equal(got, im.plain(xq, xq.T.contiguous(), one)) \
+                or float(got[0, 0]) != want_acc:
+            raise AssertionError(f"int8_matmul largest sums ({word}): "
+                                 f"{float(got[0, 0])}")
+    xq = torch.randint(-128, 128, (TRAIN_M, D_MODEL), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (D_MODEL, KV_HEADS * HEAD_DIM), generator=gen,
+                       device=dev, dtype=torch.int8)
+    dy = torch.randn(TRAIN_M, KV_HEADS * HEAD_DIM, generator=gen, device=dev)
+    sx = torch.tensor(0.02, device=dev, requires_grad=True)
+    sw = torch.tensor(0.3, device=dev, requires_grad=True)
+    got = torch.autograd.grad(ops.int8_matmul(xq, wq, sx, sw, use_pallas=True),
+                              (sx, sw), dy)
+    g0 = torch.sum(dy * im.plain(xq, wq, one))
+    for g, w in zip(got, (g0 * sw.detach(), g0 * sx.detach())):
+        if not abs(float(g) - float(w)) <= 1e-5 * abs(float(w)):
+            raise AssertionError(f"int8_matmul scale gradients {got} vs "
+                                 f"{float(g0 * sw)}, {float(g0 * sx)}")
+    log("[kernels] int8_matmul ragged, M = 4, largest sums: bit-equal; scale "
+        "gradients within 1e-5")
+    del xq, wq, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
 def pathological(torch):
     """The pathological tensors of tests/test_quantize_differential.py."""
     f32 = torch.float32
@@ -1184,6 +1397,8 @@ def wrappers():
     from repro_torch.kernels import edf_ladder as el
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fxp_matmul as fm
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import kl_hist as kh
     from repro_torch.kernels import sr_quantize as sq
     out = {"fxp_matmul": fm.fxp_matmul, "matmul_dx": fm.matmul_dx,
            "matmul_dw": fm.matmul_dw, "flash_attention": fa.flash_attention,
@@ -1194,7 +1409,9 @@ def wrappers():
            "edf_ladder_hists": el.edf_ladder_hists,
            "sr_quantize_fused_stacked": sq.sr_quantize_fused_stacked,
            "sr_quantize_fused": sq.sr_quantize_fused,
-           "fxp_qmatmul": fm.fxp_qmatmul, "matmul_qdx": fm.matmul_qdx}
+           "fxp_qmatmul": fm.fxp_qmatmul, "matmul_qdx": fm.matmul_qdx,
+           "sr_quantize": sq.sr_quantize, "int8_matmul": im.int8_matmul,
+           "kl_hist": kh.kl_hist}
     assert tuple(out) == KERNELS
     return out
 
@@ -1549,12 +1766,13 @@ def sr_card_vs_cpu(torch):
 # (path B)
 
 
-def run_steps(torch, tag, cfg, state, steps, per_step):
+def run_steps(torch, tag, cfg, state, steps, per_step, per_switch=None):
     """``train_loop.train`` for ``steps`` steps from ``state`` with every
     count set to 0 just before and read just after: exact launches per
-    step (``per_step``, plus ``PER_SWITCH`` after a switch step), finite
-    loss and grad_norm. Returns (state, per-step records, launches, peak
-    GiB)."""
+    step (``per_step``, plus ``per_switch``, by default ``PER_SWITCH``,
+    after a switch step), finite loss and grad_norm. Returns (state,
+    per-step records, launches, peak GiB)."""
+    per_switch = PER_SWITCH if per_switch is None else per_switch
     from repro_torch.train import train_loop
     ws = wrappers()
     marks = []
@@ -1581,7 +1799,7 @@ def run_steps(torch, tag, cfg, state, steps, per_step):
         per = {k: mark[k] - prev[k] for k in ws}
         prev = mark
         switch = switching and h["step"] % interval == 0
-        want = {**per_step, **(PER_SWITCH if switch else {})}
+        want = {**per_step, **(per_switch if switch else {})}
         if per != want:
             raise AssertionError(f"{tag} step {h['step']}: launches {per} "
                                  f"!= {want}")
@@ -1906,6 +2124,216 @@ def prologue_card_vs_cpu(torch):
     return r
 
 
+# ---------------------------------------------------------------------------
+# Phases 14 and 15: the registry's default quantizer (jax.random noise)
+
+
+def noise_alone(torch, state, key):
+    """The jax.random noise of one step's quantized copy drawn alone, chunk
+    by chunk as ``controller._jax_random_sr`` draws it, and discarded."""
+    from repro_torch.core import controller, threefry
+    params = flat_paths(state["params"])
+    size = controller._NOISE_CHUNK["cuda"]
+    for path, ts in state["adapt"]["tensors"].items():
+        leaf = params[path]
+        layers = ts["fl"].shape[0] if ts["fl"].ndim else 1
+        n = leaf.numel() // layers
+        lkey = controller.leaf_key(key, path)
+        for l in range(layers):
+            for start, count in threefry.chunks(n, size):
+                threefry.uniform(lkey, leaf.shape, offset=l * n + start,
+                                 count=count, device="cuda")
+
+
+def default_quantizer_path(torch):
+    """Phase 14: llama3.2-3b at full width and depth under the QuantConfig
+    defaults (float32 container, SR, quant.use_pallas=false), cut as path
+    A: 4 steps through a switch after steps 2 and 4 with no hand-written
+    kernel launched (the dense layers are cuBLAS GEMMs, attention the
+    plain masked path, the ladder its plain version, the SR noise the
+    plain-PyTorch threefry); step times, tokens/s, peak memory; the
+    quantized copy's own wall time, the device time of its noise drawn
+    alone (CUDA events) and a profiled step (whose dense layers are
+    library GEMMs), the noise's share of its device time. Then the ops path, with every count set to 0 just
+    before and read just after: ``ops.sr_quantize(use_pallas=True)`` on
+    each layer of the stacked ``OPS_LEAF`` with the step's own noise
+    (bit-equal to the grid values the controller's jax.random branch made),
+    ``ops.kl_hist`` of the leaf against that SR copy, and
+    ``ops.int8_matmul`` forward and backward on int8 words of the step
+    (the step's embedded tokens and layer 0 of the SR copy)."""
+    from repro_torch.config import load_config
+    from repro_torch.core import controller, threefry
+    from repro_torch.core import fixed_point as fxp
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_loop
+
+    cfg = load_config("llama3.2-3b", overrides=DEFAULT_OVERRIDES)
+    q = cfg.quant
+    assert (q.mode, q.container_dtype, q.stochastic_rounding,
+            q.use_pallas) == ("simulate", "float32", True, False)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, SEED + 29, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[default] init llama3.2-3b: {time.perf_counter() - t0:.1f} s")
+    state, steps, launches, peak = run_steps(torch, "default", cfg, state,
+                                             DEFAULT_STEPS, ZERO, ZERO)
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches under the defaults: {launches}")
+    after = wlfl_histogram(state)
+    step = int(state["step"])
+    # the quantized copy alone: host clock around a synchronised call
+    key = controller.step_key(int(state["rng"]), step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qp = controller.quantize_params(state["params"], state["adapt"], q, key=key)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    del qp
+    noise_ms = cuda_time_ms([lambda: noise_alone(torch, state, key)], 1)
+    state, prof = profiled_step(torch, cfg, state, step, True)
+    prof_rec = {**prof, "threefry_device_ms": noise_ms,
+                "threefry_share_of_busy": noise_ms / prof["busy_ms"]}
+    log(f"[default] <WL,FL> after 2 switches: {after}; quantized copy alone "
+        f"{copy_ms:.1f} ms, its noise alone {noise_ms:.1f} ms (CUDA events); "
+        f"profiled step wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms (share {prof['busy_share']:.3f}), the "
+        f"noise {prof_rec['threefry_share_of_busy']:.3f} of it; library GEMMs "
+        f"{prof['library_gemm_ops']}; by kernel: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in prof["groups_ms"].items()))
+
+    # the ops path
+    step = int(state["step"])
+    key = controller.step_key(int(state["rng"]), step)
+    ts = state["adapt"]["tensors"][OPS_LEAF]
+    leaf = flat_paths(state["params"])[OPS_LEAF]
+    tree = leaf
+    for k in reversed(OPS_LEAF.split("/")):
+        tree = {k: tree}
+    want = flat_paths(controller.quantize_params(tree, state["adapt"], q,
+                                                 key=key))[OPS_LEAF]
+    lkey = controller.leaf_key(key, OPS_LEAF)
+    n = leaf[0].numel()
+    batch = train_loop.make_batch(cfg, step, device="cuda")
+    emb = state["params"]["embed"][batch["tokens"].reshape(-1)]
+    fl_x = fxp.fl_for_wl(emb.abs().max(), 8)
+    xq = torch.clamp(torch.round(emb * fxp.pow2i(fl_x).cuda()), -128, 127).to(
+        torch.int8)
+    dy = torch.randn(xq.shape[0], leaf.shape[2], device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(SEED))
+    ws = wrappers()
+    torch.cuda.synchronize()
+    for w in ws.values():
+        w.launches = 0
+    got = torch.empty_like(leaf)
+    for l in range(leaf.shape[0]):
+        u = threefry.uniform(lkey, leaf.shape, offset=l * n, count=n,
+                             device="cuda").reshape(leaf.shape[1:])
+        got[l] = ops.sr_quantize(leaf[l], u, ts["wl"][l], ts["fl"][l],
+                                 use_pallas=True)
+        del u
+    hist = ops.kl_hist(leaf, got, 256, use_pallas=True)
+    wq = torch.clamp(got[0] * fxp.pow2i(ts["fl"][0]), -128, 127).to(torch.int8)
+    sx = fxp.pow2i(-fl_x).cuda().requires_grad_()
+    sw = fxp.pow2i(-ts["fl"][0]).requires_grad_()
+    y = ops.int8_matmul(xq, wq, sx, sw, use_pallas=True)
+    dsx, dsw = torch.autograd.grad(y, (sx, sw), dy)
+    torch.cuda.synchronize()
+    ops_launches = {k: w.launches for k, w in ws.items()}
+    if ops_launches != OPS_PATH:
+        raise AssertionError(f"ops path launches {ops_launches} != {OPS_PATH}")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("ops.sr_quantize with the step's noise differs "
+                             "from the controller's grid values")
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import kl_hist as kh
+    s = (sx.detach() * sw.detach()).reshape(())
+    if not torch.equal(y.detach(), im.plain(xq, wq, s)) \
+            or not torch.equal(hist, kh.plain(leaf, got, 256)) \
+            or float(hist[0].sum()) != leaf.numel():
+        raise AssertionError("ops path: int8_matmul or kl_hist differs from "
+                             "its plain version")
+    if not (math.isfinite(float(dsx)) and math.isfinite(float(dsw))):
+        raise AssertionError("ops path: scale gradients not finite")
+    log(f"[default] ops path: sr_quantize x{leaf.shape[0]} on {OPS_LEAF} with "
+        f"the step's noise == the controller's grid values; kl_hist and "
+        f"int8_matmul (fwd + bwd, M = {xq.shape[0]}) == their plain versions; "
+        f"launches {ops_launches}")
+    del state, got, want, leaf, hist, xq, wq, y
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches, "peak_gib": peak,
+            "wlfl_after": after, "quantized_copy_ms": copy_ms,
+            "profile": prof_rec, "ops_launches": ops_launches,
+            "ops_int8_scale_grads": [float(dsx), float(dsw)]}
+
+
+def default_card_vs_cpu(torch):
+    """Phase 14's configuration at depth 2: one step from the same state on
+    the card and on the CPU; the quantized copy each step read (captured
+    from ``train_loop._quantized_copy``) bit-equal, since threefry is
+    integer arithmetic and the quantize exact-rounded f32; the step within
+    the slice-2 bounds; then, after a second step on the card (every window
+    of two closes), the same state through ``precision_switch`` on both:
+    identical. The plain attention of this path takes its AV product in
+    bf16 on the card and in f32 on the CPU (``attention.av_dtype``, the
+    reference's choice by backend); the slice-2 bounds hold two sides that
+    round alike and sum in other orders, so for this step the CPU takes the
+    card's bf16 AV product."""
+    from repro_torch.core import controller
+    from repro_torch.models import attention
+    from repro_torch.train import train_loop
+    seen = []
+    inner, av_dtype = train_loop._quantized_copy, attention.av_dtype
+
+    def capture(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    train_loop._quantized_copy = capture
+    attention.av_dtype = lambda v: v.dtype
+    try:
+        gpu, _, cfg, r = step_card_vs_cpu(torch, "default", DEFAULT_OVERRIDES,
+                                          SEED + 31, ("final_norm", "head"))
+    finally:
+        train_loop._quantized_copy = inner
+        attention.av_dtype = av_dtype
+    if len(seen) != 2:
+        raise AssertionError(f"{len(seen)} quantized copies, expected 2")
+    # the quantized leaves (the others are the master itself, cast to f32:
+    # the same tensor, which the step then updated in place)
+    cq, gq = (flat_paths(t) for t in seen)
+    leaves = 0
+    for path in gpu["adapt"]["tensors"]:
+        c, g = cq[path], gq[path]
+        if g.dtype != c.dtype or not torch.equal(g.cpu(), c):
+            raise AssertionError(f"depth-2 default quantized copy of {path} "
+                                 "differs")
+        leaves += 1
+    del seen, cq, gq
+    gpu, _ = train_loop.make_train_step(cfg)(
+        gpu, train_loop.make_batch(cfg, 1, device="cuda"), step=1)
+    cpu = to_device(gpu, "cpu")
+    c_out = controller.precision_switch(cpu["adapt"], cpu["params"], cfg.quant)
+    g_out = controller.precision_switch(gpu["adapt"], gpu["params"], cfg.quant)
+    switched = 0
+    for path, cts in c_out["tensors"].items():
+        gts = g_out["tensors"][path]
+        for k in ("wl", "fl", "lb", "res", "count", "sp", "norm_sum",
+                  "grad_sum"):
+            if not torch.equal(gts[k].cpu(), cts[k]):
+                raise AssertionError(f"depth-2 default switch {path} {k}")
+        switched += int((cts["count"] == 0).sum())
+    r.update(quantized_leaves_bit_equal=leaves,
+             tensor_layers_switched=switched,
+             wlfl=wlfl_histogram({"adapt": c_out}))
+    log(f"[depth2] default quantizer: the quantized copy ({leaves} quantized "
+        f"leaves) bit-equal; precision_switch card == CPU ({switched} "
+        f"tensor-layers switched, {r['wlfl']})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1935,14 +2363,19 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = _build.build(["fxp_matmul", "flash_attention", "fxp_matmul_bwd",
-                            "flash_attention_bwd", "sr_quantize",
-                            "edf_ladder", "fxp_qmatmul"])
-    log(f"[build] {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
+    reports = _build.build(SOURCES)
+    log(f"[build] {sorted(reports) or 'cached'} ({len(SOURCES)} sources) in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+
+    marks = {"build": time.perf_counter() - t_start}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start - sum(marks.values())
+        log(f"[time] phase {name}: {marks[name]:.1f} s")
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1955,34 +2388,54 @@ def main() -> int:
     grid_rows = check_sr_grid(torch, sq, gen)
     q_rows, q_err = check_qmatmul(torch, fm, gen)
     cublas_rows = check_cublas_reduction(torch, gen)
+    ops_rows = check_ops_kernels(torch, gen)
     torch.cuda.empty_cache()
+    mark("3 kernels")
 
     # 4. serving main path; 5. serving, card against CPU
     main_res = main_path(torch, fm, fa)
+    mark("4 serving")
     depth2 = card_vs_cpu(torch)
+    mark("5 serving depth 2")
 
     # 6. training main path; 7. training, card against CPU
     train_res = train_path(torch, fm, fa)
+    mark("6 training")
     train_depth2 = train_card_vs_cpu(torch)
+    mark("7 training depth 2")
 
     # 8. SR training main path through the switch; 9. card against CPU
     sr_res = sr_train_path(torch)
+    mark("8 SR training")
     sr_depth2 = sr_card_vs_cpu(torch)
+    mark("9 SR depth 2")
 
     # 10. float containers (path A); 11. card against CPU
     float_res = float_train_path(torch, fm, fa)
+    mark("10 path A")
     float_depth2 = float_card_vs_cpu(torch)
+    mark("11 path A depth 2")
 
     # 12. the quantize prologue (path B); 13. card against CPU
     prologue_res = prologue_train_path(torch)
+    mark("12 path B")
     prologue_depth2 = prologue_card_vs_cpu(torch)
+    mark("13 path B depth 2")
+
+    # 14. the registry's default quantizer and the ops path; 15. card
+    # against CPU
+    default_res = default_quantizer_path(torch)
+    mark("14 default quantizer")
+    default_depth2 = default_card_vs_cpu(torch)
+    mark("15 default depth 2")
 
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
-            prologue_res["launches"]]
+            prologue_res["launches"], default_res["launches"],
+            default_res["ops_launches"]]
     kernels = kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err,
                             bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows,
-                            edf_rows, grid_rows, q_rows, q_err)
+                            edf_rows, grid_rows, q_rows, q_err, ops_rows)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -1995,7 +2448,9 @@ def main() -> int:
         "train_depth2": train_depth2, "sr_train": sr_res,
         "sr_depth2": sr_depth2, "float_train": float_res,
         "float_depth2": float_depth2, "prologue_train": prologue_res,
-        "prologue_depth2": prologue_depth2, "kernels": kernels,
+        "prologue_depth2": prologue_depth2, "ops_kernels": ops_rows,
+        "default_train": default_res, "default_depth2": default_depth2,
+        "kernels": kernels, "phase_seconds": marks,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -2007,7 +2462,7 @@ def main() -> int:
 
 def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
                   bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows, grid_rows,
-                  q_rows, q_err):
+                  q_rows, q_err, ops_rows):
     """One entry per kernel. ``launches`` sums the counts of the main
     paths' runs (``runs``). Every time sums the kernel's launches in those
     runs from the per-shape times of phase 3: serving (the prefill's 196
@@ -2023,7 +2478,10 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
     a switch after every second step but the mode-off ones) and path B (4
     steps of 197 fxp_qmatmul, matmul_qdx and f32-out matmul_dw calls at
     M = 2048, 1 + 2·197 flat SR int8 launches, a switch after steps 2 and
-    4)."""
+    4). Phase 14's default quantizer launches no kernel; its ops path
+    launches ``sr_quantize`` once per (3072, 8192) f32 layer of the
+    stacked leaf, ``kl_hist`` once on the (28, 3072, 8192) leaf (256 bins)
+    and ``int8_matmul`` twice at 2048 x 3072 x 8192."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
 
     def summed(rows_by_shape, calls):
@@ -2095,6 +2553,12 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
     switches = SR_STEPS // 2 + FLOAT_STEPS // 2 + 2 + PROLOGUE_STEPS // 2
     edf_calls = {(N_LAYERS, EDF_SAMPLE): N_STACKED * switches,
                  (1, EDF_SAMPLE): N_FLAT * switches}
+    given_by = {(tuple(r["shape"]), r["dtype"]): r
+                for r in ops_rows["sr_quantize"]}
+    given_calls = {((D_MODEL, D_FF), "float32"): OPS_PATH["sr_quantize"]}
+    kl_by = {tuple(r["shape"]): r for r in ops_rows["kl_hist"]}
+    kl_calls = {(N_LAYERS, D_MODEL, D_FF): OPS_PATH["kl_hist"]}
+    i8_calls = {(TRAIN_M, D_MODEL, D_FF): OPS_PATH["int8_matmul"]}
 
     def entry(name, source, replaces, err, times):
         return {"name": name, "route": "cuda",
@@ -2139,6 +2603,15 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         entry("matmul_qdx", "fxp_qmatmul.cu", "fxp_matmul.py:408",
               q_err["matmul_qdx"],
               summed(by_shape(q_rows["matmul_qdx"]), prologue_calls)),
+        entry("sr_quantize", "sr_quantize.cu", "sr_quantize.py:66", 0.0,
+              summed(given_by, given_calls)),
+        entry("int8_matmul", "int8_matmul.cu", "fxp_matmul.py:145", 0.0,
+              {**summed(by_shape(ops_rows["int8_matmul"]), i8_calls),
+               "library_covers": "torch._int_mm (int32 out, no scale)"}),
+        entry("kl_hist", "kl_hist.cu", "kl_hist.py:27", 0.0,
+              {**summed(kl_by, kl_calls),
+               "library_covers": "two torch.histc calls (their own bin "
+                                 "formula)"}),
     ]
 
 

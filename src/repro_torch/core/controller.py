@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.config import QuantConfig
 from repro_torch.core import fixed_point as fxp
-from repro_torch.core import pushdown, pushup
+from repro_torch.core import pushdown, pushup, threefry
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sr_quantize import fold_shard_seed
 
@@ -160,12 +160,12 @@ def path_hash(path: str) -> int:
 
 
 def leaf_seeds(seed: int, step: int, paths: Iterable[str]) -> Dict[str, int]:
-    """The port's int32 SR seed of each leaf at a step: the run seed folded
-    with the step, then with the path hash (``fold_shard_seed`` both
-    times). Host ints in, host ints out, computed on the CPU: no device
-    synchronisation. The reference derives its seeds by threefry
-    (``jax.random.randint`` of a key folded with step and path hash), which
-    the port does not carry, so the two streams agree in distribution;
+    """The port's int32 SR seed of each leaf at a step, for the fused
+    kernels: the run seed folded with the step, then with the path hash
+    (``fold_shard_seed`` both times). Host ints in, host ints out, computed
+    on the CPU: no device synchronisation. The reference derives these
+    seeds by ``jax.random.randint`` of the leaf key (``_leaf_seed``), which
+    the port does not mirror, so the two streams agree in distribution;
     given the reference's seeds, the words agree bit for bit."""
     paths = list(paths)
     base = fold_shard_seed(int(seed), int(step))
@@ -173,10 +173,61 @@ def leaf_seeds(seed: int, step: int, paths: Iterable[str]) -> Dict[str, int]:
     return dict(zip(paths, fold_shard_seed(base, hashes).tolist()))
 
 
-_JAX_RANDOM = ("stochastic-rounding words without quant.use_pallas and "
-               "quant.fused_prng come from jax.random noise in the "
-               "reference, which the port does not carry (ROADMAP.md, "
-               "Queue 1)")
+def step_key(seed: int, step: int) -> threefry.Key:
+    """The reference's step key ``fold_in(PRNGKey(run seed), step)``
+    (``train/train_loop.py:127``), from which the jax.random SR noise of
+    every leaf is drawn."""
+    return threefry.fold_in(threefry.key_from_seed(seed), step)
+
+
+def leaf_key(key: threefry.Key, path: str) -> threefry.Key:
+    """The reference's per-leaf key ``fold_in(key, path_hash(path))``
+    (``controller._leaf_key``, ``controller.py:230-235``)."""
+    return threefry.fold_in(key, path_hash(path))
+
+
+# Elements of a leaf whose noise is drawn at once: threefry keeps about six
+# int64 temporaries of a chunk, so 2^25 elements take ~1.6 GB on the card;
+# on the CPU a chunk that stays in cache is several times faster.
+_NOISE_CHUNK = {"cpu": 1 << 18, "cuda": 1 << 25}
+
+
+def _jax_random_sr(leaf: torch.Tensor, key, path: str, fl: torch.Tensor,
+                   wl: Optional[torch.Tensor] = None,
+                   out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """The reference's SR with jax.random noise (``controller.py:364-376``
+    and ``:476-484``), u = ``jax.random.uniform(leaf_key(key, path),
+    leaf.shape)``. Without ``wl``: int8 words clip(SR(leaf·2^FL), −128,
+    127); with it: the ⟨WL,FL⟩ grid values (``fixed_point.quantize``) cast
+    to ``out_dtype``. A per-layer (L,) ⟨WL,FL⟩ takes layer l of the stacked
+    leaf at its own precision; layer l's noise is the flat range
+    [l·n, (l + 1)·n) of the whole leaf's, n elements a layer. The noise is
+    drawn in chunks (``_NOISE_CHUNK``) and freed before the next one, so
+    the whole leaf's noise never exists."""
+    if key is None:
+        raise ValueError(f"{path}: stochastic rounding without the fused "
+                         "kernels needs the step key (controller.step_key)")
+    lkey = leaf_key(key, path)
+    layers = fl.shape[0] if fl.ndim else 1
+    n = leaf.numel() // layers
+    src = leaf.reshape(layers, n)
+    out = torch.empty((layers, n), dtype=out_dtype, device=leaf.device)
+    size = _NOISE_CHUNK["cpu" if leaf.device.type == "cpu" else "cuda"]
+    for l in range(layers):
+        fl_l = fl[l] if fl.ndim else fl
+        for start, count in threefry.chunks(n, size):
+            u = threefry.uniform(lkey, leaf.shape, offset=l * n + start,
+                                 count=count, device=leaf.device)
+            x = src[l, start:start + count]
+            if wl is None:
+                q = fxp.stochastic_round(
+                    x.to(torch.float32) * fxp.pow2i(fl_l).to(x.device), u)
+                out[l, start:start + count] = q.clamp_(-128.0, 127.0)
+            else:
+                wl_l = wl[l] if wl.ndim else wl
+                out[l, start:start + count] = fxp.quantize(x, wl_l, fl_l, u=u)
+            del u
+    return out.reshape(leaf.shape)
 
 
 def _use_fused_prng(qcfg: QuantConfig, sr: bool, fl: torch.Tensor,
@@ -220,24 +271,26 @@ def _rtn_words(leaf: torch.Tensor, fl: torch.Tensor) -> torch.Tensor:
 
 def quantize_params(params, state: Dict[str, Any], qcfg: QuantConfig,
                     seeds: Optional[Mapping[str, int]] = None,
-                    dtype: torch.dtype = torch.float32):
+                    dtype: torch.dtype = torch.float32, *, key=None):
     """The quantized copy of the master params as grid values in a float
     container (``controller.py:308-387``): quantized leaves on their
     ⟨WL,FL⟩ grid in ``dtype`` (f32 or bf16), every other leaf cast to it.
 
-    With ``quant.stochastic_rounding`` and ``seeds`` (an int32 seed per
-    quantized leaf path, ``leaf_seeds``) the values are stochastically
-    rounded with the noise drawn in the kernel (``quant.use_pallas`` and
-    ``quant.fused_prng``; the other SR branch draws ``jax.random`` noise,
-    which the port does not carry, and raises). Otherwise they are
-    rounded to nearest, half to even (``fixed_point.quantize``).
+    With ``quant.stochastic_rounding`` and ``seeds`` or ``key`` the values
+    are stochastically rounded: under ``quant.use_pallas`` and
+    ``quant.fused_prng`` with the noise drawn in the kernel from ``seeds``
+    (an int32 seed per quantized leaf path, ``leaf_seeds``); otherwise, as
+    the registry's default quantizer does, with ``jax.random`` noise from
+    ``key`` (the step key, ``step_key``), bit for bit the reference's.
+    Without either they are rounded to nearest, half to even
+    (``fixed_point.quantize``).
 
     ``dtype=torch.int8`` is the reference's int8 branch: int8 words
     (stochastically rounded, or to nearest; clipped to [−128, 127]) times
     the bf16 scale 2^-FL, in bf16, as are the other leaves."""
     int8 = dtype == torch.int8
     out_dtype = torch.bfloat16 if int8 else dtype
-    sr = seeds is not None and qcfg.stochastic_rounding
+    sr = qcfg.stochastic_rounding and (seeds is not None or key is not None)
     tensors = state["tensors"]
     out: Dict[str, Any] = {}
     for p, leaf in flatten_with_path(params):
@@ -254,8 +307,11 @@ def quantize_params(params, state: Dict[str, Any], qcfg: QuantConfig,
                 q = kops.sr_quantize_fused(leaf, seeds[p], wl, fl,
                                            use_pallas=True,
                                            out_dtype=out_dtype)
+        elif sr and int8:
+            q = _jax_random_sr(leaf, key, p, fl).to(torch.bfloat16)
+            q.mul_(_sc_for(p, leaf, fl))
         elif sr:
-            raise NotImplementedError(f"{p}: {_JAX_RANDOM}")
+            q = _jax_random_sr(leaf, key, p, fl, wl, out_dtype=out_dtype)
         elif int8:
             q = _rtn_words(leaf, fl).to(torch.bfloat16)
             q.mul_(_sc_for(p, leaf, fl))
@@ -267,17 +323,19 @@ def quantize_params(params, state: Dict[str, Any], qcfg: QuantConfig,
 
 
 def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
-                           seeds: Optional[Mapping[str, int]] = None):
+                           seeds: Optional[Mapping[str, int]] = None, *,
+                           key=None):
     """Packed tree: quantized leaves become {"q8", "sc", "wref"} dicts
     (``fixed_point.PACKED_KEYS``); every other leaf is cast to bf16.
 
-    With ``quant.stochastic_rounding`` and ``seeds`` (an int32 seed per
-    quantized leaf path, ``leaf_seeds``) the words are stochastically
-    rounded with the noise drawn in the kernel: ``quant.use_pallas`` and
-    ``quant.fused_prng`` must be set (the reference's other SR branch draws
-    ``jax.random`` noise, which the port does not carry, and raises), and
-    a leaf takes the stacked kernel when its FL is per layer. Otherwise the
-    words are rounded to nearest, half to even. Both clip to [-128, 127].
+    With ``quant.stochastic_rounding`` and ``seeds`` or ``key`` the words
+    are stochastically rounded: under ``quant.use_pallas`` and
+    ``quant.fused_prng`` with the noise drawn in the kernel from ``seeds``
+    (an int32 seed per quantized leaf path, ``leaf_seeds``; a leaf takes
+    the stacked kernel when its FL is per layer), otherwise with
+    ``jax.random`` noise from ``key`` (the step key), bit for bit the
+    reference's. Without either the words are rounded to nearest, half to
+    even. All clip to [-128, 127].
 
     Dense-layer weights under ``quant.use_pallas`` + ``quant.dense_prologue``
     (``_use_dense_prologue``) become quantize-prologue dicts
@@ -290,7 +348,7 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
     "wref" is a bf16 zero of the leaf's shape that nothing reads, so it is
     a zero-stride view that takes no memory; ``grad_receivers`` makes it
     the leaf's gradient receiver, whose gradient autograd materializes."""
-    sr = seeds is not None and qcfg.stochastic_rounding
+    sr = qcfg.stochastic_rounding and (seeds is not None or key is not None)
     tensors = state["tensors"]
     out: Dict[str, Any] = {}
     for p, leaf in flatten_with_path(params):
@@ -313,7 +371,7 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
             q8 = kops.sr_quantize_fused_int8(leaf, seeds[p], fl,
                                              use_pallas=True)
         elif sr:
-            raise NotImplementedError(f"{p}: {_JAX_RANDOM}")
+            q8 = _jax_random_sr(leaf, key, p, fl)
         else:
             q8 = _rtn_words(leaf, fl).to(torch.int8)
         wref = torch.zeros((), dtype=torch.bfloat16,

@@ -7,7 +7,8 @@ The network keeps int8 words plus a 2^-FL scale: the packed
 fed whole to the fxp matmul kernels, with gradients routed to "wref".
 
 Counterpart of ``repro/core/fixed_point.py``: grids, round-to-nearest and
-stochastic-rounding quantization (the noise ``u`` supplied by the caller),
+stochastic-rounding quantization (the noise ``u`` supplied by the caller,
+or drawn from a jax.random key by ``uniform_noise_like``),
 activation quantization with the straight-through gradient, the packed
 format with ``dequant_packed``'s gradient rule, the quantize-prologue
 format ⟨wm, seed, flq, mode⟩ with its value view ``qdense_view``, and
@@ -16,6 +17,8 @@ format ⟨wm, seed, flq, mode⟩ with its value view ``qdense_view``, and
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import threefry
 
 MAX_WL = 32
 
@@ -73,6 +76,13 @@ def quantize_int8(w: torch.Tensor, fl, *, u=None
     q = _round(w.to(torch.float32) * scale, u)
     q = q.clamp(-128.0, 127.0).to(torch.int8)
     return q, (1.0 / scale).to(torch.float32)
+
+
+def uniform_noise_like(key, x: torch.Tensor) -> torch.Tensor:
+    """U[0,1) f32 noise of x's shape from a jax.random key (a pair of
+    ints): ``jax.random.uniform(key, x.shape)`` bit for bit
+    (``fixed_point.py:111``, ``core/threefry.py``)."""
+    return threefry.uniform(key, x.shape, device=x.device)
 
 
 def fl_for_wl(w_absmax, wl) -> torch.Tensor:

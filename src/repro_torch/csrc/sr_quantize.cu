@@ -13,6 +13,12 @@
 //    own FL, element i of layer l drawing u from index l * rows * 512 + i,
 //    rows = ceil(n_l / 512). The layer stride is the TPU kernel's padded
 //    plane; no padding is needed here, only the index.
+// The noise given as a tensor:
+//  * sr_quantize_launch replaces `_sr_quantize_kernel` (reached through
+//    `sr_quantize`): x (n) f32 or bf16 and u (n) f32 U[0,1) in, the grid
+//    values at one <WL,FL> out in x's dtype (the reference computes them in
+//    f32 and casts them to x's dtype: bf16 is __float2bfloat16_rn of the f32
+//    value).
 // Grid values in a float container (float32 / bfloat16):
 //  * sr_quantize_fused_launch replaces `_sr_fused_kernel` (reached through
 //    `sr_quantize_fused`), flat, at one <WL,FL>;
@@ -33,7 +39,8 @@
 // the reference's portable stream.
 //
 // What bounds them on an H100: the bytes, 4 read per element and 1 (int8),
-// 4 (f32) or 2 (bf16) written (3.6 G elements a training step of
+// 4 (f32) or 2 (bf16) written (sr_quantize: x and u read, 12 bytes per f32
+// element and 8 per bf16 element) (3.6 G elements a training step of
 // llama3.2-3b: 18 GB for int8 words, 28.9 GB for f32 grid values, >= 5.4
 // and 8.6 ms at 3.35 TB/s). Design: elementwise with no reduction; a
 // grid-stride loop with one float4 load and one 4-word store per thread and
@@ -182,6 +189,67 @@ cudaError_t launch(const float* x, T* q, const int* wl, const int* fl, int seed,
   return cudaGetLastError();
 }
 
+// Four consecutive inputs of x as f32 (the caller has checked alignment).
+__device__ __forceinline__ void load4(const float* p, long long e, float (&v)[4]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[e];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, long long e,
+                                      float (&v)[4]) {
+  const uint2 a = reinterpret_cast<const uint2*>(p)[e];
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+__device__ __forceinline__ float load1(const float* p, long long e) { return p[e]; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p, long long e) {
+  return __bfloat162float(p[e]);
+}
+
+// SR grid values with the noise u given: q (n) in x's type T.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(NT)
+sr_given_kernel(const T* __restrict__ x, const float* __restrict__ u,
+                T* __restrict__ q, const int* __restrict__ wl,
+                const int* __restrict__ fl, long long n) {
+  const Grid g = grid_of(wl, fl, 0);
+  const long long step = (long long)gridDim.x * NT;
+  if (VEC) {
+    const long long groups = n / 4;
+    for (long long e = (long long)blockIdx.x * NT + threadIdx.x; e < groups;
+         e += step) {
+      float v[4];
+      load4(x, e, v);
+      const float4 r = reinterpret_cast<const float4*>(u)[e];
+      const T w[4] = {word<T>(v[0], g, r.x), word<T>(v[1], g, r.y),
+                      word<T>(v[2], g, r.z), word<T>(v[3], g, r.w)};
+      store4(q + 4 * e, w);
+    }
+  } else {
+    for (long long e = (long long)blockIdx.x * NT + threadIdx.x; e < n;
+         e += step)
+      q[e] = word<T>(load1(x, e), g, u[e]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_given(const T* x, const float* u, T* q, const int* wl,
+                         const int* fl, long long n, cudaStream_t st) {
+  if (n <= 0) return cudaGetLastError();
+  const bool vec = n % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % (4 * sizeof(T)) == 0;
+  const long long work = vec ? n / 4 : n;
+  long long blocks = (work + NT - 1) / NT;
+  if (blocks > 2112) blocks = 2112;
+  if (vec)
+    sr_given_kernel<T, true><<<(unsigned)blocks, NT, 0, st>>>(x, u, q, wl, fl, n);
+  else
+    sr_given_kernel<T, false><<<(unsigned)blocks, NT, 0, st>>>(x, u, q, wl, fl, n);
+  return cudaGetLastError();
+}
+
 uint32_t layer_stride(long long n_l) {
   return (uint32_t)((n_l + LANES - 1) / LANES) * LANES;
 }
@@ -241,6 +309,23 @@ int sr_quantize_fused_stacked_launch(const void* x, void* q, int out_dtype,
   if (L > 65535) return (int)cudaErrorInvalidValue;
   return (int)launch_grid(x, q, out_dtype, wl, fl, seed, L, n_l,
                           layer_stride(n_l), stream);
+}
+
+// q (n) = SR grid values of x (n) at <*wl, *fl> (device int32 scalars) with
+// the noise u (n) f32, in x's type: f32 (dtype 0) or bf16 (1). Returns
+// cudaGetLastError().
+int sr_quantize_launch(const void* x, const void* u, void* q, int dtype,
+                       const void* wl, const void* fl, long long n,
+                       void* stream) {
+  const float* up = static_cast<const float*>(u);
+  const int* wlp = static_cast<const int*>(wl);
+  const int* flp = static_cast<const int*>(fl);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_given(static_cast<const __nv_bfloat16*>(x), up,
+                             static_cast<__nv_bfloat16*>(q), wlp, flp, n, st);
+  return (int)launch_given(static_cast<const float*>(x), up,
+                           static_cast<float*>(q), wlp, flp, n, st);
 }
 
 }  // extern "C"

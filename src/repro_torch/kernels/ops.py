@@ -2,7 +2,10 @@
 the fxp matmul, the model's differentiable dense layers (over int8 words,
 and the quantize prologue over the f32 master) and attention, the
 stochastic-rounding words (int8, and grid values in a float container) and
-PushDown's EDF ladder.
+PushDown's EDF ladder; and the three kernels only this module reaches, as
+in the reference: the SR quantize with the noise given (``sr_quantize``),
+the W8A8 matmul (``int8_matmul``, differentiable into its two scales) and
+the KL double histogram (``kl_hist``).
 
 The rule, by the device of the tensor each op is given:
 
@@ -26,6 +29,8 @@ import torch
 from repro_torch.kernels import edf_ladder as _el
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fxp_matmul as _fm
+from repro_torch.kernels import int8_matmul as _im
+from repro_torch.kernels import kl_hist as _kh
 from repro_torch.kernels import ref
 from repro_torch.kernels import sr_quantize as _sq
 
@@ -139,20 +144,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap, scale=scale)
 
 
+def sr_quantize(x: torch.Tensor, u: torch.Tensor, wl, fl, *,
+                use_pallas: bool = False) -> torch.Tensor:
+    """⟨WL,FL⟩ SR grid values of x with the U[0,1) noise ``u`` given, in
+    x's dtype (``repro/kernels/ops.py:28``). With ``use_pallas`` the kernel
+    on the card (scalar ⟨wl, fl⟩), its plain version on the CPU; without
+    it the plain version on any device, ⟨wl, fl⟩ broadcast against x."""
+    if use_pallas:
+        return _sq.sr_quantize(x.contiguous(), u.to(torch.float32).contiguous(),
+                               wl, fl)
+    return ref.ref_sr_quantize(x, u, wl, fl)
+
+
+def _stacked_shape(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An (L,) precision as (L, 1, ...) against the stacked x."""
+    return p.reshape(tuple(p.shape) + (1,) * (x.ndim - 1))
+
+
 def sr_quantize_fused_int8(x: torch.Tensor, seed, fl, *,
                            use_pallas: bool = False) -> torch.Tensor:
-    """int8 SR words of the f32 master with in-kernel noise
-    (dequant = q8·2^-FL at the consumer): an (L,) FL selects the stacked
-    kernel (layer l at fl[l], one launch), a scalar FL the flat one, as
-    ``repro/kernels/ops.py:129-160`` does. ``seed`` is a host int. Without
-    ``use_pallas`` the reference draws ``jax.random`` noise, which the port
-    does not carry: that raises."""
-    if not use_pallas:
-        raise NotImplementedError(
-            "sr_quantize_fused_int8 without use_pallas draws jax.random "
-            "noise in the reference, which the port does not carry "
-            "(ROADMAP.md, Queue 1)")
+    """int8 SR words of the f32 master (dequant = q8·2^-FL at the
+    consumer): an (L,) FL selects the stacked kernel (layer l at fl[l], one
+    launch), a scalar FL the flat one, as ``repro/kernels/ops.py:129-160``
+    does, with the noise drawn in the kernel. ``seed`` is a host int.
+    Without ``use_pallas`` the reference's jax.random oracle: the noise is
+    ``jax.random.uniform(PRNGKey(seed), x.shape)`` (``core/threefry.py``)."""
     fl = torch.as_tensor(fl, dtype=torch.int32, device=x.device)
+    if not use_pallas:
+        return ref.ref_sr_quantize_fused_int8(
+            x, seed, _stacked_shape(fl, x) if fl.ndim else fl)
     if fl.ndim:
         return _sq.sr_quantize_fused_stacked_int8(x, seed, fl)
     return _sq.sr_quantize_fused_int8(x, seed, fl)
@@ -161,23 +181,75 @@ def sr_quantize_fused_int8(x: torch.Tensor, seed, fl, *,
 def sr_quantize_fused(x: torch.Tensor, seed, wl, fl, *,
                       use_pallas: bool = False,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """SR grid values of the f32 master on ⟨WL,FL⟩ with in-kernel noise, in
-    ``out_dtype`` (f32, or bf16 rounded to nearest even): an (L,) ⟨WL,FL⟩
-    selects the stacked kernel (layer l at ⟨wl[l], fl[l]⟩, one launch), a
-    scalar the flat one (``repro/kernels/ops.py:79-126``). ``seed`` is a
-    host int. Without ``use_pallas`` the reference draws ``jax.random``
-    noise, which the port does not carry: that raises."""
-    if not use_pallas:
-        raise NotImplementedError(
-            "sr_quantize_fused without use_pallas draws jax.random noise in "
-            "the reference, which the port does not carry (ROADMAP.md, "
-            "Queue 1)")
+    """SR grid values of the f32 master on ⟨WL,FL⟩ in ``out_dtype`` (f32,
+    or bf16 rounded to nearest even): an (L,) ⟨WL,FL⟩ selects the stacked
+    kernel (layer l at ⟨wl[l], fl[l]⟩, one launch), a scalar the flat one
+    (``repro/kernels/ops.py:79-126``), with the noise drawn in the kernel.
+    ``seed`` is a host int. Without ``use_pallas`` the reference's
+    jax.random oracle (noise ``jax.random.uniform(PRNGKey(seed),
+    x.shape)``)."""
     wl = torch.as_tensor(wl, dtype=torch.int32, device=x.device)
     fl = torch.as_tensor(fl, dtype=torch.int32, device=x.device)
+    if not use_pallas:
+        if wl.ndim:
+            wl, fl = _stacked_shape(wl, x), _stacked_shape(fl, x)
+        return ref.ref_sr_quantize_fused(x, seed, wl, fl).to(out_dtype)
     if wl.ndim:
         return _sq.sr_quantize_fused_stacked(x, seed, wl, fl,
                                              out_dtype=out_dtype)
     return _sq.sr_quantize_fused(x, seed, wl, fl, out_dtype=out_dtype)
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """The W8A8 product differentiated into its scales
+    (``_int8_matmul_diff``, ``fxp_matmul.py:510-534``): the backward reruns
+    the kernel at unit scale for the raw sums, g0 = Σ dy·acc in f32,
+    dsx = g0·sw and dsw = g0·sx in the scales' shapes and dtypes; the words
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, xq, wq, sx, sw):
+        ctx.save_for_backward(xq, wq, sx, sw)
+        s = (sx.to(torch.float32) * sw.to(torch.float32)).reshape(())
+        return _im.int8_matmul(xq, wq, s)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xq, wq, sx, sw = ctx.saved_tensors
+        one = torch.ones((), dtype=torch.float32, device=xq.device)
+        acc = _im.int8_matmul(xq, wq, one)
+        g0 = torch.sum(dy.to(torch.float32) * acc)
+        dsx = (g0 * sw.to(torch.float32)).reshape(sx.shape).to(sx.dtype)
+        dsw = (g0 * sx.to(torch.float32)).reshape(sw.shape).to(sw.dtype)
+        return None, None, dsx, dsw
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, sx, sw, *,
+                use_pallas: bool = False) -> torch.Tensor:
+    """W8A8: f32 (xq @ wq)·sx·sw for int8 words xq (M, K), wq (K, N), any
+    ⟨M, K, N⟩ (``repro/kernels/ops.py:198``). With ``use_pallas`` the
+    kernel (its plain version on the CPU) at s = f32(sx)·f32(sw), one-element
+    scales, differentiable into sx and sw; without it the reference's
+    oracle (acc·sx·sw, two roundings, scales that broadcast), under
+    autograd."""
+    if use_pallas:
+        dev = xq.device
+        return _Int8Matmul.apply(xq.contiguous(), wq.contiguous(),
+                                 torch.as_tensor(sx, device=dev),
+                                 torch.as_tensor(sw, device=dev))
+    return ref.ref_int8_matmul(xq, wq, sx, sw)
+
+
+def kl_hist(w: torch.Tensor, q: torch.Tensor, num_bins: int = 256, *,
+            use_pallas: bool = False) -> torch.Tensor:
+    """f32 counts (2, num_bins) of w and its quantized copy q over w's
+    [min, max] (``repro/kernels/ops.py:245``). With ``use_pallas`` the
+    kernel's formula (the kernel on the card, its plain version on the
+    CPU); without it the reference's jnp oracle, which divides by the span
+    and counts a NaN bin in bin 0."""
+    if use_pallas:
+        return _kh.kl_hist(w, q, num_bins)
+    return ref.ref_kl_hist(w, q, num_bins)
 
 
 class _FxpQDense(torch.autograd.Function):

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.fixed_point import pow2i
 
 NEG_INF = -1e30
@@ -424,3 +425,130 @@ def ref_flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     dq = ref_flash_attention_dq(q, k, v, do, lse, delta, **kw)
     return (dq, *ref_flash_attention_dkv(q, k, v, do, lse, delta, **kw))
+
+
+# ---------------------------------------------------------------------------
+# The kernels only ``kernels/ops`` reaches: the SR quantize with given noise,
+# the W8A8 int8 matmul and the KL double histogram; and the reference's
+# jax.random oracles of the fused SR quantize.
+
+
+def ref_sr_quantize(x: torch.Tensor, u: torch.Tensor, wl, fl
+                    ) -> torch.Tensor:
+    """⟨WL,FL⟩ stochastic-rounding quantize with the noise ``u`` given
+    (``repro/kernels/ref.py:23-33``): s = f32(x)·2^fl, q = floor(s) +
+    [u < s − floor(s)] clipped to [−qmax − 1, qmax] with qmax = 2^(wl−1) − 1
+    rounded to f32, then q / 2^fl in f32, cast to x's dtype. ⟨wl, fl⟩ are
+    ints or int tensors that broadcast against x (2^e is exact for e in
+    [−126, 127], as the reference's ``ldexp``). Also the plain version of
+    the ``sr_quantize`` kernel, which takes scalar ⟨wl, fl⟩."""
+    dev = x.device
+    scale = pow2i(torch.as_tensor(fl, device=dev))
+    qmax = pow2i(torch.as_tensor(wl, device=dev) - 1) - 1.0
+    s = x.to(torch.float32) * scale
+    f = torch.floor(s)
+    q = f + (u.to(torch.float32) < (s - f)).to(torch.float32)
+    q = torch.minimum(torch.maximum(q, -qmax - 1.0), qmax)
+    return (q / scale).to(x.dtype)
+
+
+def ref_sr_quantize_fused(x: torch.Tensor, seed, wl, fl) -> torch.Tensor:
+    """The reference's jax.random oracle of the fused SR quantize
+    (``repro/kernels/ref.py:36``): u = ``jax.random.uniform(PRNGKey(seed),
+    x.shape)`` through ``core/threefry.py``, then :func:`ref_sr_quantize`
+    (⟨wl, fl⟩ broadcast against x)."""
+    u = threefry.uniform(threefry.key_from_seed(seed), x.shape,
+                         device=x.device)
+    return ref_sr_quantize(x, u, wl, fl)
+
+
+def ref_sr_quantize_fused_int8(x: torch.Tensor, seed, fl) -> torch.Tensor:
+    """The reference's jax.random oracle of the fused SR int8 words
+    (``repro/kernels/ref.py:45``): clip(floor(x·2^fl) + [u < frac], −128,
+    127) as int8 with the same u as :func:`ref_sr_quantize_fused` (its
+    ``2.0 ** fl`` is exact, as ``pow2i``)."""
+    u = threefry.uniform(threefry.key_from_seed(seed), x.shape,
+                         device=x.device)
+    return _sr_int8(x, u, torch.as_tensor(fl, device=x.device))
+
+
+def ref_int8_matmul(xq: torch.Tensor, wq: torch.Tensor, sx, sw
+                    ) -> torch.Tensor:
+    """The reference's oracle of the W8A8 product (``repro/kernels/ref.py:245``):
+    the exact int32 sum xq @ wq, then f32(acc)·f32(sx)·f32(sw), left to
+    right (two roundings)."""
+    acc = _int8_acc(xq, wq).to(torch.float32)
+    return (acc * torch.as_tensor(sx).to(acc.device, torch.float32)
+            * torch.as_tensor(sw).to(acc.device, torch.float32))
+
+
+def _int8_acc(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int32 sum Σ_k xq·wq of int8 words. On the CPU in int64 and
+    wrapped to int32 as an int32 accumulator wraps; on the card an f64
+    product, exact while |acc| < 2^53 (the kernel's wrapper admits
+    K ≤ 131071, so |acc| < 2^31), returned as f64."""
+    if xq.device.type == "cpu":
+        return torch.matmul(xq.to(torch.int64), wq.to(torch.int64)).to(
+            torch.int32)
+    return torch.matmul(xq.to(torch.float64), wq.to(torch.float64))
+
+
+def ref_int8_matmul_kernel(xq: torch.Tensor, wq: torch.Tensor,
+                           s: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``int8_matmul`` kernel: f32(Σ_k xq·wq)·s with
+    s = f32(sx)·f32(sw) formed once (``fxp_matmul.py:181``); f32 out. The
+    int32 → f32 conversion rounds to nearest even, as the f64 → f32 cast
+    does on the card."""
+    acc = _int8_acc(xq, wq).to(torch.float32)
+    return acc * s.to(acc.device, torch.float32).reshape(())
+
+
+def ref_kl_hist(w: torch.Tensor, q: torch.Tensor, num_bins: int
+                ) -> torch.Tensor:
+    """The reference's oracle of the KL double histogram
+    (``repro/kernels/ref.py:325-337``): f32 counts (2, num_bins) of w and q
+    over w's [min, max], bin = clip(floor((x − lo) / span · num_bins), 0,
+    num_bins − 1) with span = max(hi − lo, 1e-12), divided first and then
+    multiplied. A NaN bin counts in bin 0, as XLA's float → int conversion
+    makes it (torch's is undefined for NaN)."""
+    wf = w.to(torch.float32).reshape(-1)
+    lo, hi = wf.min(), wf.max()
+    span = torch.clamp(hi - lo, min=1e-12)
+
+    def hist(x):
+        t = torch.floor((x.to(torch.float32).reshape(-1) - lo) / span
+                        * num_bins).clamp(0, num_bins - 1)
+        idx = torch.where(torch.isnan(t), 0.0, t).to(torch.int64)
+        return torch.bincount(idx, minlength=num_bins).to(torch.float32)
+
+    return torch.stack([hist(wf), hist(q)])
+
+
+def kl_bins(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+            num_bins: int) -> torch.Tensor:
+    """The KL kernel's f32 bin of each element, in its expression order:
+    inv_span = num_bins / max(hi − lo, 1e-12), then clip(floor((x − lo) ·
+    inv_span), 0, num_bins − 1); NaN where that is NaN."""
+    inv = (torch.tensor(float(num_bins), dtype=torch.float32,
+                        device=x.device) / torch.clamp(hi - lo, min=1e-12))
+    t = torch.floor((x.to(torch.float32) - lo) * inv)
+    return torch.minimum(torch.maximum(t, torch.zeros_like(t)),
+                         torch.full_like(t, num_bins - 1))
+
+
+def ref_kl_hist_kernel(w: torch.Tensor, q: torch.Tensor, num_bins: int
+                       ) -> torch.Tensor:
+    """Plain version of the ``kl_hist`` kernel: f32 counts (2, num_bins) of
+    w and q over w's [min, max] with :func:`kl_bins` (multiplied by the
+    inverse span, ``kl_hist.py:37-42``); an element whose bin is NaN is
+    counted in no row, as the kernel's one-hot compare counts it nowhere.
+    The reference's lane padding (filled with lo, its count taken back
+    from bin 0) leaves the counts of a NaN-free w as these."""
+    wf = w.to(torch.float32).reshape(-1)
+    lo, hi = torch.aminmax(wf)
+    rows = []
+    for x in (wf, q.reshape(-1)):
+        t = kl_bins(x, lo, hi, num_bins)
+        idx = t[~torch.isnan(t)].to(torch.int64)
+        rows.append(torch.bincount(idx, minlength=num_bins))
+    return torch.stack(rows).to(torch.float32)

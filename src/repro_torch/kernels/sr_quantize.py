@@ -1,6 +1,15 @@
 """Stochastic rounding of the f32 master with the noise drawn inside the
-kernel: the CUDA kernels of ``csrc/sr_quantize.cu`` beside their plain
-versions, and the contract pieces of the portable noise stream.
+kernel, and with the noise given: the CUDA kernels of
+``csrc/sr_quantize.cu`` beside their plain versions, and the contract
+pieces of the portable noise stream.
+
+Grid values with the noise given (``kernels/ops.sr_quantize``):
+
+* ``sr_quantize`` replaces the TPU kernel ``_sr_quantize_kernel`` of
+  ``repro/kernels/sr_quantize.py``: x (f32 or bf16) and u (U[0,1) f32 of
+  x's shape) in, q = clip(floor(x·2^fl) + [u < frac], −2^(wl−1),
+  2^(wl−1) − 1) / 2^fl out in x's dtype. Bound by its bytes: 12 per f32
+  element (x and u read, q written).
 
 Int8 words (the packed container; dequant = q8·2^-FL at the consumer):
 
@@ -42,6 +51,7 @@ plain = ref.ref_sr_quantize_fused_int8_words
 plain_stacked = ref.ref_sr_quantize_fused_stacked_int8_words
 plain_grid = ref.ref_sr_quantize_fused_words
 plain_grid_stacked = ref.ref_sr_quantize_fused_stacked_words
+plain_given = ref.ref_sr_quantize
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,17 +68,19 @@ def uniform_from_index(seed, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _lib():
-    """The four entry points: int8 flat and stacked, grid flat and
-    stacked."""
+    """The five entry points: int8 flat and stacked, grid flat and
+    stacked, and grid values with the noise given."""
     lib = _build.load("sr_quantize")
     fns = (lib.sr_quantize_fused_int8_launch,
            lib.sr_quantize_fused_stacked_int8_launch,
-           lib.sr_quantize_fused_launch, lib.sr_quantize_fused_stacked_launch)
+           lib.sr_quantize_fused_launch, lib.sr_quantize_fused_stacked_launch,
+           lib.sr_quantize_launch)
     if fns[0].argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn, args in zip(fns, ([p, p, p, i, ll, p], [p, p, p, i, i, ll, p],
                                   [p, p, i, p, p, i, ll, p],
-                                  [p, p, i, p, p, i, i, ll, p])):
+                                  [p, p, i, p, p, i, i, ll, p],
+                                  [p, p, p, i, p, p, ll, p])):
             fn.argtypes = args
             fn.restype = ctypes.c_int
     return fns
@@ -187,3 +199,38 @@ def sr_quantize_fused_stacked(x: torch.Tensor, seed, wl, fl, *,
 
 
 sr_quantize_fused_stacked.launches = 0
+
+
+def sr_quantize(x: torch.Tensor, u: torch.Tensor, wl, fl) -> torch.Tensor:
+    """SR grid values of x at one ⟨WL,FL⟩ (0-dim int32 tensors, read by the
+    kernel on the card) with the U[0,1) noise ``u`` (f32, x's shape), in
+    x's dtype (f32, or bf16 rounded to nearest even from the f32 value).
+    On the CPU the plain version, which also takes ⟨wl, fl⟩ that broadcast
+    against x."""
+    if x.device.type == "cpu":
+        return plain_given(x, u, wl, fl)
+    wl, fl = _fl_on(wl, x), _fl_on(fl, x)
+    check_card(x)
+    if x.dtype not in _OUT_CODE or not x.is_contiguous():
+        raise ValueError(f"sr_quantize: x must be contiguous float32 or "
+                         f"bfloat16, got {x.dtype}")
+    if u.dtype != torch.float32 or u.device != x.device \
+            or u.shape != x.shape or not u.is_contiguous():
+        raise ValueError(f"sr_quantize: u must be contiguous float32 of "
+                         f"x's shape {tuple(x.shape)} on {x.device}, got "
+                         f"{u.dtype} {tuple(u.shape)} on {u.device}")
+    for key, t in (("wl", wl), ("fl", fl)):
+        if t.dtype != torch.int32 or t.ndim != 0:
+            raise ValueError(f"sr_quantize: {key} must be an int32 scalar, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    q = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()[4](x.data_ptr(), u.data_ptr(), q.data_ptr(),
+                    _OUT_CODE[x.dtype], wl.data_ptr(), fl.data_ptr(),
+                    x.numel(), stream)
+    _build.check(err, "sr_quantize")
+    sr_quantize.launches += 1
+    return q
+
+
+sr_quantize.launches = 0

@@ -48,7 +48,7 @@ def main(argv=None):
     if args.checkpoint_dir:
         raise NotImplementedError("--checkpoint-dir is not yet ported: "
                                   "checkpoints come with ROADMAP.md Queue 1 "
-                                  "item 5")
+                                  "item 2")
     if args.smoke:
         from repro_torch.configs import get_smoke_config
         cfg = apply_overrides(get_smoke_config(args.arch), args.override)

@@ -26,8 +26,8 @@ from repro_torch.config import apply_overrides, load_config, with_shape
 from repro_torch.device import resolve_device
 from repro_torch.train import train_loop
 
-_QUEUE_1_ITEM_5 = ("is not ported yet: checkpoints and metrics come with "
-                   "ROADMAP.md Queue 1 item 5")
+_QUEUE_1_CHECKPOINT = ("is not ported yet: checkpoints and metrics come with "
+                   "ROADMAP.md Queue 1 item 2")
 
 
 def main(argv=None):
@@ -48,7 +48,7 @@ def main(argv=None):
                         ("--resume", args.resume),
                         ("--metrics-dir", args.metrics_dir)):
         if given:
-            raise NotImplementedError(f"{flag} {_QUEUE_1_ITEM_5}")
+            raise NotImplementedError(f"{flag} {_QUEUE_1_CHECKPOINT}")
     if args.smoke:
         from repro_torch.configs import get_smoke_config
         cfg = get_smoke_config(args.arch)

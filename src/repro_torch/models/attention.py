@@ -78,6 +78,14 @@ def attend_full(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     return x + out, (k, v)
 
 
+def av_dtype(v: torch.Tensor) -> torch.dtype:
+    """The dtype of the plain path's AV product: v's own on the card, as
+    the reference computes it on the TPU (bf16 probabilities, f32
+    accumulation), and f32 on the CPU, as the reference does there (XLA CPU
+    has no batched bf16 dot; the reference's ``_CPU_EXEC``)."""
+    return torch.float32 if v.device.type == "cpu" else v.dtype
+
+
 def _masked_attention(q, k, v, qpos, kpos, window, cap, causal):
     """Attention with explicit position masks (plain; no kernel on the TPU
     either). GQA repeats K/V to the full H query heads.
@@ -102,10 +110,7 @@ def _masked_attention(q, k, v, qpos, kpos, window, cap, causal):
         mask = mask & (kp > qp - window)
     logits = torch.where(mask[:, None], logits, -1e30)
     p = torch.softmax(logits, dim=-1)
-    # The AV product runs in the input dtype on the card, as the reference
-    # does on the TPU (bf16 probabilities, f32 accumulation), and in f32 on
-    # the CPU, as the reference does there (XLA CPU has no batched bf16 dot).
-    av_dt = torch.float32 if q.device.type == "cpu" else v.dtype
+    av_dt = av_dtype(v)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(av_dt), v.to(av_dt))
     return out.to(q.dtype)
 

@@ -14,9 +14,14 @@ Each ``train_step``:
                                         itself with the words drawn inside
                                         the matmul; stochastically rounded
                                         with a seed per ⟨run seed, step,
-                                        leaf⟩ (``quant.stochastic_rounding``,
-                                        the kernel draws the noise) or
-                                        rounded to nearest. With
+                                        leaf⟩ (``quant.stochastic_rounding``;
+                                        the kernel draws the noise under
+                                        ``quant.use_pallas`` and
+                                        ``quant.fused_prng``, and otherwise,
+                                        as the registry's defaults do, the
+                                        reference's jax.random noise of the
+                                        step key fold_in(PRNGKey(run seed),
+                                        step)) or rounded to nearest. With
                                         ``quant.mode=off`` the master itself;
     2. the forward (flash attention under ``quant.use_pallas``; dense
        layers through the fxp kernels on packed words and prologue leaves,
@@ -36,10 +41,9 @@ through the EDF-ladder kernel under ``quant.use_pallas``, then PushUp and
 the adaptation of strategy, lookback and resolution) moves each tensor
 whose window is full to its new ⟨WL,FL⟩ (never with ``quant.mode=off``).
 
-What is not ported raises, by name: SR words from ``jax.random`` noise
-(stochastic rounding without ``quant.use_pallas`` and
-``quant.fused_prng``), gradient accumulation (``train.accum_steps > 1``),
-QSGD pod compression, remat, and the CNN family.
+What is not ported raises, by name: gradient accumulation
+(``train.accum_steps > 1``), QSGD pod compression, remat, and the CNN
+family.
 """
 from __future__ import annotations
 
@@ -123,16 +127,18 @@ def _set_path(tree: dict, path: str, value) -> None:
 _CONTAINERS = {"bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
-def _quantized_copy(cfg: Config, params, adapt, seeds):
+def _quantized_copy(cfg: Config, params, adapt, seeds, key):
     """The quantized copy the forward reads: the master itself under
     ``quant.mode=off``."""
     qcfg = cfg.quant
     if qcfg.mode == "off":
         return params
     if qcfg.container_dtype == "int8_packed":
-        return controller.quantize_params_packed(params, adapt, qcfg, seeds)
+        return controller.quantize_params_packed(params, adapt, qcfg, seeds,
+                                                 key=key)
     dtype = _CONTAINERS.get(qcfg.container_dtype, torch.float32)
-    return controller.quantize_params(params, adapt, qcfg, seeds, dtype=dtype)
+    return controller.quantize_params(params, adapt, qcfg, seeds, dtype=dtype,
+                                      key=key)
 
 
 def make_train_step(cfg: Config) -> Callable:
@@ -140,8 +146,9 @@ def make_train_step(cfg: Config) -> Callable:
     step updates the master params, the optimizer's moments and the
     controller's "grad_sum" in place and returns the state dict with the
     new scalars. ``step`` is the host's index of this step (the value of
-    ``state["step"]``), from which the SR seeds are derived; when it is not
-    given, ``state["step"]`` is read once."""
+    ``state["step"]``), from which the SR seeds of the fused kernels and the
+    step key of the jax.random noise are derived; when it is not given,
+    ``state["step"]`` is read once."""
     _check_ported(cfg)
     qcfg, ocfg = cfg.quant, cfg.optimizer
     adaptive = qcfg.mode != "off"
@@ -150,12 +157,13 @@ def make_train_step(cfg: Config) -> Callable:
                    step: Optional[int] = None
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         params, adapt = state["params"], state["adapt"]
-        seeds = None
+        seeds = key = None
         if adaptive and qcfg.stochastic_rounding:
             i = int(state["step"]) if step is None else step
             seeds = controller.leaf_seeds(int(state["rng"]), i,
                                           adapt["tensors"])
-        qparams = _quantized_copy(cfg, params, adapt, seeds)
+            key = controller.step_key(int(state["rng"]), i)
+        qparams = _quantized_copy(cfg, params, adapt, seeds, key)
         act_wl = (transformer.act_wl_from_state(adapt)
                   if adaptive and qcfg.quantize_activations else None)
         receivers = controller.grad_receivers(qparams)

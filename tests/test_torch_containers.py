@@ -176,8 +176,11 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
         sq.sr_quantize_fused_stacked(
             meta, 3, torch.zeros(2, dtype=torch.int32, device="meta"),
             torch.zeros(2, dtype=torch.int32, device="meta"))
-    with pytest.raises(NotImplementedError, match="jax.random"):
-        ops.sr_quantize_fused(x, 3, 8, 0, use_pallas=False)
+    # without use_pallas: the reference's jax.random oracle, on any device
+    want = jops.sr_quantize_fused(jnp.zeros((2, 8)), 3, 8, 0)
+    np.testing.assert_array_equal(
+        ops.sr_quantize_fused(x, 3, 8, 0, use_pallas=False).numpy(),
+        np.asarray(want))
 
 
 # ---------------------------------------------------------------------------
@@ -230,15 +233,24 @@ def test_quantize_params_matches_the_reference(container, sr):
 
 
 def test_sr_without_the_fused_kernel_raises():
-    """The reference's other SR branch draws jax.random noise."""
+    """The reference's other SR branch draws jax.random noise from the
+    step key: the port draws the same noise (tests/test_torch_noise_sr.py
+    holds it bit for bit), and raises only when it is given no key."""
     for ov in (["quant.use_pallas=false"],
                ["quant.use_pallas=true", "quant.fused_prng=false"]):
         cfg = load_config("tiny", overrides=ov)
         state = train_loop.init_state(cfg, device="cpu")
         seeds = controller.leaf_seeds(0, 0, state["adapt"]["tensors"])
-        with pytest.raises(NotImplementedError, match="jax.random"):
+        with pytest.raises(ValueError, match="step key"):
             controller.quantize_params(state["params"], state["adapt"],
                                        cfg.quant, seeds)
+        key = controller.step_key(0, 0)
+        q = controller.quantize_params(state["params"], state["adapt"],
+                                       cfg.quant, seeds, key=key)
+        rtn = controller.quantize_params(state["params"], state["adapt"],
+                                         cfg.quant)
+        assert q["head"].dtype == torch.float32
+        assert not torch.equal(q["head"], rtn["head"])
 
 
 # ---------------------------------------------------------------------------

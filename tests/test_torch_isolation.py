@@ -15,7 +15,8 @@ from repro_torch.config import load_config  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import controller, pushdown, pushup  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.kernels import edf_ladder, sr_quantize  # noqa: E402
+from repro_torch.kernels import edf_ladder, int8_matmul, kl_hist  # noqa: E402
+from repro_torch.kernels import sr_quantize  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
@@ -33,7 +34,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.train.train_loop, repro_torch.core.pushdown, "
             "repro_torch.core.pushup, repro_torch.core.sparsity, "
             "repro_torch.kernels.sr_quantize, repro_torch.kernels.edf_ladder, "
-            "repro_torch.kernels.fxp_matmul, repro_torch.kernels.ops\n"
+            "repro_torch.kernels.fxp_matmul, repro_torch.kernels.ops, "
+            "repro_torch.kernels.int8_matmul, repro_torch.kernels.kl_hist, "
+            "repro_torch.core.threefry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax', 'jaxlib') or m.startswith('jax'))\n"
             "assert not bad, bad\n")
@@ -81,14 +84,18 @@ def test_unported_archs_and_slots_raise():
     moe = load_config("tiny", overrides=["model.num_experts=4"])
     with pytest.raises(NotImplementedError, match="MoE"):
         transformer.init_params(0, moe.model, device="cpu")
-    # the float32 container is ported; what still raises in it is SR from
-    # jax.random noise (stochastic rounding without quant.use_pallas)
+    # the float32 container under the registry's defaults (SR from
+    # jax.random noise, no use_pallas) is ported: it quantizes with the
+    # step key, and asks for it when only the fused kernels' seeds come
     cfg = load_config("tiny")
     params = transformer.init_params(0, cfg.model, device="cpu")
     state = controller.init_adapt_state(params, cfg.quant)
-    with pytest.raises(NotImplementedError, match="jax.random"):
+    with pytest.raises(ValueError, match="step key"):
         controller.quantize_params(params, state, cfg.quant,
                                    controller.leaf_seeds(0, 0, state["tensors"]))
+    q = controller.quantize_params(params, state, cfg.quant,
+                                   key=controller.step_key(0, 0))
+    assert set(q) == set(params)
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
@@ -127,3 +134,33 @@ def test_new_kernel_wrappers_take_the_card_or_raise():
         sr_quantize.sr_quantize_fused_stacked_int8(
             meta, 3, torch.zeros(2, dtype=torch.int32, device="meta"))
     assert pushup.ST_MAX == 2
+
+
+def test_ops_only_kernel_wrappers_take_the_card_or_raise():
+    """The three kernels only ``kernels/ops`` reaches: a CPU tensor takes
+    the plain version (no launch counted); a tensor on any other device
+    than the CPU or CUDA raises rather than fall back; and their sources
+    lie beside the others, built at first use."""
+    n0 = (sr_quantize.sr_quantize.launches, int8_matmul.int8_matmul.launches,
+          kl_hist.kl_hist.launches)
+    x = torch.zeros(2, 8)
+    assert sr_quantize.sr_quantize(x, x, 8, 4).dtype == torch.float32
+    words = torch.ones(2, 8, dtype=torch.int8)
+    assert int8_matmul.int8_matmul(words, words.T.contiguous(),
+                                   torch.tensor(1.0)).shape == (2, 2)
+    assert kl_hist.kl_hist(x, x, 8).shape == (2, 8)
+    assert (sr_quantize.sr_quantize.launches,
+            int8_matmul.int8_matmul.launches,
+            kl_hist.kl_hist.launches) == n0
+    meta = torch.zeros(8, device="meta")
+    for call in (lambda: sr_quantize.sr_quantize(meta, meta, 8, 4),
+                 lambda: kl_hist.kl_hist(meta, meta, 8),
+                 lambda: int8_matmul.int8_matmul(
+                     words.to("meta"), words.T.contiguous().to("meta"),
+                     torch.tensor(1.0))):
+        with pytest.raises(RuntimeError, match="CUDA tensor"):
+            call()
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    for name in ("int8_matmul", "kl_hist", "sr_quantize"):
+        assert (csrc / f"{name}.cu").exists()
+    assert "sr_quantize_launch" in (csrc / "sr_quantize.cu").read_text()

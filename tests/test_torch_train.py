@@ -434,7 +434,7 @@ def test_launcher_trains_tiny_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "step     2 loss=" in out and "[train] done: step=2" in out
     for flag in (["--checkpoint-dir", "x"], ["--resume"], ["--metrics-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
             train_launcher.main(["--arch", "tiny", "--device", "cpu"] + flag)
 
 
@@ -456,7 +456,6 @@ def test_train_raises_at_the_first_switch_step():
 
 
 @pytest.mark.parametrize("override,match", [
-    ("quant.stochastic_rounding=true", "stochastic-rounding"),
     ("train.remat=full", "remat"),
     ("train.accum_steps=2", "accum_steps"),
     ("train.qsgd_pod_compression=true", "qsgd"),
@@ -470,15 +469,18 @@ def test_unported_step_options_raise(override, match):
 
 
 def test_float_containers_raise():
-    """The float containers are ported (tests/test_torch_containers.py);
-    what still raises in them is SR from jax.random noise: stochastic
-    rounding without quant.use_pallas and quant.fused_prng."""
+    """The float containers are ported (tests/test_torch_containers.py),
+    and so is their SR from jax.random noise (stochastic rounding without
+    quant.use_pallas and quant.fused_prng, tests/test_torch_noise_sr.py):
+    a step of each takes its noise from the step key and trains."""
     for ov in ([], ["quant.container_dtype=bfloat16"],
                ["quant.container_dtype=int8", "quant.use_pallas=true",
-                "quant.fused_prng=false"]):
+                "quant.fused_prng=false"],
+               OVERRIDES + ["quant.stochastic_rounding=true"]):
         cfg = load_config("tiny", overrides=ov + ["train.global_batch=2",
                                                   "train.seq_len=8"])
         state = train_loop.init_state(cfg, device="cpu")
         step = train_loop.make_train_step(cfg)
-        with pytest.raises(NotImplementedError, match="jax.random"):
-            step(state, train_loop.make_batch(cfg, 0, device="cpu"))
+        state, metrics = step(state, train_loop.make_batch(cfg, 0,
+                                                           device="cpu"))
+        assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
