@@ -18,14 +18,20 @@ Phases (any failure exits non-zero; nothing is caught):
      (``library_ms``, a yardstick only) and the bound: ``fxp_matmul`` at
      every shape of the serving and training paths plus ragged shapes;
      ``flash_attention`` at the prefill and training shapes plus ragged /
-     window+softcap / no-key-rows cases and lse; ``matmul_dx`` and
+     window+softcap / no-key-rows / non-causal cases and lse, on both
+     branches (bf16 with D % 16 == 0 on the tensor cores, D up to 256;
+     f32 and bf16 at D=72 on the SIMT kernel), the redesigned kernel and
+     SDPA also timed by CUDA-graph replay (``device_ms``,
+     ``library_device_ms``); ``matmul_dx`` and
      ``matmul_dw`` at every training shape (M = 2048) plus ragged shapes in
      bf16 and f32; ``flash_attention_dq``/``_dkv`` at (4, 512, 24/8, 128)
      causal plus the contract's other cases; the SR int8 words and the EDF
      ladder bit for bit; the float SR grid values (flat and stacked, f32
      and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28;
      ``fxp_qmatmul``/``matmul_qdx`` at every training shape and ragged
-     shapes in both modes; the float containers' cuBLAS bf16 GEMMs with
+     shapes in both modes (``matmul_qdx`` on bf16 dy on the tensor cores,
+     on f32 dy on the SIMT kernel; its and the library's times also by
+     CUDA-graph replay); the float containers' cuBLAS bf16 GEMMs with
      and without bf16 split-K reduction; ``sr_quantize`` (the noise given)
      bit for bit on the stacked (28, 3072, 8192) leaf at <8,4> and <16,13>,
      one layer of it, bf16 x, a ragged size and the pathological values;
@@ -36,7 +42,9 @@ Phases (any failure exits non-zero; nothing is caught):
      values;
   4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
      weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
-     prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward;
+     prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward
+     (here and on every later path, every flash forward and ``matmul_qdx``
+     must have taken the tensor-core branch);
   5. serving, card against CPU: the same model at depth 2, same weights,
      plain versions on the CPU against the kernels on the card;
   6. training main path: full llama3.2-3b, RTN words at FL 10, 3 steps of
@@ -240,6 +248,40 @@ def cuda_time_ms(fns, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fns, reps: int) -> float:
+    """Device time of one call: ``reps`` calls (cycling over ``fns``)
+    captured in one CUDA graph and replayed, so the host's cost of a launch
+    (the wrapper's checks, ctypes, the tensor maps) is not in it. Reported
+    as ``device_ms`` beside ``ms`` (``cuda_time_ms``, the yardstick of
+    every row) for the redesigned flash forward and ``matmul_qdx`` and
+    their library calls, whose launches can cost the host more time than
+    the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns[:3]:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (2 * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def bound(nbytes: float, flops: float):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -315,22 +357,34 @@ def check_fxp_matmul(torch, fm, gen):
 
 
 def check_flash(torch, fa, gen):
-    """The prefill shape (with lse) and the contract's other cases.
-    Tolerance: both compute in f32 from the same inputs; outputs in bf16
-    may round to the neighbouring value: |kernel − plain| <= one bf16 ulp
-    + 1e-4; f32 outputs and lse within 1e-4."""
+    """The prefill shape (with lse) and the contract's other cases, on both
+    branches: bf16 with D % 16 == 0 takes the tensor cores (the prefill and
+    training shapes, sq<skv, window+softcap at D=64, rows with no key,
+    non-causal at D=96, D=256), f32 and bf16 at D=72 the SIMT kernel; each
+    case checks the branch it took. Tolerance: both compute in f32 from the
+    same inputs; outputs in bf16 may round to the neighbouring value:
+    |kernel − plain| <= one bf16 ulp + 1e-4; f32 outputs and lse within
+    1e-4. At the prefill and training shapes the kernel, the plain version
+    and SDPA are timed by events around calls launched from the host
+    (``ms``, ``plain_ms``, ``library_ms``), and the kernel and SDPA also by
+    CUDA-graph replay (``device_ms``, ``library_device_ms``)."""
     dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [
         # name, B, Sq, Skv, H, Hkv, D, dtype, causal, window, softcap
-        ("prefill", BATCH, PROMPT, PROMPT, HEADS, KV_HEADS, HEAD_DIM,
-         torch.bfloat16, True, 0, 0.0),
-        ("train", TRAIN_B, TRAIN_S, TRAIN_S, HEADS, KV_HEADS, HEAD_DIM,
-         torch.bfloat16, True, 0, 0.0),
-        ("sq<skv", 2, 77, 200, HEADS, KV_HEADS, HEAD_DIM, torch.bfloat16,
+        ("prefill", BATCH, PROMPT, PROMPT, HEADS, KV_HEADS, HEAD_DIM, bf,
          True, 0, 0.0),
-        ("window+softcap", 2, 150, 150, 8, 2, 64, torch.float32, True, 37, 30.0),
-        ("no-key rows", 2, 100, 60, 6, 3, 128, torch.float32, True, 0, 0.0),
-        ("non-causal", 1, 45, 45, 4, 4, 96, torch.float32, False, 0, 0.0),
+        ("train", TRAIN_B, TRAIN_S, TRAIN_S, HEADS, KV_HEADS, HEAD_DIM, bf,
+         True, 0, 0.0),
+        ("sq<skv", 2, 77, 200, HEADS, KV_HEADS, HEAD_DIM, bf, True, 0, 0.0),
+        ("window+softcap", 2, 150, 150, 8, 2, 64, f32, True, 37, 30.0),
+        ("no-key rows", 2, 100, 60, 6, 3, 128, f32, True, 0, 0.0),
+        ("non-causal", 1, 45, 45, 4, 4, 96, f32, False, 0, 0.0),
+        ("window+softcap bf16", 2, 150, 150, 8, 2, 64, bf, True, 37, 30.0),
+        ("no-key rows bf16", 2, 100, 60, 6, 3, 128, bf, True, 0, 0.0),
+        ("non-causal bf16", 1, 45, 45, 4, 4, 96, bf, False, 0, 0.0),
+        ("D=256 bf16", 2, 200, 200, 8, 4, 256, bf, True, 0, 0.0),
+        ("D=72 bf16 (SIMT)", 1, 33, 40, 4, 2, 72, bf, True, 0, 0.0),
     ]
     rows, max_err = [], 0.0
     for name, B, Sq, Skv, H, Hkv, D, dt, causal, window, softcap in cases:
@@ -338,35 +392,49 @@ def check_flash(torch, fa, gen):
         k = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dt)
         v = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
+        tc0 = fa.flash_attention.tc_launches
         o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        tc = fa.flash_attention.tc_launches - tc0
+        if tc != int(dt == bf and D % 16 == 0):
+            raise AssertionError(f"flash_attention {name}: tensor-core "
+                                 f"launches {tc}")
         po, plse = fa.plain(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
         err = (o.float() - po.float()).abs()
-        tol = (bf16_ulp(po.float()) + 1e-4 if dt == torch.bfloat16
+        tol = (bf16_ulp(po.float()) + 1e-4 if dt == bf
                else torch.full_like(err, 1e-4))
         lerr = (lse - plse).abs().max().item()
         if not bool((err <= tol).all()) or lerr > 1e-4 \
                 or not bool(torch.isfinite(o).all()):
             raise AssertionError(f"flash_attention {name}: max err "
                                  f"{err.max().item()}, lse err {lerr}")
-        if name == "no-key rows":
+        if name.startswith("no-key rows"):
             dead = torch.arange(Sq, device=dev) + (Skv - Sq) < 0
             if not (bool((o[:, dead] == 0).all())
                     and bool((lse[:, :, dead] == -1e30).all())):
-                raise AssertionError("flash_attention: rows with no key")
+                raise AssertionError(f"flash_attention {name}: rows with "
+                                     "no key")
         max_err = max(max_err, err.max().item())
         row = {"case": name, "shape": [B, Sq, Skv, H, Hkv, D],
+               "branch": "tensor cores" if tc else "simt",
                "max_abs_err": err.max().item(), "lse_err": lerr}
         if name in ("prefill", "train"):
-            row["ms"] = cuda_time_ms([lambda: fa.flash_attention(q, k, v, **kw)], 50)
+            kern = [lambda: fa.flash_attention(q, k, v, **kw)]
+            tc0 = fa.flash_attention.tc_launches
+            row["ms"] = cuda_time_ms(kern, 50)
+            row["device_ms"] = graph_time_ms(kern, 50)
             row["plain_ms"] = cuda_time_ms([lambda: fa.plain(q, k, v, **kw)], 10)
+            if fa.flash_attention.tc_launches == tc0:
+                raise AssertionError(f"flash_attention {name}: timed off the "
+                                     "tensor cores")
             # SDPA on (B, H, S, D) with the kv heads repeated beforehand
             rep = H // Hkv
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
                           (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            row["library_ms"] = cuda_time_ms(
-                [lambda: sdpa(qt, kt, vt, is_causal=True)], 50)
+            lib = [lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)]
+            row["library_ms"] = cuda_time_ms(lib, 50)
+            row["library_device_ms"] = graph_time_ms(lib, 50)
             pairs = Sq * (Sq + 1) // 2            # causal, Sq == Skv
             row["bound_ms"], row["bound_by"] = bound(
                 2 * (2 * q.numel() + k.numel() + v.numel()),
@@ -770,9 +838,12 @@ def check_qmatmul(torch, fm, gen):
     version sum the same exact f32 products (the same words: any word
     that differed would move a sum by a whole step) in other orders, so
     f32 outputs are held within 1e-5·max|plain| and bf16 outputs within
-    one bf16 ulp + 2^-16·max|plain|. Times (SR, the main path's mode): the
-    kernel, the plain version, one ``torch.matmul`` of bf16 x (dy) against
-    the bf16-dequantized words (their transpose) and the bound; and
+    one bf16 ulp + 2^-16·max|plain|. ``matmul_qdx`` on bf16 dy must take
+    the tensor-core branch and on f32 dy the SIMT one. Times (SR, the main
+    path's mode): the kernel, the plain version, one ``torch.matmul`` of
+    bf16 x (dy) against the bf16-dequantized words (their transpose) and
+    the bound; for ``matmul_qdx`` the kernel and the library call also by
+    CUDA-graph replay (``device_ms``, ``library_device_ms``); and
     ``matmul_dw`` with f32 out, which the prologue's dw takes."""
     from repro_torch.kernels import ops
     dev = "cuda"
@@ -802,7 +873,10 @@ def check_qmatmul(torch, fm, gen):
                                           fm.plain_q, x),
                                          ("matmul_qdx", fm.matmul_qdx,
                                           fm.plain_qdx, dy)):
+                tc0 = fm.matmul_qdx.tc_launches
                 got = kern(a, w, seed, fl, mode)
+                if fm.matmul_qdx.tc_launches - tc0 != int(name == "matmul_qdx"):
+                    raise AssertionError(f"{name} bf16: tensor-core launches")
                 want = plain(a, w, seed, fl, mode)
                 torch.cuda.synchronize()
                 ok, e = close_bf16(got, want, 2.0 ** -16)
@@ -815,9 +889,13 @@ def check_qmatmul(torch, fm, gen):
                                 f"{name} f32 out mode {mode} ({m},{k},{n})")
                 if not timed:
                     af, wf = a.float(), w
+                    tc0 = fm.matmul_qdx.tc_launches
                     f32_close(kern(af, wf, seed, fl, mode),
                               plain(af, wf, seed, fl, mode),
                               f"{name} f32 mode {mode} ({m},{k},{n})")
+                    if fm.matmul_qdx.tc_launches != tc0:
+                        raise AssertionError(f"{name} f32: took the tensor "
+                                             "cores")
                 max_err[name] = max(max_err[name], e, e32)
         if not timed:
             log(f"[kernels] fxp_qmatmul/matmul_qdx {m}x{k}x{n} (ragged, both "
@@ -839,6 +917,10 @@ def check_qmatmul(torch, fm, gen):
                    "plain_ms": cuda_time_ms([lambda: plain(a, w, seed, fl, 1)],
                                             max(2, reps // 3)),
                    "library_ms": cuda_time_ms([lib], reps)}
+            if name == "matmul_qdx":
+                row["device_ms"] = graph_time_ms(
+                    [lambda: kern(a, w, seed, fl, 1)], reps)
+                row["library_device_ms"] = graph_time_ms([lib], reps)
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
             rows[name].append(row)
             log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
@@ -1190,13 +1272,14 @@ def main_path(torch, fm, fa):
     instrument(eng, torch, fm, fa, record)
     torch.cuda.reset_peak_memory_stats()
     fm.fxp_matmul.launches = 0
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     t0 = time.perf_counter()
     out, logits = eng.generate(prompts, NEW)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {"fxp_matmul": fm.fxp_matmul.launches,
                 "flash_attention": fa.flash_attention.launches}
+    check_tensor_cores("main", launches)
     per_fwd = 7 * N_LAYERS + 1
     if record[0]["kind"] != "prefill" or len(record) != NEW:
         raise AssertionError(f"unexpected step record {record}")
@@ -1414,6 +1497,19 @@ def wrappers():
            "kl_hist": kh.kl_hist}
     assert tuple(out) == KERNELS
     return out
+
+
+def check_tensor_cores(tag, launches):
+    """Every flash forward and every ``matmul_qdx`` of a main path's run
+    (bf16 activations) took the tensor-core branch: the wrappers'
+    ``tc_launches``, set to 0 with ``launches`` just before the run, equal
+    their launches."""
+    ws = wrappers()
+    for name in ("flash_attention", "matmul_qdx"):
+        if name in launches and ws[name].tc_launches != launches[name]:
+            raise AssertionError(f"{tag}: {ws[name].tc_launches} of "
+                                 f"{launches[name]} {name} launches took "
+                                 "the tensor cores")
 
 
 def train_path(torch, fm, fa):
@@ -1785,10 +1881,13 @@ def run_steps(torch, tag, cfg, state, steps, per_step, per_switch=None):
     torch.cuda.reset_peak_memory_stats()
     for w in ws.values():
         w.launches = 0
+        if hasattr(w, "tc_launches"):
+            w.tc_launches = 0
     start = int(state["step"])
     state, history = train_loop.train(cfg, steps=steps, state=state,
                                       log=log_step, device="cuda")
     launches = {k: w.launches for k, w in ws.items()}
+    check_tensor_cores(tag, launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if len(history) != steps or len(marks) != steps:
         raise AssertionError(f"{tag} history {history}")
@@ -1914,6 +2013,8 @@ def float_train_path(torch, fm, fa):
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
+        if hasattr(w, "tc_launches"):
+            w.tc_launches = 0
     t0 = time.perf_counter()
     out, logits = eng.generate(prompts, NEW)
     torch.cuda.synchronize()
@@ -1921,6 +2022,7 @@ def float_train_path(torch, fm, fa):
     serve_launches = {k: w.launches for k, w in ws.items()}
     if serve_launches != {**ZERO, "flash_attention": N_LAYERS}:
         raise AssertionError(f"float32 serving launches {serve_launches}")
+    check_tensor_cores("float32 serving", serve_launches)
     if out.shape != (BATCH, NEW) or int(out.min()) < 0 or int(out.max()) >= VOCAB:
         raise AssertionError(f"float32 serving tokens out of range: {out}")
     if not bool(torch.isfinite(logits).all()) or float(logits.std()) == 0.0:
@@ -2368,7 +2470,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("registers", "spill", "Warning",
+                                           "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
 
     marks = {"build": time.perf_counter() - t_start}
@@ -2483,12 +2586,13 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
     stacked leaf, ``kl_hist`` once on the (28, 3072, 8192) leaf (256 bins)
     and ``int8_matmul`` twice at 2048 x 3072 x 8192."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    device_keys = ("device_ms", "library_device_ms")
 
-    def summed(rows_by_shape, calls):
+    def summed(rows_by_shape, calls, extra=()):
         out = {key: None if any(rows_by_shape[s].get(key) is None
                                 for s in calls)
                else sum(rows_by_shape[s][key] * c for s, c in calls.items())
-               for key in keys}
+               for key in keys + extra}
         bytes_part = sum(rows_by_shape[s]["bound_ms"] * c
                          for s, c in calls.items()
                          if rows_by_shape[s]["bound_by"] == "bytes")
@@ -2570,7 +2674,7 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         entry("fxp_matmul", "fxp_matmul.cu", "fxp_matmul.py:84", fxp_err,
               summed(by_shape(fxp_rows), fwd_calls)),
         entry("flash_attention", "flash_attention.cu", "flash_attention.py:82",
-              flash_err, summed(flash_by_case, flash_calls)),
+              flash_err, summed(flash_by_case, flash_calls, device_keys)),
         entry("matmul_dx", "fxp_matmul_bwd.cu", "fxp_matmul.py:203",
               bwd_err["matmul_dx"], summed(by_shape(bwd_rows["matmul_dx"]),
                                            train_calls)),
@@ -2602,7 +2706,8 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
               summed(by_shape(q_rows["fxp_qmatmul"]), prologue_calls)),
         entry("matmul_qdx", "fxp_qmatmul.cu", "fxp_matmul.py:408",
               q_err["matmul_qdx"],
-              summed(by_shape(q_rows["matmul_qdx"]), prologue_calls)),
+              summed(by_shape(q_rows["matmul_qdx"]), prologue_calls,
+                     device_keys)),
         entry("sr_quantize", "sr_quantize.cu", "sr_quantize.py:66", 0.0,
               summed(given_by, given_calls)),
         entry("int8_matmul", "int8_matmul.cu", "fxp_matmul.py:145", 0.0,

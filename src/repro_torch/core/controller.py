@@ -160,17 +160,26 @@ def path_hash(path: str) -> int:
 
 
 def leaf_seeds(seed: int, step: int, paths: Iterable[str]) -> Dict[str, int]:
-    """The port's int32 SR seed of each leaf at a step, for the fused
-    kernels: the run seed folded with the step, then with the path hash
-    (``fold_shard_seed`` both times). Host ints in, host ints out, computed
-    on the CPU: no device synchronisation. The reference derives these
-    seeds by ``jax.random.randint`` of the leaf key (``_leaf_seed``), which
-    the port does not mirror, so the two streams agree in distribution;
-    given the reference's seeds, the words agree bit for bit."""
+    """The int32 SR seed of each leaf at a step, for the fused kernels: the
+    reference's ``_leaf_seed`` (``controller.py:238-242``),
+    ``randint(fold_in(step_key(seed, step), path_hash(p)), (), 0,
+    2**31 - 1)``, bit for bit. Host ints in, host ints out: the Threefry
+    hashes of every path run at once on CPU tensors, so the device never
+    synchronises."""
     paths = list(paths)
-    base = fold_shard_seed(int(seed), int(step))
+    sk = step_key(seed, step)
     hashes = torch.tensor([path_hash(p) for p in paths], dtype=torch.int64)
-    return dict(zip(paths, fold_shard_seed(base, hashes).tolist()))
+    zero = torch.zeros_like(hashes)
+    lk = threefry.threefry2x32(sk[0], sk[1], zero, hashes)     # leaf keys
+    # randint: split the leaf key (counters (0, 0) and (0, 1)), one 32-bit
+    # draw (counter (0, 0)) under each half
+    bits = []
+    for half in (0, 1):
+        k1, k2 = threefry.threefry2x32(lk[0], lk[1], zero, zero + half)
+        o1, o2 = threefry.threefry2x32(k1, k2, zero, zero)
+        bits.append(o1 ^ o2)
+    seeds = threefry.randint_words(bits[0], bits[1], 0, 2 ** 31 - 1)
+    return dict(zip(paths, seeds.tolist()))
 
 
 def step_key(seed: int, step: int) -> threefry.Key:

@@ -28,22 +28,58 @@
 // the thousands) the 2*M*K*N operations at the bf16 tensor-core rate; the
 // bytes (x or dy, the f32 master, the output) are a few percent of that.
 //
-// Design (first, simple version; the tensor-core path is later work): the
-// SIMT tiling of fxp_matmul_bwd.cu, 128x128 output tiles, the contraction in
-// steps of 16, 256 threads each holding an 8x8 f32 accumulator. Each block
-// quantizes the 16 x 128 master tile it needs (2048 hashes per step against
-// 262144 multiply-adds), so the master is re-read, and its words redrawn,
-// once per 128-row block of the output.
+// fxp_qmatmul, and matmul_qdx on f32 dy, take the SIMT tiling of
+// fxp_matmul_bwd.cu: 128x128 output tiles, the contraction in steps of 16,
+// 256 threads each holding an 8x8 f32 accumulator. Each block quantizes
+// the 16 x 128 master tile it needs (2048 hashes per step against 262144
+// multiply-adds), so the master is re-read, and its words redrawn, once
+// per 128-row block of the output.
 //  * qmatmul: the x tile is read along k and transposed into shared memory;
 //    the master tile is read along n, 8 elements a thread.
-//  * qdx: each block owns a 128x128 tile of dx and loops over N; the dy
-//    tile and the (128 k x 16 n) master tile are both read along n and
-//    transposed into shared memory, so the transposed read of w needs no
-//    transposed copy.
+//  * qdx (f32 dy): each block owns a 128x128 tile of dx and loops over N;
+//    the dy tile and the (128 k x 16 n) master tile are both read along n
+//    and transposed into shared memory, so the transposed read of w needs
+//    no transposed copy.
+//
+// matmul_qdx on bf16 dy (the main path) runs on the tensor cores
+// (matmul_qdx_tc): dx[m][k] = sum_n dy[m][n] Q(w)[k][n], both operands
+// K-major for wgmma (dy rows and master rows are contiguous along n), the
+// plain "TN" product. A cluster of two CTAs owns 512 rows of dx and 64 of
+// its columns. Each CTA has two consumer warpgroups of 128 rows (two
+// m64n64k16 products per 16-wide step) and two producer warpgroups, with
+// the registers split 168 / 88 by setmaxnreg. Per step of 64 along n, the
+// first producer thread loads the CTA's 256 x 64 dy tile by TMA (128-byte
+// swizzle) and, two steps ahead, its half (32 rows) of the f32 master
+// tile by TMA into a staging ring. Each producer thread draws 8 words of
+// that half exactly as Quant does (the same index k * N + n, so the words
+// are bit-identical to the SIMT branch's) and stores them as bf16 in the
+// swizzled layout wgmma reads; one thread then copies the 4 KB half into
+// the peer's tile with a bulk copy that completes on the peer's full
+// barrier. So each word is drawn once per 512 rows of M, and no word
+// leaves the SM pair. A 5-stage ring of dy and word tiles lets the
+// drawing of later steps overlap the products of earlier ones. Int8 words
+// and bf16 dy values are exact in bf16, so every product is exact. wgmma's
+// f32 accumulation rounds toward zero, so every 8 steps (512 along n) the
+// accumulators restart and their sum is added into a register total with
+// round-to-nearest (at N = 128256 the drift would otherwise pass the
+// tolerance). The 2^-fl scale is applied once in the epilogue. The pairs
+// that share a word tile are adjacent in the grid, so the master is read
+// from device memory about once and from L2 by the rest. dy rows must be
+// 16-byte aligned for TMA (the wrapper pads a row length that is not a
+// multiple of 8); a master whose rows are not (N % 4 != 0) is read by the
+// producer threads directly.
+//
+// Measured on an H100 (PERF.md): every product of this design is 3.4-3.9x
+// its cuBLAS time. A step (64 along n) takes about 1.1 us whatever is
+// removed from it: the products, the dy traffic, the word exchange or the
+// SR hashing (each tried alone), so a latency in the step's handshakes,
+// not a throughput, holds it back.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -298,6 +334,274 @@ cudaError_t dispatch(bool qdx, const void* a, int a_dtype, const void* w,
   return launch<float, float>(qdx, a, wp, flp, seed, mode, out, M, N, K, st);
 }
 
+
+// ---------------------------------------------------------------------------
+// dx = (dy @ Q(w)^T) * 2^-fl on the tensor cores (bf16 dy)
+
+namespace tcq {
+
+constexpr int BM = 256;                  // rows of dx per CTA; a pair: 512
+constexpr int BN = 64;                   // columns of dx (master rows) per CTA
+constexpr int BK = 64;                   // contraction step along n
+constexpr int STAGES = 5;                // dy / word ring
+constexpr int AHEAD = 3;                 // master staging ring
+constexpr int PROMOTE = 8;               // steps summed by wgmma before promotion
+constexpr int CONSUMERS = 2;             // warpgroups of 128 rows
+constexpr int PRODUCERS = 2;             // warpgroups drawing words
+constexpr int THREADS = (CONSUMERS + PRODUCERS) * 128;
+constexpr int A_ELEMS = BM * BK;         // dy tile
+constexpr int B_ELEMS = BN * BK;         // word tile (both halves)
+constexpr int HALF = BN / 2;             // word rows this CTA draws
+constexpr int W_ELEMS = HALF * BK;       // master tile this CTA stages per step
+constexpr int PRODUCER_REGS = 88;        // setmaxnreg: 256 x 88 + 256 x 168
+constexpr int CONSUMER_REGS = 168;       //   = the 512 x 128 the launch holds
+static_assert(W_ELEMS == PRODUCERS * 128 * 8, "one 8-word piece per producer thread");
+constexpr size_t SMEM = 1024 + 2 * (size_t)STAGES * (A_ELEMS + B_ELEMS) +
+                        4 * (size_t)AHEAD * W_ELEMS + 16 * STAGES + 16 * AHEAD;
+
+// Two consecutive outputs at an even element offset in one store.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename TO>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+matmul_qdx_tc(const __grid_constant__ CUtensorMap dymap,
+              const __grid_constant__ CUtensorMap wmap, const float* __restrict__ w,
+              const int* __restrict__ fl, uint32_t seed_mix, int mode,
+              TO* __restrict__ dx, int M, int N, int K, int w_tma) {
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* Bs = As + STAGES * A_ELEMS;
+  float* Ws = reinterpret_cast<float*>(Bs + STAGES * B_ELEMS);  // master staging
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ws + AHEAD * W_ELEMS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wfull = empty + STAGES;         // master staging ring
+  uint64_t* wempty = wfull + AHEAD;
+
+  // The two CTAs of a cluster own rows m0 .. m0 + 511 between them and
+  // share the word tile of columns k0 .. k0 + 63, each drawing half of it;
+  // the pairs of one column block are adjacent in the grid.
+  const uint32_t rank = sm90::cluster_rank(), peer = rank ^ 1;
+  const int m0 = blockIdx.x * BM, k0 = blockIdx.y * BN;
+  const int n_steps = (N + BK - 1) / BK;
+  // the warpgroup index through a shuffle, so the compiler sees that it is
+  // warp-uniform (else it serialises the wgmma of a divergent-looking path)
+  const int tid = threadIdx.x, t = tid % 128;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // this CTA's producers and the TMA bytes (dy, and the peer's half of
+      // the words, which its bulk copy completes here)
+      sm90::mbar_init(&full[s], 1 + PRODUCERS * 128);
+      // one arrival per consumer warp of both CTAs
+      sm90::mbar_init(&empty[s], 2 * CONSUMERS * 4);
+    }
+    for (int s = 0; s < AHEAD; ++s) {
+      sm90::mbar_init(&wfull[s], 1);                 // the master tile's TMA
+      sm90::mbar_init(&wempty[s], PRODUCERS * 128);  // the drawers
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::cluster_sync();     // both CTAs' barriers exist before any peer arrives
+
+  // The two roles never reconverge (each ends in its own cluster sync), so
+  // the compiler applies the register split.
+  if (wg >= CONSUMERS) {
+    sm90::regs_dec<PRODUCER_REGS>();
+    // The producer warpgroups. Thread pt owns one 8-word piece of this
+    // CTA's half of the word tile: row r, columns 8c .. 8c + 7 of each
+    // step. The first producer thread loads this CTA's half of the master
+    // by TMA into a staging ring, AHEAD - 1 steps ahead (TMA's copies do
+    // not hold up the barrier arrivals' release, which copies of the
+    // thread's own would), and this CTA's dy tile. Each thread reads its
+    // master piece, draws the words as Quant does and stores them into
+    // this CTA's word tile; once all of the half is stored, one thread
+    // copies it into the peer's tile (a bulk copy that completes on the
+    // peer's full barrier), so no thread waits on a remote store. A master
+    // whose rows TMA cannot address (N % 4 != 0) is read directly.
+    const int pt = tid - CONSUMERS * 128;
+    const int r = HALF * rank + (pt >> 3), c = pt & 7, k = k0 + r;
+    const int kr = k0 + HALF * rank;          // the master rows of this CTA
+    auto stage_master = [&](int j) {          // into slot j % AHEAD
+      sm90::mbar_arrive_expect_tx(&wfull[j % AHEAD], 4 * W_ELEMS);
+      sm90::tma_load_2d(Ws + (j % AHEAD) * W_ELEMS, &wmap, &wfull[j % AHEAD], j * BK, kr);
+    };
+    if (w_tma && pt == 0)
+      for (int j = 0; j < AHEAD - 1 && j < n_steps; ++j) stage_master(j);
+    const Quant quant{pow2i(*fl), seed_mix, mode};
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % STAGES, n0 = j * BK, slot = j % AHEAD;
+      float v[8];
+      if (w_tma) {
+        const int ahead = j + AHEAD - 1;      // its slot was read at step j - 1
+        if (pt == 0 && ahead < n_steps) {
+          sm90::mbar_wait(&wempty[ahead % AHEAD], ((ahead / AHEAD) & 1) ^ 1);
+          stage_master(ahead);
+        }
+        sm90::mbar_wait(&wfull[slot], (j / AHEAD) & 1);
+        const float4* src = reinterpret_cast<const float4*>(Ws + slot * W_ELEMS + pt * 8);
+        const float4 lo = src[0], hi = src[1];
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        sm90::mbar_arrive(&wempty[slot]);
+      } else {
+        load8(w + (size_t)k * N + n0 + 8 * c, k < K ? N - n0 - 8 * c : 0, false, v);
+      }
+      const int n = n0 + 8 * c;
+      const int live = k < K ? N - n : 0;
+      const uint32_t idx = (uint32_t)k * (uint32_t)N + (uint32_t)n;
+      uint32_t packed[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const float a = e < live ? quant(v[e], idx + (uint32_t)e) : 0.f;
+        const float b = e + 1 < live ? quant(v[e + 1], idx + (uint32_t)e + 1) : 0.f;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+        packed[e / 2] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      const uint4 v4 = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      // stage s is free in both CTAs
+      sm90::mbar_wait_cluster(&empty[s], ((j / STAGES) & 1) ^ 1);
+      if (pt == 0) {
+        // this CTA's dy tile and the peer's word half complete here
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * (A_ELEMS + W_ELEMS));
+        sm90::tma_load_2d(As + s * A_ELEMS, &dymap, &full[s], n0, m0);
+      }
+      __nv_bfloat16* Bt = Bs + s * B_ELEMS;
+      *reinterpret_cast<uint4*>(Bt + r * BK + ((c ^ (r & 7)) * 8)) = v4;
+      sm90::fence_proxy_async();
+      sm90::named_sync(1, PRODUCERS * 128);   // this CTA's half is stored
+      if (pt == 0) {
+        const __nv_bfloat16* half = Bt + HALF * rank * BK;
+        sm90::bulk_copy_to_peer(sm90::peer_addr(half, peer), half, 2 * W_ELEMS,
+                                sm90::peer_addr(&full[s], peer));
+      }
+      sm90::mbar_arrive(&full[s]);
+    }
+    // no CTA leaves while its peer may still copy into it or arrive on it
+    sm90::cluster_sync();
+  } else {
+    sm90::regs_inc<CONSUMER_REGS>();
+    // A consumer warpgroup: rows m0 + 128 wg + 64 mt of dx, two m64n64
+    // accumulators in the wgmma fragment layout. wgmma's f32 accumulation
+    // rounds toward zero, which over a long contraction (the LM head's
+    // N = 128256) drifts past the tolerance, so the accumulators restart
+    // every PROMOTE steps and are added into `tot` with round-to-nearest.
+    // Within a block of steps the products of one step overlap the wait
+    // for the next; a stage is released once the products that read it
+    // are done.
+    float acc[2][BN / 2], tot[2][BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[0][i] = acc[1][i] = tot[0][i] = tot[1][i] = 0.f;
+    const int lane = t % 32;
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) {                      // stage s is read in this warp
+        sm90::mbar_arrive(&empty[s]);
+        sm90::mbar_arrive_cluster(sm90::peer_addr(&empty[s], peer));
+      }
+    };
+    int pending = -1;                       // a stage whose products may run
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % STAGES;
+      const bool first = j % PROMOTE == 0;
+      const bool last = j % PROMOTE == PROMOTE - 1 || j == n_steps - 1;
+      sm90::mbar_wait_cluster(&full[s], (j / STAGES) & 1);
+      const __nv_bfloat16* At = As + s * A_ELEMS + wg * 128 * BK;
+      const __nv_bfloat16* Bt = Bs + s * B_ELEMS;
+      sm90::fence_regs(acc[0]);
+      sm90::fence_regs(acc[1]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = sm90::desc128(Bt + kk * 16, 16, 1024);
+        const int keep = !(first && kk == 0);
+        sm90::wgmma_ss_n64(acc[0], sm90::desc128(At + kk * 16, 16, 1024), db, keep);
+        sm90::wgmma_ss_n64(acc[1], sm90::desc128(At + 64 * BK + kk * 16, 16, 1024), db,
+                           keep);
+      }
+      sm90::wgmma_commit();
+      if (last)
+        sm90::wgmma_wait<0>();
+      else
+        sm90::wgmma_wait<1>();              // the previous step's products are done
+      sm90::fence_regs(acc[0]);
+      sm90::fence_regs(acc[1]);
+      if (pending >= 0) release(pending);
+      pending = s;
+      if (last) {
+        release(s);
+        pending = -1;
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          tot[0][i] += acc[0][i];
+          tot[1][i] += acc[1][i];
+        }
+      }
+    }
+
+    const float scale = pow2i(-*fl);
+    const int warp = t / 32, g = lane / 4, tig = lane % 4;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = m0 + wg * 128 + mt * 64 + warp * 16 + g + 8 * rr;
+        if (row >= M) continue;
+        TO* out = dx + (size_t)row * K;
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb) {
+          const int col = k0 + 8 * jb + 2 * tig;
+          const float v0 = __fmul_rn(tot[mt][4 * jb + 2 * rr], scale);
+          const float v1 = __fmul_rn(tot[mt][4 * jb + 2 * rr + 1], scale);
+          if (K % 2 == 0 && col + 1 < K) {       // the pair in one store
+            store2(out + col, v0, v1);
+          } else {
+            if (col < K) out[col] = from_f32<TO>(v0);
+            if (col + 1 < K) out[col + 1] = from_f32<TO>(v1);
+          }
+        }
+      }
+    }
+    sm90::cluster_sync();
+  }
+}
+
+template <typename TO>
+cudaError_t launch(const void* dy, int ldy, const float* w, const int* fl, int seed,
+                   int mode, void* dx, int M, int N, int K, cudaStream_t st) {
+  if (N <= 0)
+    return cudaMemsetAsync(dx, 0, (size_t)M * K * sizeof(TO), st);
+  // dy (M, N) with rows of ldy elements; boxes of 64 n x 256 rows.
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)ldy * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {BK, BM};
+  CUtensorMap map, wmap = {};
+  if (!sm90::bf16_map(&map, dy, 2, dims, strides, box)) return cudaErrorInvalidValue;
+  // the f32 master (K, N): boxes of 64 n x 32 rows, when its rows are
+  // 16-byte aligned
+  const int w_tma = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (w_tma) {
+    const cuuint64_t wdims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)N * sizeof(float)};
+    const cuuint32_t wbox[2] = {BK, HALF};
+    if (!sm90::f32_map(&wmap, w, 2, wdims, wstrides, wbox)) return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = sm90::allow_smem<matmul_qdx_tc<TO>>(SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(2 * ((M + 2 * BM - 1) / (2 * BM)), (K + BN - 1) / BN);
+  matmul_qdx_tc<TO><<<grid, THREADS, SMEM, st>>>(
+      map, wmap, w, fl, (uint32_t)seed * 0x9E3779B9u, mode, static_cast<TO*>(dx), M, N, K,
+      w_tma);
+  return cudaGetLastError();
+}
+
+}  // namespace tcq
+
 }  // namespace
 
 extern "C" {
@@ -322,6 +626,25 @@ int matmul_qdx_launch(const void* dy, int dy_dtype, const void* w, const void* f
   if (M <= 0 || K <= 0) return (int)cudaGetLastError();
   return (int)dispatch(true, dy, dy_dtype, w, fl, seed, mode, dx, dx_dtype, M, N, K,
                        stream);
+}
+
+// The tensor-core branch of matmul_qdx: dy (M, N) bf16 with rows of `ldy`
+// elements (ldy >= N, a multiple of 8, dy 16-byte aligned), dx (M, K) f32
+// or bf16. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// layout it does not take or a tensor map that cuTensorMapEncodeTiled refuses.
+int matmul_qdx_tc_launch(const void* dy, int ldy, const void* w, const void* fl, int seed,
+                         int mode, void* dx, int dx_dtype, int M, int N, int K,
+                         void* stream) {
+  if (M <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (ldy < N || ldy % 8 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const float* wp = static_cast<const float*>(w);
+  const int* flp = static_cast<const int*>(fl);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(dx_dtype == 1
+                   ? tcq::launch<__nv_bfloat16>(dy, ldy, wp, flp, seed, mode, dx, M, N,
+                                                K, st)
+                   : tcq::launch<float>(dy, ldy, wp, flp, seed, mode, dx, M, N, K, st));
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
-root of the checkout, keyed by a hash of the source and the flags, at first
-use. A source exposes a plain C entry point that returns
+root of the checkout, keyed by a hash of the source, every shared header
+``csrc/*.cuh`` and the flags, at first use. A source exposes a plain C entry point that returns
 ``cudaGetLastError()``; nothing here includes PyTorch's headers, so a build
 takes seconds.
 """
@@ -37,8 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -14,6 +14,13 @@ On an H100 all three are bound by their operations at the model's shapes;
 the (Sq × Skv) logits never leave the SM and tiles that the causal/window
 mask cannot reach are skipped (see the notes at the top of the CUDA
 sources for their designs).
+
+The forward has two branches, chosen here by dtype and shape alone (never
+by falling back after a failure): bf16 q/k/v with a head dim that is a
+multiple of 16 (and Skv ≥ 1, 16-byte aligned bases) run on the tensor
+cores (wgmma, K/V by TMA), counted in ``flash_attention.tc_launches``;
+f32 inputs and other head dims run the SIMT kernel. Both count in
+``flash_attention.launches``.
 """
 from __future__ import annotations
 
@@ -45,6 +52,26 @@ def _lib():
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, f, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _tc_lib():
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_tc_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i, f, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> bool:
+    """True when the forward runs its tensor-core branch: bf16, a head dim
+    that is a multiple of 16, at least one key, 16-byte aligned bases (TMA
+    reads them)."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0
+            and k.shape[1] > 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 def _check(name: str, q, k, v, **more) -> None:
@@ -86,16 +113,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype],
-                 B, Sq, Skv, H, Hkv, D, float(sc), int(bool(causal)),
-                 int(window), float(softcap), stream)
+    lse_ptr = None if lse is None else lse.data_ptr()
+    tc = takes_tensor_cores(q, k, v)
+    if tc:
+        err = _tc_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        lse_ptr, B, Sq, Skv, H, Hkv, D, float(sc),
+                        int(bool(causal)), int(window), float(softcap), stream)
+    else:
+        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse_ptr, _DTYPE_CODE[q.dtype], B, Sq, Skv, H, Hkv, D,
+                     float(sc), int(bool(causal)), int(window),
+                     float(softcap), stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.tc_launches += int(tc)
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 
 
 def _bwd_lib():

@@ -16,7 +16,10 @@ draws the words from the f32 master in registers: the CUDA kernels of
   (stochastically rounded with the portable stream of index k·N + n, or
   rounded to nearest).
 * ``matmul_qdx`` replaces ``_matmul_qdx_kernel``: dx = (dy @ Q(w)ᵀ)·2^-FL
-  on the same words.
+  on the same words. On bf16 dy (the main path) it runs on the tensor
+  cores (wgmma, dy by TMA, the words drawn into shared memory by a
+  producer warpgroup), counted in ``matmul_qdx.tc_launches``; on f32 dy it
+  runs the SIMT kernel. The choice is by dtype alone.
 
 No kernel writes a dequantized weight or a word tensor to device memory
 (see the notes at the top of the CUDA sources for their designs).
@@ -24,6 +27,7 @@ No kernel writes a dequantized weight or a word tensor to device memory
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,11 +56,17 @@ def _lib():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(index: int):
+    return torch.cuda.get_device_capability(index)
+
+
 def check_card(t: torch.Tensor) -> None:
     """Raise unless ``t`` lies on a CUDA device of compute capability 9.0."""
     if t.device.type != "cuda":
         raise RuntimeError(f"expected a CUDA tensor, got {t.device}")
-    cap = torch.cuda.get_device_capability(t.device)
+    cap = _capability(t.device.index if t.device.index is not None
+                      else torch.cuda.current_device())
     if cap != (9, 0):
         raise RuntimeError(f"the repro_torch kernels are built for sm_90a "
                            f"(H100); this device has capability {cap}")
@@ -199,6 +209,16 @@ def _q_lib():
     return fns
 
 
+def _qdx_tc_lib():
+    lib = _build.load("fxp_qmatmul")
+    fn = lib.matmul_qdx_tc_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, i, i, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _seed32(seed) -> int:
     """The seed as the int32 the kernels reinterpret as uint32."""
     s = int(seed) & 0xFFFFFFFF
@@ -207,6 +227,10 @@ def _seed32(seed) -> int:
 
 def _prologue(name: str, a: torch.Tensor, w: torch.Tensor, seed, fl, mode,
               out_dtype, out_shape, entry: int) -> torch.Tensor:
+    """Check the operands and launch entry 0 (``fxp_qmatmul``), 1
+    (``matmul_qdx``, SIMT) or 2 (``matmul_qdx`` on the tensor cores: bf16
+    dy, whose rows are padded with zeros to a multiple of 8 elements when
+    they are not one already, as TMA needs 16-byte row strides)."""
     check_card(a)
     if a.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtypes {a.dtype} -> {out_dtype}, want "
@@ -222,10 +246,20 @@ def _prologue(name: str, a: torch.Tensor, w: torch.Tensor, seed, fl, mode,
     M, N, K = out_shape[0], w.shape[1], w.shape[0]
     out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _q_lib()[entry](a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(),
-                          fl.data_ptr(), _seed32(seed), int(mode),
-                          out.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
-                          stream)
+    if entry == 2:
+        if N % 8 or a.data_ptr() % 16:
+            padded = a.new_zeros((M, N + -N % 8))
+            padded[:, :N] = a
+            a = padded
+        err = _qdx_tc_lib()(a.data_ptr(), a.shape[1], w.data_ptr(),
+                            fl.data_ptr(), _seed32(seed), int(mode),
+                            out.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
+                            stream)
+    else:
+        err = _q_lib()[entry](a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(),
+                              fl.data_ptr(), _seed32(seed), int(mode),
+                              out.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
+                              stream)
     _build.check(err, name)
     return out
 
@@ -256,14 +290,18 @@ def matmul_qdx(dy: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
     """Launch the CUDA kernel: dx = (dy @ Q⟨8,fl⟩(w)ᵀ)·2^-fl on the words
     the forward drew. dy: (M, N) bf16/f32 contiguous; w: the (K, N) f32
     master, read in place along n; fl, seed, mode as ``fxp_qmatmul``.
-    ``out_dtype`` defaults to dy's."""
+    ``out_dtype`` defaults to dy's. bf16 dy takes the tensor-core kernel,
+    f32 dy the SIMT one."""
     if dy.ndim != 2 or w.ndim != 2 or dy.shape[1] != w.shape[1]:
         raise ValueError(f"matmul_qdx: shapes {tuple(dy.shape)}, "
                          f"{tuple(w.shape)}")
+    tc = dy.dtype == torch.bfloat16
     dx = _prologue("matmul_qdx", dy, w, seed, fl, mode, out_dtype or dy.dtype,
-                   (dy.shape[0], w.shape[0]), 1)
+                   (dy.shape[0], w.shape[0]), 2 if tc else 1)
     matmul_qdx.launches += 1
+    matmul_qdx.tc_launches += int(tc)
     return dx
 
 
 matmul_qdx.launches = 0
+matmul_qdx.tc_launches = 0

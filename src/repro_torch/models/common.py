@@ -4,6 +4,7 @@ annotations are no-ops on one device and are left out."""
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -27,7 +28,12 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
 
 def act_fn(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "gelu":
-        return torch.nn.functional.gelu(x, approximate="tanh")
+        # jax.nn.gelu(approximate=True)'s own op chain, the constants first
+        # rounded to x's dtype (jax's weak types), each op rounded to it:
+        # torch's fused gelu rounds once and differs in bf16
+        c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+        a = torch.tensor(0.044715, dtype=x.dtype)
+        return x * (0.5 * (1 + torch.tanh(c * (x + a * x ** 3))))
     # jax.nn.silu's own op chain, x * (1 / (1 + exp(-x))), each op rounded
     # to x's dtype: in bf16 this gives the reference's values bit for bit,
     # where x * sigmoid(x) differs in about a quarter of them

@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import Config
-from repro_torch.core import controller
+from repro_torch.core import controller, threefry
 from repro_torch.core.controller import flatten_with_path
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
@@ -65,14 +65,16 @@ def make_decode(cfg: Config):
     return decode_step
 
 
-def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+def sample(logits: torch.Tensor, key: Optional[threefry.Key] = None,
            temperature: float = 0.0) -> torch.Tensor:
-    """Greedy (argmax) at temperature 0, else a draw from softmax(logits/T)
-    with ``generator``. Returns (B,) int32."""
+    """Greedy (argmax) at temperature 0, else the reference's draw
+    ``jax.random.categorical(key, logits / T)``: the argmax of Threefry
+    gumbel noise under ``key`` plus logits / T (``core/threefry.py``).
+    Returns (B,) int32."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    return threefry.categorical(key, logits.to(torch.float32) / temperature
+                                ).to(torch.int32)
 
 
 class Engine:
@@ -107,18 +109,19 @@ class Engine:
                                          device=self.device)
         logits, pref_caches = self._prefill(self.qparams, tokens)
         caches = _merge_prefill_caches(caches, pref_caches, S)
-        gen = None
-        if temperature > 0.0:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
+        # the reference's keys: PRNGKey(seed) for the first token,
+        # fold_in(key, i) for token i + 1 (greedy decoding needs none)
+        draw = temperature > 0.0
+        key = threefry.key_from_seed(seed) if draw else None
         out = []
-        tok = sample(logits, gen, temperature)
+        tok = sample(logits, key, temperature)
         for i in range(max_new_tokens):
             out.append(tok)
             if i == max_new_tokens - 1:
                 break
             logits, caches = self._decode(self.qparams, tok, caches, S + i)
-            tok = sample(logits, gen, temperature)
+            tok = sample(logits, threefry.fold_in(key, i) if draw else None,
+                         temperature)
         return torch.stack(out, dim=1), logits
 
 

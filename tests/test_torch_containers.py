@@ -257,20 +257,11 @@ def test_sr_without_the_fused_kernel_raises():
 # One train step per container
 
 
-def _reference_seeds(monkeypatch):
-    """Make the port's step use the reference's per-leaf seeds:
-    ``_leaf_seed`` of the step key fold_in(PRNGKey(run seed), step)."""
-    def seeds(run_seed, step, paths):
-        key = jax.random.fold_in(jax.random.PRNGKey(run_seed), step)
-        return {p: int(jax_controller._leaf_seed(key, p)) for p in paths}
-    monkeypatch.setattr(controller, "leaf_seeds", seeds)
-
-
-def one_step_against_reference(ov, monkeypatch):
+def one_step_against_reference(ov):
     """One step of the reference's jitted step (without excess precision)
-    and of the port's from the same state and batch; returns the metrics
-    and the master before and after, as numpy."""
-    _reference_seeds(monkeypatch)
+    and of the port's from the same state and batch, each with its own SR
+    seeds (the port's ``leaf_seeds`` are the reference's ``_leaf_seed``);
+    returns the metrics and the master before and after, as numpy."""
     jcfg = jax_load_config("tiny", overrides=ov)
     cfg = load_config("tiny", overrides=ov)
     jstate = jax_train_loop.init_state(jcfg)
@@ -306,11 +297,11 @@ def check_step(r):
 
 @pytest.mark.parametrize("sr", [True, False], ids=["sr", "rtn"])
 @pytest.mark.parametrize("container", ["float32", "bfloat16", "int8"])
-def test_one_step_matches_the_reference(container, sr, monkeypatch):
+def test_one_step_matches_the_reference(container, sr):
     ov = STEP_OVERRIDES + [f"quant.container_dtype={container}",
                            "quant.use_pallas=true",
                            f"quant.stochastic_rounding={str(sr).lower()}"]
-    r = one_step_against_reference(ov, monkeypatch)
+    r = one_step_against_reference(ov)
     check_step(r)
     # the master carries no graph after the step
     assert not any(t.requires_grad for t in
@@ -318,12 +309,12 @@ def test_one_step_matches_the_reference(container, sr, monkeypatch):
 
 
 @pytest.mark.parametrize("use_pallas", [True, False])
-def test_mode_off_step_matches_the_reference(use_pallas, monkeypatch):
+def test_mode_off_step_matches_the_reference(use_pallas):
     """quant.mode=off: the master itself, no regularizer, no accumulate,
     no normalization, and an empty controller."""
     ov = STEP_OVERRIDES + ["quant.mode=off",
                            f"quant.use_pallas={str(use_pallas).lower()}"]
-    r = one_step_against_reference(ov, monkeypatch)
+    r = one_step_against_reference(ov)
     check_step(r)
     assert r["tm"]["full_loss"] == r["tm"]["loss"]
     assert r["tstate"]["adapt"] == {"tensors": {}}

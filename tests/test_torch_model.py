@@ -124,8 +124,15 @@ def test_engine_greedy_matches_reference_engine(setup):
 
 
 def test_temperature_sampling_is_seeded(setup):
+    """Temperature sampling draws the reference Engine's tokens from the
+    same seed, up to near ties (``test_torch_faults.sampled_like_reference``
+    states the rule; that file holds more seeds), and repeats itself."""
+    from test_torch_faults import sampled_like_reference
     s = setup
     teng = engine.Engine(s["cfg"], s["tp"], s["ts"], device="cpu")
+    e = dict(jcfg=s["jcfg"], jeng=jax_engine.Engine(s["jcfg"], s["jp"], s["js"]),
+             teng=teng, jq=s["jq"], tokens=s["tokens"])
+    assert sum(sampled_like_reference(e, 7, 3)) >= 1
     toks = torch.from_numpy(s["tokens"])
     a, _ = teng.generate(toks, 3, temperature=1.0, seed=7)
     b, _ = teng.generate(toks, 3, temperature=1.0, seed=7)

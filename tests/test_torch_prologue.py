@@ -274,10 +274,10 @@ def _node(tree, path):
 
 
 @pytest.mark.parametrize("sr", [True, False], ids=["sr", "rtn"])
-def test_one_prologue_step_matches_the_reference(sr, monkeypatch):
+def test_one_prologue_step_matches_the_reference(sr):
     ov = STEP_OVERRIDES + PROLOGUE + [
         f"quant.stochastic_rounding={str(sr).lower()}"]
-    r = one_step_against_reference(ov, monkeypatch)
+    r = one_step_against_reference(ov)
     check_step(r)
     assert not any(t.requires_grad for t in
                    _flat(r["tstate"]["params"]).values())
