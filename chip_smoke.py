@@ -23,16 +23,19 @@ Phases (any failure exits non-zero; nothing is caught):
      f32 and bf16 at D=72 on the SIMT kernel), the redesigned kernel and
      SDPA also timed by CUDA-graph replay (``device_ms``,
      ``library_device_ms``); ``matmul_dx`` and
-     ``matmul_dw`` at every training shape (M = 2048) plus ragged shapes in
-     bf16 and f32; ``flash_attention_dq``/``_dkv`` at (4, 512, 24/8, 128)
-     causal plus the contract's other cases; the SR int8 words and the EDF
-     ladder bit for bit; the float SR grid values (flat and stacked, f32
+     ``matmul_dw`` at every training shape (M = 2048) plus ragged and
+     misaligned shapes in bf16 and f32 (``matmul_dx`` on bf16 dy on the
+     tensor cores, on f32 dy on the SIMT kernel; its and the library's
+     times also by CUDA-graph replay); ``flash_attention_dq``/``_dkv`` at
+     (4, 512, 24/8, 128) causal plus the contract's other cases; the SR
+     int8 words and the EDF ladder bit for bit; the float SR grid values (flat and stacked, f32
      and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28;
      ``fxp_qmatmul``/``matmul_qdx`` at every training shape and ragged
-     shapes in both modes (``matmul_qdx`` on bf16 dy on the tensor cores,
-     on f32 dy on the SIMT kernel; its and the library's times also by
-     CUDA-graph replay); the float containers' cuBLAS bf16 GEMMs with
-     and without bf16 split-K reduction; ``sr_quantize`` (the noise given)
+     and misaligned shapes in both modes (both on bf16 x / dy on the
+     tensor cores; on f32 on the SIMT
+     kernels; their and the library's times also by CUDA-graph replay);
+     the float containers' cuBLAS bf16 GEMMs with and without bf16
+     split-K reduction; ``sr_quantize`` (the noise given)
      bit for bit on the stacked (28, 3072, 8192) leaf at <8,4> and <16,13>,
      one layer of it, bf16 x, a ragged size and the pathological values;
      ``int8_matmul`` bit for bit at M = 2048 on the four dense shapes and
@@ -43,8 +46,9 @@ Phases (any failure exits non-zero; nothing is caught):
   4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
      weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
      prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward
-     (here and on every later path, every flash forward and ``matmul_qdx``
-     must have taken the tensor-core branch);
+     (here and on every later path, every flash forward, ``matmul_dx``,
+     ``fxp_qmatmul`` and ``matmul_qdx`` must have taken the tensor-core
+     branch);
   5. serving, card against CPU: the same model at depth 2, same weights,
      plain versions on the CPU against the kernels on the card;
   6. training main path: full llama3.2-3b, RTN words at FL 10, 3 steps of
@@ -162,6 +166,8 @@ KERNELS = ("fxp_matmul", "matmul_dx", "matmul_dw", "flash_attention",
 SOURCES = ("fxp_matmul", "flash_attention", "fxp_matmul_bwd",
            "flash_attention_bwd", "sr_quantize", "edf_ladder", "fxp_qmatmul",
            "int8_matmul", "kl_hist")
+# The kernels with a tensor-core branch (bf16 activations) beside a SIMT one.
+TC_KERNELS = ("flash_attention", "matmul_dx", "fxp_qmatmul", "matmul_qdx")
 INT8_OPS = 1979e12                     # H100 SXM dense int8 tensor-core rate
 ZERO = {k: 0 for k in KERNELS}
 DENSE_CALLS = 7 * N_LAYERS + 1          # dense layers and the head
@@ -253,9 +259,9 @@ def graph_time_ms(fns, reps: int) -> float:
     captured in one CUDA graph and replayed, so the host's cost of a launch
     (the wrapper's checks, ctypes, the tensor maps) is not in it. Reported
     as ``device_ms`` beside ``ms`` (``cuda_time_ms``, the yardstick of
-    every row) for the redesigned flash forward and ``matmul_qdx`` and
-    their library calls, whose launches can cost the host more time than
-    the card."""
+    every row) for the redesigned kernels (the flash forward,
+    ``matmul_dx``, ``fxp_qmatmul``, ``matmul_qdx``) and their library
+    calls, whose launches can cost the host more time than the card."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -278,6 +284,12 @@ def graph_time_ms(fns, reps: int) -> float:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / (2 * reps)
     del graph
+    # the capture and the side stream's warm-up leave cuBLAS workspaces
+    # (32 MiB a stream) that would otherwise stay allocated through every
+    # later phase's peak memory
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     torch.cuda.empty_cache()
     return ms
 
@@ -460,29 +472,47 @@ def close_bf16(got, want, extra: float):
 
 def check_matmul_bwd(torch, fm, gen):
     """``matmul_dx`` and ``matmul_dw`` at every (K, N) of the training path
-    with M = batch·seq, plus ragged shapes in bf16 and f32, each against
-    its plain version. Tolerance: bf16 outputs within one bf16 ulp +
-    2^-16·max|plain| (summation order); f32 outputs within 1e-5·max|plain|.
-    Times: the kernel, the plain version, one ``torch.matmul`` of the same
-    product (dx: dy @ the dequantized bf16 wqᵀ; dw: xᵀ @ dy) and the bound."""
+    with M = batch·seq, plus the ragged shapes of ``RAGGED`` and a
+    misaligned dy in bf16 and f32, each against its plain version. bf16 dy
+    must take ``matmul_dx``'s tensor-core branch and f32 dy its SIMT one.
+    Tolerance: bf16 outputs within one bf16 ulp + 2^-16·max|plain|
+    (summation order); f32 outputs within 1e-5·max|plain|. bf16 dy with f32
+    out is checked at every shape, so the tensor-core kernel's f32 sums are
+    held at the head's contraction too. Times: the
+    kernel, the plain version, one ``torch.matmul`` of the same product
+    (dx: dy @ the dequantized bf16 wqᵀ; dw: xᵀ @ dy) and the bound; for
+    ``matmul_dx`` the kernel and the library call also by CUDA-graph
+    replay (``device_ms``, ``library_device_ms``)."""
     dev = "cuda"
     scale = torch.tensor(2.0 ** -10, dtype=torch.bfloat16, device=dev)
     m = TRAIN_M
     cases = [(m, k, n) for (k, n) in LAYER_SHAPES] + [(m, *HEAD_SHAPE)]
-    cases += [(37, 3071, 1025), (130, 257, 129), (7, 67, 33), (2050, 100, 8)]
+    cases += RAGGED + [MISALIGNED]
     rows = {"matmul_dx": [], "matmul_dw": []}
     max_err = {"matmul_dx": 0.0, "matmul_dw": 0.0}
+
+    def dx_on_branch(dy, wq, s, want_tc, **kw):
+        l0, t0 = fm.matmul_dx.launches, fm.matmul_dx.tc_launches
+        out = fm.matmul_dx(dy, wq, s, **kw)
+        if (fm.matmul_dx.launches - l0, fm.matmul_dx.tc_launches - t0) != \
+                (1, int(want_tc)):
+            raise AssertionError(f"matmul_dx {tuple(dy.shape)} {dy.dtype}: "
+                                 f"tensor cores {want_tc} not taken")
+        return out
+
     for (m, k, n) in cases:
         timed = m == TRAIN_M
         size = 2 * m * n + 2 * m * k + k * n
         copies = max(1, min(4, math.ceil(128e6 / size))) if timed else 1
         dys = [torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(copies)]
+        if (m, k, n) == MISALIGNED:
+            dys = [misaligned(torch, d) for d in dys]
         xs = [torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(copies)]
         ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies)]
-        dx = fm.matmul_dx(dys[0], ws[0], scale, out_dtype=torch.bfloat16)
+        dx = dx_on_branch(dys[0], ws[0], scale, True, out_dtype=torch.bfloat16)
         dw = fm.matmul_dw(xs[0], dys[0], out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         ok_x, ex = close_bf16(dx, fm.plain_dx(dys[0], ws[0], scale), 2.0 ** -16)
@@ -491,25 +521,41 @@ def check_matmul_bwd(torch, fm, gen):
             raise AssertionError(f"matmul_dx/dw ({m},{k},{n}): max err {ex}/{ew}")
         max_err["matmul_dx"] = max(max_err["matmul_dx"], ex)
         max_err["matmul_dw"] = max(max_err["matmul_dw"], ew)
+
+        def f32_close(name, got, want):
+            e32 = (got - want).abs().max().item()
+            if got.dtype != torch.float32 or \
+                    e32 > 1e-5 * want.abs().max().item():
+                raise AssertionError(f"matmul_{name} f32 ({m},{k},{n}): {e32}")
+            return e32
+
+        d32, s32 = dys[0].float(), scale.float()
+        # the tensor-core kernel's f32 sums at every contraction, the head's
+        # N = 128256 included, where they show its promotion
+        e32 = f32_close("dx bf16->f32", dx_on_branch(
+            dys[0], ws[0], scale, True, out_dtype=torch.float32),
+            fm.plain_dx(d32, ws[0], s32))
         if not timed:
-            # the f32 instantiations on the same values
-            d32, x32, s32 = dys[0].float(), xs[0].float(), scale.float()
+            # the other f32 instantiations on the same values
+            x32 = xs[0].float()
             for name, got, want in (
-                    ("dx", fm.matmul_dx(d32, ws[0], s32, out_dtype=torch.float32),
+                    ("dx", dx_on_branch(d32, ws[0], s32, False,
+                                        out_dtype=torch.float32),
                      fm.plain_dx(d32, ws[0], s32)),
-                    ("dx bf16->f32", fm.matmul_dx(dys[0], ws[0], scale,
-                                                  out_dtype=torch.float32),
+                    ("dx bf16, f32 scale", dx_on_branch(
+                        dys[0], ws[0], s32, True, out_dtype=torch.float32),
                      fm.plain_dx(d32, ws[0], s32)),
                     ("dw", fm.matmul_dw(x32, d32), fm.plain_dw(x32, d32)),
                     ("dw bf16->f32", fm.matmul_dw(xs[0], dys[0]),
                      fm.plain_dw(x32, d32))):
-                e32 = (got - want).abs().max().item()
-                if got.dtype != torch.float32 or \
-                        e32 > 1e-5 * want.abs().max().item():
-                    raise AssertionError(f"matmul_{name} f32 ({m},{k},{n}): {e32}")
-            log(f"[kernels] matmul_dx/dw {m}x{k}x{n} (ragged): max err "
-                f"{ex:.4g}/{ew:.4g}")
+                f32_close(name, got, want)
+            log(f"[kernels] matmul_dx/dw {m}x{k}x{n} (ragged"
+                f"{', misaligned dy' if (m, k, n) == MISALIGNED else ''}): "
+                f"max err {ex:.4g}/{ew:.4g}")
             continue
+        log(f"[kernels] matmul_dx {m}x{k}x{n} bf16 dy, f32 out: max err "
+            f"{e32:.4g}")
+        del d32
         reps = 10 if k * n < 1e8 else 3
         wds = [(w.to(torch.bfloat16) * scale) for w in ws]
         flops = 2.0 * m * k * n
@@ -530,6 +576,9 @@ def check_matmul_bwd(torch, fm, gen):
                    "ms": cuda_time_ms(kern, reps),
                    "plain_ms": cuda_time_ms(plain, max(2, reps // 3)),
                    "library_ms": cuda_time_ms(lib, reps)}
+            if name == "matmul_dx":
+                row["device_ms"] = graph_time_ms(kern, reps)
+                row["library_device_ms"] = graph_time_ms(lib, reps)
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
             rows[name].append(row)
             log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
@@ -829,22 +878,44 @@ def check_sr_grid(torch, sq, gen):
     return rows
 
 
+def misaligned(torch, t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (a column slice made contiguous at an odd offset), so
+    the tensor-core wrappers must pad it."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+# Ragged <M, K, N> of the matmul checks: ragged cases of every tile edge of
+# the SIMT (128) and tensor-core (64 wide, 256 or 512 rows) kernels,
+# K % 8 != 0 and N % 8 != 0 (the wrappers pad rows for TMA), M not a
+# multiple of 512, K and N multiples of 8 but not of 64; a fifth case
+# passes x / dy misaligned.
+RAGGED = [(37, 3071, 1025), (130, 257, 129), (7, 67, 33), (2050, 100, 8),
+          (700, 200, 328)]
+MISALIGNED = (600, 264, 136)
+
+
 def check_qmatmul(torch, fm, gen):
     """``fxp_qmatmul`` and ``matmul_qdx`` against their plain versions at
     every (K, N) of the training path and the head with M = batch·seq,
     bf16 x/dy and out as on the main path, in both modes (SR and RTN), and
-    the same bf16 inputs with f32 out; plus ragged <M, K, N> in both modes
-    with f32 and bf16 operands. Tolerance: the kernel and the plain
-    version sum the same exact f32 products (the same words: any word
-    that differed would move a sum by a whole step) in other orders, so
-    f32 outputs are held within 1e-5·max|plain| and bf16 outputs within
-    one bf16 ulp + 2^-16·max|plain|. ``matmul_qdx`` on bf16 dy must take
-    the tensor-core branch and on f32 dy the SIMT one. Times (SR, the main
-    path's mode): the kernel, the plain version, one ``torch.matmul`` of
-    bf16 x (dy) against the bf16-dequantized words (their transpose) and
-    the bound; for ``matmul_qdx`` the kernel and the library call also by
-    CUDA-graph replay (``device_ms``, ``library_device_ms``); and
-    ``matmul_dw`` with f32 out, which the prologue's dw takes."""
+    the same bf16 inputs with f32 out; plus the ragged <M, K, N> of
+    ``RAGGED`` and a misaligned x / dy in both modes with f32 and bf16
+    operands. Tolerance: the kernel and the plain version sum
+    the same exact f32 products (the same words: any word that differed
+    would move a sum by a whole step) in other orders, so f32 outputs are
+    held within 1e-5·max|plain| and bf16 outputs within one bf16 ulp +
+    2^-16·max|plain|. Each bf16 call must take the tensor-core branch and
+    each f32 one the SIMT kernel. Times (SR, the main path's mode): the
+    kernel, the plain version, one ``torch.matmul`` of bf16 x (dy) against
+    the bf16-dequantized words (their transpose) and the bound; the kernel
+    and the library call also by CUDA-graph replay (``device_ms``,
+    ``library_device_ms``); and ``matmul_dw`` with f32 out, which the prologue's dw
+    takes."""
     from repro_torch.kernels import ops
     dev = "cuda"
     rows = {"fxp_qmatmul": [], "matmul_qdx": [], "matmul_dw_f32": []}
@@ -853,7 +924,8 @@ def check_qmatmul(torch, fm, gen):
     fl = torch.tensor(f, dtype=torch.int32, device=dev)
     m = TRAIN_M
     cases = [(m, k, n) for (k, n) in LAYER_SHAPES] + [(m, *HEAD_SHAPE)]
-    cases += [(37, 3071, 1025), (130, 257, 129), (7, 67, 33), (2050, 100, 8)]
+    cases += RAGGED + [MISALIGNED]
+    counters = (fm.fxp_qmatmul, fm.matmul_qdx)
 
     def f32_close(got, want, what):
         e = (got.float() - want.float()).abs().max().item()
@@ -862,43 +934,55 @@ def check_qmatmul(torch, fm, gen):
             raise AssertionError(f"{what}: max err {e}")
         return e
 
+    def on_branch(fn, want_tc, what):
+        """Call ``fn``; it must launch one kernel, on the tensor cores iff
+        ``want_tc``."""
+        before = [(c.launches, c.tc_launches) for c in counters]
+        out = fn()
+        moved = [(c.launches - l0, c.tc_launches - t0)
+                 for c, (l0, t0) in zip(counters, before)]
+        if sum(l for l, _ in moved) != 1 or sum(t for _, t in moved) != int(want_tc):
+            raise AssertionError(f"{what}: launches {moved}, want tensor "
+                                 f"cores {want_tc}")
+        return out
+
     for (m, k, n) in cases:
         timed = m == TRAIN_M
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         dy = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randn(k, n, generator=gen, device=dev) * 0.02
+        if (m, k, n) == MISALIGNED:
+            x, dy = misaligned(torch, x), misaligned(torch, dy)
         seed = -(m * 7 + k)
         for mode in (1, 0):
-            for name, kern, plain, a in (("fxp_qmatmul", fm.fxp_qmatmul,
-                                          fm.plain_q, x),
-                                         ("matmul_qdx", fm.matmul_qdx,
-                                          fm.plain_qdx, dy)):
-                tc0 = fm.matmul_qdx.tc_launches
-                got = kern(a, w, seed, fl, mode)
-                if fm.matmul_qdx.tc_launches - tc0 != int(name == "matmul_qdx"):
-                    raise AssertionError(f"{name} bf16: tensor-core launches")
+            for name, kern, plain, a in (
+                    ("fxp_qmatmul", fm.fxp_qmatmul, fm.plain_q, x),
+                    ("matmul_qdx", fm.matmul_qdx, fm.plain_qdx, dy)):
                 want = plain(a, w, seed, fl, mode)
+                what = f"{name} mode {mode} ({m},{k},{n})"
+                got = on_branch(lambda: kern(a, w, seed, fl, mode), True, what)
                 torch.cuda.synchronize()
                 ok, e = close_bf16(got, want, 2.0 ** -16)
                 if not ok or got.dtype != torch.bfloat16:
-                    raise AssertionError(f"{name} mode {mode} ({m},{k},{n}): "
-                                         f"max err {e}")
+                    raise AssertionError(f"{what}: max err {e}")
+                max_err[name] = max(max_err[name], e)
                 del got, want
-                e32 = f32_close(kern(a, w, seed, fl, mode, out_dtype=torch.float32),
-                                plain(a, w, seed, fl, mode, out_dtype=torch.float32),
-                                f"{name} f32 out mode {mode} ({m},{k},{n})")
+                e32 = f32_close(
+                    on_branch(lambda: kern(a, w, seed, fl, mode,
+                                           out_dtype=torch.float32),
+                              True, f"{name} f32 out"),
+                    plain(a, w, seed, fl, mode, out_dtype=torch.float32),
+                    f"{name} f32 out mode {mode} ({m},{k},{n})")
                 if not timed:
-                    af, wf = a.float(), w
-                    tc0 = fm.matmul_qdx.tc_launches
-                    f32_close(kern(af, wf, seed, fl, mode),
-                              plain(af, wf, seed, fl, mode),
+                    af = a.float()
+                    f32_close(on_branch(lambda: kern(af, w, seed, fl, mode),
+                                        False, f"{name} f32"),
+                              plain(af, w, seed, fl, mode),
                               f"{name} f32 mode {mode} ({m},{k},{n})")
-                    if fm.matmul_qdx.tc_launches != tc0:
-                        raise AssertionError(f"{name} f32: took the tensor "
-                                             "cores")
-                max_err[name] = max(max_err[name], e, e32)
+                max_err[name] = max(max_err[name], e32)
         if not timed:
-            log(f"[kernels] fxp_qmatmul/matmul_qdx {m}x{k}x{n} (ragged, both "
+            log(f"[kernels] fxp_qmatmul/matmul_qdx {m}x{k}x{n} (ragged"
+                f"{', misaligned' if (m, k, n) == MISALIGNED else ''}, both "
                 "modes, bf16 and f32): within tolerance")
             continue
         reps = 10 if k * n < 1e8 else 3
@@ -916,11 +1000,10 @@ def check_qmatmul(torch, fm, gen):
                    "ms": cuda_time_ms([lambda: kern(a, w, seed, fl, 1)], reps),
                    "plain_ms": cuda_time_ms([lambda: plain(a, w, seed, fl, 1)],
                                             max(2, reps // 3)),
-                   "library_ms": cuda_time_ms([lib], reps)}
-            if name == "matmul_qdx":
-                row["device_ms"] = graph_time_ms(
-                    [lambda: kern(a, w, seed, fl, 1)], reps)
-                row["library_device_ms"] = graph_time_ms([lib], reps)
+                   "library_ms": cuda_time_ms([lib], reps),
+                   "device_ms": graph_time_ms([lambda: kern(a, w, seed, fl, 1)],
+                                              reps),
+                   "library_device_ms": graph_time_ms([lib], reps)}
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
             rows[name].append(row)
             log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
@@ -1500,12 +1583,12 @@ def wrappers():
 
 
 def check_tensor_cores(tag, launches):
-    """Every flash forward and every ``matmul_qdx`` of a main path's run
-    (bf16 activations) took the tensor-core branch: the wrappers'
-    ``tc_launches``, set to 0 with ``launches`` just before the run, equal
-    their launches."""
+    """Every flash forward, ``matmul_dx``, ``fxp_qmatmul`` and
+    ``matmul_qdx`` of a main path's run (bf16 activations) took the
+    tensor-core branch: the wrappers' ``tc_launches``, set to 0 with
+    ``launches`` just before the run, equal their launches."""
     ws = wrappers()
-    for name in ("flash_attention", "matmul_qdx"):
+    for name in TC_KERNELS:
         if name in launches and ws[name].tc_launches != launches[name]:
             raise AssertionError(f"{tag}: {ws[name].tc_launches} of "
                                  f"{launches[name]} {name} launches took "
@@ -1542,9 +1625,12 @@ def train_path(torch, fm, fa):
     torch.cuda.reset_peak_memory_stats()
     for w in ws.values():
         w.launches = 0
+        if hasattr(w, "tc_launches"):
+            w.tc_launches = 0
     state, history = train_loop.train(cfg, steps=TRAIN_STEPS, state=state,
                                       log=log_step, device="cuda")
     launches = {k: w.launches for k, w in ws.items()}
+    check_tensor_cores("train", launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if len(history) != TRAIN_STEPS or len(marks) != TRAIN_STEPS:
         raise AssertionError(f"train history {history}")
@@ -1711,6 +1797,8 @@ def sr_train_path(torch):
     torch.cuda.reset_peak_memory_stats()
     for w in ws.values():
         w.launches = 0
+        if hasattr(w, "tc_launches"):
+            w.tc_launches = 0
     state, history = train_loop.train(cfg, steps=2, state=state, log=log_step,
                                       device="cuda")
     after = wlfl_histogram(state)
@@ -1722,6 +1810,7 @@ def sr_train_path(torch):
                                    device="cuda")
     history += more
     launches = {k: w.launches for k, w in ws.items()}
+    check_tensor_cores("sr", launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[sr] <WL,FL> over {n_layers} tensor-layers before the switch: "
         f"{before}; after: {after}")
@@ -2677,7 +2766,7 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
               flash_err, summed(flash_by_case, flash_calls, device_keys)),
         entry("matmul_dx", "fxp_matmul_bwd.cu", "fxp_matmul.py:203",
               bwd_err["matmul_dx"], summed(by_shape(bwd_rows["matmul_dx"]),
-                                           train_calls)),
+                                           train_calls, device_keys)),
         entry("matmul_dw", "fxp_matmul_bwd.cu", "fxp_matmul.py:259",
               bwd_err["matmul_dw"], summed(dw_by_shape, dw_calls)),
         entry("flash_attention_dq", "flash_attention_bwd.cu",
@@ -2703,7 +2792,8 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
               summed(gf_by, gf_calls)),
         entry("fxp_qmatmul", "fxp_qmatmul.cu", "fxp_matmul.py:345",
               q_err["fxp_qmatmul"],
-              summed(by_shape(q_rows["fxp_qmatmul"]), prologue_calls)),
+              summed(by_shape(q_rows["fxp_qmatmul"]), prologue_calls,
+                     device_keys)),
         entry("matmul_qdx", "fxp_qmatmul.cu", "fxp_matmul.py:408",
               q_err["matmul_qdx"],
               summed(by_shape(q_rows["matmul_qdx"]), prologue_calls,

@@ -18,13 +18,12 @@
 // and the output) are read or written once and are a few percent of that
 // time at the bf16 tensor-core rate.
 //
-// Design (first, simple version; the tensor-core path is later work): a
-// shared-memory-tiled SIMT GEMM, 128x128 output tiles, the contraction in
-// steps of 16, 256 threads each holding an 8x8 f32 accumulator (rows and
-// columns in two groups of four, so the shared-memory reads are float4s
-// that spread over the banks). Products are exact in f32 (an int8 word or
-// a bf16 value times a bf16 value fits 16 significand bits); only the sums
-// round.
+// Design, on f32 dy and for dw: a shared-memory-tiled SIMT GEMM, 128x128
+// output tiles, the contraction in steps of 16, 256 threads each holding an
+// 8x8 f32 accumulator (rows and columns in two groups of four, so the
+// shared-memory reads are float4s that spread over the banks). Products
+// are exact in f32 (an int8 word or a bf16 value times a bf16 value fits
+// 16 significand bits); only the sums round.
 //  * dx: each block owns a 128x128 tile of dx and loops over N itself. It
 //    loads the dy tile and the (128 k x 16 n) tile of words, both
 //    contiguous along n, so the transposed read of wq needs no transposed
@@ -33,10 +32,28 @@
 //  * dw: the TPU kernel carries its accumulator across the M grid; here
 //    blocks run in any order, so each block owns a 128x128 tile of dw and
 //    loops over all of M itself (no atomics, no second pass).
+//
+// dx on bf16 dy (the main path) runs on the tensor cores (matmul_dx_tc),
+// the "TN" product of matmul_qdx_tc (fxp_qmatmul.cu) with the words read
+// instead of drawn: dx[m][k] = sum_n dy[m][n] wq[k][n], both operands
+// K-major. A CTA owns 256 rows and 64 columns of dx, with two consumer
+// warpgroups on wgmma and two producer warpgroups that take the steps of
+// 64 along n in turn. For its step a
+// producer warpgroup's first thread loads the dy tile (128-byte swizzle)
+// and, two of its steps ahead, the int8 word tile (no swizzle) into its
+// staging ring, both by TMA; its threads convert the words to bf16 (exact)
+// into the swizzled layout wgmma reads. The consumers restart their f32
+// accumulators every 8 steps into round-to-nearest totals (wgmma's sums
+// round toward zero, and the head's contraction is N = 128256) and scale
+// by the device scalar in the epilogue. No cluster: nothing is drawn, so
+// nothing is shared.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -247,6 +264,196 @@ cudaError_t launch_dw(const void* x, const void* dy, void* dw, int M, int K, int
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// dx = (dy @ wq^T) * scale on the tensor cores (bf16 dy)
+
+namespace tcdx {
+
+constexpr int BM = 256;                  // rows of dx per CTA
+constexpr int BN = 64;                   // columns of dx (word rows) per CTA
+constexpr int BK = 64;                   // contraction step along n
+constexpr int STAGES = 5;                // dy / word ring
+constexpr int AHEAD = 3;                 // int8 word staging ring of a producer
+// steps summed by wgmma before promotion, as matmul_qdx_tc: at the head's
+// N = 128256 the drift stays within check_matmul_bwd's f32 bound
+// (tests/test_torch_tc_accumulation.py)
+constexpr int PROMOTE = 8;
+constexpr int CONSUMERS = 2;             // warpgroups of 128 rows
+constexpr int PRODUCERS = 2;             // warpgroups taking turns by step
+constexpr int THREADS = (CONSUMERS + PRODUCERS) * 128;
+constexpr int PRODUCER_REGS = 88;        // setmaxnreg: 256 x 88 + 256 x 168
+constexpr int CONSUMER_REGS = 168;       //   = the 512 x 128 the launch holds
+constexpr int A_ELEMS = BM * BK;         // dy tile
+constexpr int B_ELEMS = BN * BK;         // word tile as bf16
+constexpr int W_BYTES = BN * BK;         // word tile as int8, staged
+constexpr int PIECES = W_BYTES / 8 / 128;  // 8-word pieces a producer thread
+constexpr size_t SMEM = 1024 + 2 * (size_t)STAGES * (A_ELEMS + B_ELEMS) +
+                        (size_t)PRODUCERS * AHEAD * W_BYTES + 16 * STAGES +
+                        16 * PRODUCERS * AHEAD;
+static_assert(BK == tc_gemm::BK && BN == tc_gemm::COLS && BM == CONSUMERS * tc_gemm::ROWS,
+              "the consumers' tiling");
+
+// Eight int8 words as eight bf16 (exact), packed.
+__device__ __forceinline__ uint4 words_bf16(uint2 u) {
+  const char4 a = *reinterpret_cast<const char4*>(&u.x);
+  const char4 b = *reinterpret_cast<const char4*>(&u.y);
+  const float f[8] = {(float)a.x, (float)a.y, (float)a.z, (float)a.w,
+                      (float)b.x, (float)b.y, (float)b.z, (float)b.w};
+  uint32_t packed[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+    packed[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(packed[0], packed[1], packed[2], packed[3]);
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_dx_tc(const __grid_constant__ CUtensorMap dymap,
+             const __grid_constant__ CUtensorMap wmap, const int8_t* __restrict__ w,
+             const void* __restrict__ scale, int scale_bf16, TO* __restrict__ dx, int M,
+             int N, int K, int w_tma) {
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* Bs = As + STAGES * A_ELEMS;
+  int8_t* Ws = reinterpret_cast<int8_t*>(Bs + STAGES * B_ELEMS);  // word staging
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ws + PRODUCERS * AHEAD * W_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wfull = empty + STAGES;               // per producer warpgroup
+  uint64_t* wempty = wfull + PRODUCERS * AHEAD;
+
+  const int m0 = blockIdx.x * BM, k0 = blockIdx.y * BN;
+  const int n_steps = (N + BK - 1) / BK;
+  const int tid = threadIdx.x, t = tid % 128;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1 + 128);         // a producer warpgroup, dy's bytes
+      sm90::mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < PRODUCERS * AHEAD; ++s) {
+      sm90::mbar_init(&wfull[s], 1);              // the word tile's TMA
+      sm90::mbar_init(&wempty[s], 128);           // the converters
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg >= CONSUMERS) {
+    sm90::regs_dec<PRODUCER_REGS>();
+    // The two producer warpgroups take the steps in turn (warpgroup pw the
+    // steps j = 2 i + pw), so two steps' loads and conversions are in
+    // flight. A warpgroup's first thread loads the int8 word tile of its
+    // steps (BN rows of wq along k, 64 along n) by TMA into the warpgroup's
+    // staging ring, AHEAD - 1 of its steps ahead, and the dy tile of each
+    // step. Each thread converts PIECES 8-word pieces to bf16 (exact) and
+    // stores them in the K-major swizzled layout (row r at r * 128 bytes,
+    // piece c ^ (r % 8)). Words whose rows TMA cannot address (N % 16 != 0)
+    // are read directly.
+    const int pw = wg - CONSUMERS;
+    int8_t* Wp = Ws + pw * AHEAD * W_BYTES;
+    uint64_t* wf = wfull + pw * AHEAD;
+    uint64_t* we = wempty + pw * AHEAD;
+    const int n_mine = (n_steps - pw + PRODUCERS - 1) / PRODUCERS;
+    auto stage_words = [&](int i) {
+      sm90::mbar_arrive_expect_tx(&wf[i % AHEAD], W_BYTES);
+      sm90::tma_load_2d(Wp + (i % AHEAD) * W_BYTES, &wmap, &wf[i % AHEAD],
+                        (PRODUCERS * i + pw) * BK, k0);
+    };
+    if (w_tma && t == 0)
+      for (int i = 0; i < AHEAD - 1 && i < n_mine; ++i) stage_words(i);
+    for (int i = 0; i < n_mine; ++i) {
+      const int j = PRODUCERS * i + pw;
+      const int s = j % STAGES, slot = i % AHEAD, n0 = j * BK;
+      uint4 pieces[PIECES];
+      if (w_tma) {
+        const int ahead = i + AHEAD - 1;
+        if (t == 0 && ahead < n_mine) {
+          sm90::mbar_wait(&we[ahead % AHEAD], ((ahead / AHEAD) & 1) ^ 1);
+          stage_words(ahead);
+        }
+        sm90::mbar_wait(&wf[slot], (i / AHEAD) & 1);
+#pragma unroll
+        for (int q = 0; q < PIECES; ++q) {
+          const int p = t + 128 * q;               // row p / 8, piece p % 8
+          pieces[q] = words_bf16(
+              *reinterpret_cast<const uint2*>(Wp + slot * W_BYTES + p * 8));
+        }
+        sm90::mbar_arrive(&we[slot]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < PIECES; ++q) {
+          const int p = t + 128 * q, k = k0 + p / 8, n = n0 + 8 * (p % 8);
+          const int live = k < K ? N - n : 0;
+          alignas(8) int8_t b[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) b[e] = e < live ? w[(size_t)k * N + n + e] : 0;
+          pieces[q] = words_bf16(*reinterpret_cast<const uint2*>(b));
+        }
+      }
+      sm90::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+      if (t == 0) {
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * A_ELEMS);
+        sm90::tma_load_2d(As + s * A_ELEMS, &dymap, &full[s], n0, m0);
+      }
+      __nv_bfloat16* Bt = Bs + s * B_ELEMS;
+#pragma unroll
+      for (int q = 0; q < PIECES; ++q) {
+        const int p = t + 128 * q, r = p / 8, c = p % 8;
+        *reinterpret_cast<uint4*>(Bt + r * BK + ((c ^ (r & 7)) * 8)) = pieces[q];
+      }
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&full[s]);
+    }
+  } else {
+    sm90::regs_inc<CONSUMER_REGS>();
+    // A consumer warpgroup: rows m0 + 128 wg .. of dx (tc_gemm.cuh).
+    float tot[2][tc_gemm::ACC];
+    const int lane = t % 32;
+    tc_gemm::consume<false, STAGES, PROMOTE>(
+        tot, As + wg * 128 * BK, A_ELEMS, Bs, B_ELEMS, n_steps,
+        [&](int s, uint32_t parity) { sm90::mbar_wait(&full[s], parity); },
+        [&](int s) {
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(&empty[s]);
+        });
+    tc_gemm::store_tile(tot, read_scale(scale, scale_bf16), dx, M, K, m0 + wg * 128, k0, t);
+  }
+}
+
+template <typename TO>
+cudaError_t launch(const void* dy, int ldy, const int8_t* w, const void* scale, int sb,
+                   void* dx, int M, int N, int K, cudaStream_t st) {
+  if (N <= 0)
+    return cudaMemsetAsync(dx, 0, (size_t)M * K * sizeof(TO), st);
+  // dy (M, N) with rows of ldy elements: boxes of 64 n x BM rows
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)ldy * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {BK, BM};
+  CUtensorMap map, wmap = {};
+  if (!sm90::bf16_map(&map, dy, 2, dims, strides, box)) return cudaErrorInvalidValue;
+  // the int8 words (K, N): boxes of 64 n x BN rows, when rows are 16-byte
+  // aligned
+  const int w_tma = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (w_tma) {
+    const cuuint64_t wdims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)N};
+    const cuuint32_t wbox[2] = {BK, BN};
+    if (!sm90::int8_map(&wmap, w, 2, wdims, wstrides, wbox)) return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = sm90::allow_smem<matmul_dx_tc<TO>>(SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + BM - 1) / BM, (K + BN - 1) / BN);
+  matmul_dx_tc<TO><<<grid, THREADS, SMEM, st>>>(
+      map, wmap, w, scale, sb, static_cast<TO*>(dx), M, N, K, w_tma);
+  return cudaGetLastError();
+}
+
+}  // namespace tcdx
+
 }  // namespace
 
 extern "C" {
@@ -288,6 +495,25 @@ int matmul_dw_launch(const void* x, const void* dy, int in_dtype, void* dw,
   else
     err = launch_dw<float, float>(x, dy, dw, M, K, N, st);
   return (int)err;
+}
+
+// The tensor-core branch of matmul_dx: dy (M, N) bf16 with rows of `ldy`
+// elements (ldy >= N, a multiple of 8, dy 16-byte aligned), dx (M, K) f32
+// or bf16. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// layout it does not take or a tensor map that cuTensorMapEncodeTiled
+// refuses.
+int matmul_dx_tc_launch(const void* dy, int ldy, const void* w, const void* scale,
+                        int scale_dtype, void* dx, int dx_dtype, int M, int N, int K,
+                        void* stream) {
+  if (M <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (ldy < N || ldy % 8 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int sb = scale_dtype == 1;
+  return (int)(dx_dtype == 1
+                   ? tcdx::launch<__nv_bfloat16>(dy, ldy, wp, scale, sb, dx, M, N, K, st)
+                   : tcdx::launch<float>(dy, ldy, wp, scale, sb, dx, M, N, K, st));
 }
 
 }  // extern "C"

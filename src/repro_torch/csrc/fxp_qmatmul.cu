@@ -28,9 +28,9 @@
 // the thousands) the 2*M*K*N operations at the bf16 tensor-core rate; the
 // bytes (x or dy, the f32 master, the output) are a few percent of that.
 //
-// fxp_qmatmul, and matmul_qdx on f32 dy, take the SIMT tiling of
-// fxp_matmul_bwd.cu: 128x128 output tiles, the contraction in steps of 16,
-// 256 threads each holding an 8x8 f32 accumulator. Each block quantizes
+// On f32 x / dy both take the SIMT tiling of fxp_matmul_bwd.cu: 128x128
+// output tiles, the contraction in steps of 16, 256 threads each holding
+// an 8x8 f32 accumulator. Each block quantizes
 // the 16 x 128 master tile it needs (2048 hashes per step against 262144
 // multiply-adds), so the master is re-read, and its words redrawn, once
 // per 128-row block of the output.
@@ -69,17 +69,34 @@
 // multiple of 8); a master whose rows are not (N % 4 != 0) is read by the
 // producer threads directly.
 //
-// Measured on an H100 (PERF.md): every product of this design is 3.4-3.9x
-// its cuBLAS time. A step (64 along n) takes about 1.1 us whatever is
-// removed from it: the products, the dy traffic, the word exchange or the
-// SR hashing (each tried alone), so a latency in the step's handshakes,
-// not a throughput, holds it back.
+// fxp_qmatmul on bf16 x (the main path of the prologue) runs on the tensor
+// cores too (fxp_qmatmul_tc), on the same skeleton with the operands
+// swapped: y[m][n] = sum_k x[m][k] Q(w)[k][n], A = x K-major by TMA, B =
+// the word tile MN-major (the master's rows run along n, so the drawn
+// words are stored n-contiguous and wgmma reads them with the transpose
+// bit). A cluster of two CTAs owns 512 rows of y and 64 of its columns;
+// per step of 64 along k each CTA draws 32 rows of the 64 x 64 word tile
+// from its TMA-staged master half and sends them to the peer by one bulk
+// copy, so each word is drawn once per 512 rows (4 times at M = 2048; the
+// SIMT kernel draws it once per 128). The contraction is at most d_ff =
+// 8192 here, so the accumulators are promoted every 32 steps (2048 along
+// k) rather than 8. Both kernels' consumer warpgroups are tc_gemm.cuh's.
+//
+// Measured on an H100 (PERF.md): matmul_qdx_tc and fxp_qmatmul_tc take
+// 2.8-3.8x cuBLAS, ~1.1 us per 64-wide step. matmul_dx_tc
+// (fxp_matmul_bwd.cu), the same pipeline with nothing drawn and no
+// cluster, takes ~0.55 us a step with two producer warpgroups taking the
+// steps in turn: the producers' chain of waits, not the products, sets
+// the step. Two producer warpgroups in turn did not help fxp_qmatmul_tc,
+// whose step waits on its cluster peer as well; nor did a 4-CTA cluster
+// of 128 x 128 tiles (about twice as long).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -356,16 +373,10 @@ constexpr int W_ELEMS = HALF * BK;       // master tile this CTA stages per step
 constexpr int PRODUCER_REGS = 88;        // setmaxnreg: 256 x 88 + 256 x 168
 constexpr int CONSUMER_REGS = 168;       //   = the 512 x 128 the launch holds
 static_assert(W_ELEMS == PRODUCERS * 128 * 8, "one 8-word piece per producer thread");
+static_assert(BK == tc_gemm::BK && BN == tc_gemm::COLS && BM == CONSUMERS * tc_gemm::ROWS,
+              "the consumers' tiling");
 constexpr size_t SMEM = 1024 + 2 * (size_t)STAGES * (A_ELEMS + B_ELEMS) +
                         4 * (size_t)AHEAD * W_ELEMS + 16 * STAGES + 16 * AHEAD;
-
-// Two consecutive outputs at an even element offset in one store.
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <typename TO>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
@@ -486,87 +497,24 @@ matmul_qdx_tc(const __grid_constant__ CUtensorMap dymap,
     sm90::cluster_sync();
   } else {
     sm90::regs_inc<CONSUMER_REGS>();
-    // A consumer warpgroup: rows m0 + 128 wg + 64 mt of dx, two m64n64
-    // accumulators in the wgmma fragment layout. wgmma's f32 accumulation
-    // rounds toward zero, which over a long contraction (the LM head's
-    // N = 128256) drifts past the tolerance, so the accumulators restart
-    // every PROMOTE steps and are added into `tot` with round-to-nearest.
-    // Within a block of steps the products of one step overlap the wait
-    // for the next; a stage is released once the products that read it
-    // are done.
-    float acc[2][BN / 2], tot[2][BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[0][i] = acc[1][i] = tot[0][i] = tot[1][i] = 0.f;
+    // A consumer warpgroup: rows m0 + 128 wg .. of dx (tc_gemm.cuh). wgmma's
+    // f32 accumulation rounds toward zero, which over a long contraction
+    // (the LM head's N = 128256) drifts past the tolerance, so the
+    // accumulators are promoted every PROMOTE steps. A stage is released
+    // to the producers of both CTAs.
+    float tot[2][tc_gemm::ACC];
     const int lane = t % 32;
-    auto release = [&](int s) {
-      __syncwarp();
-      if (lane == 0) {                      // stage s is read in this warp
-        sm90::mbar_arrive(&empty[s]);
-        sm90::mbar_arrive_cluster(sm90::peer_addr(&empty[s], peer));
-      }
-    };
-    int pending = -1;                       // a stage whose products may run
-    for (int j = 0; j < n_steps; ++j) {
-      const int s = j % STAGES;
-      const bool first = j % PROMOTE == 0;
-      const bool last = j % PROMOTE == PROMOTE - 1 || j == n_steps - 1;
-      sm90::mbar_wait_cluster(&full[s], (j / STAGES) & 1);
-      const __nv_bfloat16* At = As + s * A_ELEMS + wg * 128 * BK;
-      const __nv_bfloat16* Bt = Bs + s * B_ELEMS;
-      sm90::fence_regs(acc[0]);
-      sm90::fence_regs(acc[1]);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t db = sm90::desc128(Bt + kk * 16, 16, 1024);
-        const int keep = !(first && kk == 0);
-        sm90::wgmma_ss_n64(acc[0], sm90::desc128(At + kk * 16, 16, 1024), db, keep);
-        sm90::wgmma_ss_n64(acc[1], sm90::desc128(At + 64 * BK + kk * 16, 16, 1024), db,
-                           keep);
-      }
-      sm90::wgmma_commit();
-      if (last)
-        sm90::wgmma_wait<0>();
-      else
-        sm90::wgmma_wait<1>();              // the previous step's products are done
-      sm90::fence_regs(acc[0]);
-      sm90::fence_regs(acc[1]);
-      if (pending >= 0) release(pending);
-      pending = s;
-      if (last) {
-        release(s);
-        pending = -1;
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          tot[0][i] += acc[0][i];
-          tot[1][i] += acc[1][i];
-        }
-      }
-    }
-
-    const float scale = pow2i(-*fl);
-    const int warp = t / 32, g = lane / 4, tig = lane % 4;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int row = m0 + wg * 128 + mt * 64 + warp * 16 + g + 8 * rr;
-        if (row >= M) continue;
-        TO* out = dx + (size_t)row * K;
-#pragma unroll
-        for (int jb = 0; jb < BN / 8; ++jb) {
-          const int col = k0 + 8 * jb + 2 * tig;
-          const float v0 = __fmul_rn(tot[mt][4 * jb + 2 * rr], scale);
-          const float v1 = __fmul_rn(tot[mt][4 * jb + 2 * rr + 1], scale);
-          if (K % 2 == 0 && col + 1 < K) {       // the pair in one store
-            store2(out + col, v0, v1);
-          } else {
-            if (col < K) out[col] = from_f32<TO>(v0);
-            if (col + 1 < K) out[col + 1] = from_f32<TO>(v1);
+    tc_gemm::consume<false, STAGES, PROMOTE>(
+        tot, As + wg * 128 * BK, A_ELEMS, Bs, B_ELEMS, n_steps,
+        [&](int s, uint32_t parity) { sm90::mbar_wait_cluster(&full[s], parity); },
+        [&](int s) {
+          __syncwarp();
+          if (lane == 0) {                  // stage s is read in this warp
+            sm90::mbar_arrive(&empty[s]);
+            sm90::mbar_arrive_cluster(sm90::peer_addr(&empty[s], peer));
           }
-        }
-      }
-    }
+        });
+    tc_gemm::store_tile(tot, pow2i(-*fl), dx, M, K, m0 + wg * 128, k0, t);
     sm90::cluster_sync();
   }
 }
@@ -601,6 +549,202 @@ cudaError_t launch(const void* dy, int ldy, const float* w, const int* fl, int s
 }
 
 }  // namespace tcq
+
+// ---------------------------------------------------------------------------
+// y = (x @ Q(w)) * 2^-fl on the tensor cores (bf16 x)
+
+namespace tcf {
+
+// A cluster of two CTAs owns 512 rows of y and 64 of its columns; each CTA
+// has 256 rows, and a consumer warpgroup 128 as two m64n64 products. Per
+// step of 64 along k the pair shares one 64 x 64 word tile, of which each
+// CTA draws 32 rows (2048 words, eight a producer thread).
+constexpr int BM = 256;                  // rows of y per CTA; a pair: 512
+constexpr int BN = 64;                   // columns of y per CTA
+constexpr int BK = 64;                   // contraction step along k
+constexpr int STAGES = 5;                // x / word ring
+constexpr int AHEAD = 3;                 // master staging ring
+// steps summed by wgmma before promotion: over K <= 8192 the drift stays
+// well inside check_qmatmul's bounds at this interval
+// (tests/test_torch_tc_accumulation.py)
+constexpr int PROMOTE = 32;
+constexpr int CONSUMERS = 2;             // warpgroups of 128 rows
+constexpr int PRODUCERS = 2;             // warpgroups drawing words
+constexpr int THREADS = (CONSUMERS + PRODUCERS) * 128;
+constexpr int HALF = BK / 2;             // word rows this CTA draws
+constexpr int A_ELEMS = BM * BK;         // x tile
+constexpr int B_ELEMS = BK * BN;         // word tile (both halves)
+constexpr int W_ELEMS = HALF * BN;       // master tile this CTA stages per step
+constexpr int PRODUCER_REGS = 88;        // setmaxnreg: 256 x 88 + 256 x 168
+constexpr int CONSUMER_REGS = 168;       //   = the 512 x 128 the launch holds
+static_assert(W_ELEMS == PRODUCERS * 128 * 8, "one 8-word piece per producer thread");
+static_assert(BK == tc_gemm::BK && BN == tc_gemm::COLS && BM == CONSUMERS * tc_gemm::ROWS,
+              "the consumers' tiling");
+constexpr size_t SMEM = 1024 + 2 * (size_t)STAGES * (A_ELEMS + B_ELEMS) +
+                        4 * (size_t)AHEAD * W_ELEMS + 16 * STAGES + 16 * AHEAD;
+
+template <typename TO>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+fxp_qmatmul_tc(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap, const float* __restrict__ w,
+               const int* __restrict__ fl, uint32_t seed_mix, int mode,
+               TO* __restrict__ y, int M, int N, int K, int w_tma) {
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* Bs = As + STAGES * A_ELEMS;
+  float* Ws = reinterpret_cast<float*>(Bs + STAGES * B_ELEMS);  // master staging
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ws + AHEAD * W_ELEMS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wfull = empty + STAGES;
+  uint64_t* wempty = wfull + AHEAD;
+
+  // The two CTAs of a cluster own rows m0 .. m0 + 511 between them and
+  // share the word tile of columns n0 .. n0 + 63; CTA `rank` draws rows
+  // HALF * rank .. of each 64-row step. The pairs of one column block are
+  // adjacent in the grid, so the master is read from device memory about
+  // once and from L2 by the rest.
+  const uint32_t rank = sm90::cluster_rank(), peer = rank ^ 1;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int n_steps = (K + BK - 1) / BK;
+  const int tid = threadIdx.x, t = tid % 128;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // this CTA's producers and the TMA bytes (x, and the peer's half of
+      // the words, which its bulk copy completes here)
+      sm90::mbar_init(&full[s], 1 + PRODUCERS * 128);
+      // one arrival per consumer warp of both CTAs
+      sm90::mbar_init(&empty[s], 2 * CONSUMERS * 4);
+    }
+    for (int s = 0; s < AHEAD; ++s) {
+      sm90::mbar_init(&wfull[s], 1);
+      sm90::mbar_init(&wempty[s], PRODUCERS * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::cluster_sync();
+
+  if (wg >= CONSUMERS) {
+    sm90::regs_dec<PRODUCER_REGS>();
+    // Producer thread pt owns one 8-word piece of this CTA's half: tile row
+    // r (k0 + r along k), columns 8c .. 8c + 7 (n0 + 8c along n). The first
+    // producer thread stages the half's master rows by TMA, AHEAD - 1 steps
+    // ahead, and loads the x tile; each thread draws its words as Quant
+    // does and stores them as bf16 in the MN-major swizzled layout (row r
+    // at r * 128 bytes, piece c ^ (r % 8)); once the half is stored, one
+    // thread copies it into the peer's tile by one bulk copy.
+    const int pt = tid - CONSUMERS * 128;
+    const int r = HALF * rank + pt / 8, c = pt % 8;
+    const int kr = HALF * rank;               // this CTA's first tile row
+    auto stage_master = [&](int j) {
+      sm90::mbar_arrive_expect_tx(&wfull[j % AHEAD], 4 * W_ELEMS);
+      sm90::tma_load_2d(Ws + (j % AHEAD) * W_ELEMS, &wmap, &wfull[j % AHEAD], n0,
+                        j * BK + kr);
+    };
+    if (w_tma && pt == 0)
+      for (int j = 0; j < AHEAD - 1 && j < n_steps; ++j) stage_master(j);
+    const Quant quant{pow2i(*fl), seed_mix, mode};
+    const int n = n0 + 8 * c;
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % STAGES, slot = j % AHEAD, k = j * BK + r;
+      float v[8];
+      if (w_tma) {
+        const int ahead = j + AHEAD - 1;
+        if (pt == 0 && ahead < n_steps) {
+          sm90::mbar_wait(&wempty[ahead % AHEAD], ((ahead / AHEAD) & 1) ^ 1);
+          stage_master(ahead);
+        }
+        sm90::mbar_wait(&wfull[slot], (j / AHEAD) & 1);
+        const float4* src = reinterpret_cast<const float4*>(Ws + slot * W_ELEMS + pt * 8);
+        const float4 lo = src[0], hi = src[1];
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        sm90::mbar_arrive(&wempty[slot]);
+      } else {
+        load8(w + (size_t)k * N + n, k < K ? N - n : 0, false, v);
+      }
+      const int live = k < K ? N - n : 0;
+      const uint32_t idx = (uint32_t)k * (uint32_t)N + (uint32_t)n;
+      uint32_t packed[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const float a = e < live ? quant(v[e], idx + (uint32_t)e) : 0.f;
+        const float b = e + 1 < live ? quant(v[e + 1], idx + (uint32_t)e + 1) : 0.f;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+        packed[e / 2] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      const uint4 v4 = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      // stage s is free in both CTAs
+      sm90::mbar_wait_cluster(&empty[s], ((j / STAGES) & 1) ^ 1);
+      if (pt == 0) {
+        // this CTA's x tile and the peer's word half complete here
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * (A_ELEMS + W_ELEMS));
+        sm90::tma_load_2d(As + s * A_ELEMS, &xmap, &full[s], j * BK, m0);
+      }
+      __nv_bfloat16* Bt = Bs + s * B_ELEMS;
+      *reinterpret_cast<uint4*>(Bt + r * BN + ((c ^ (r & 7)) * 8)) = v4;
+      sm90::fence_proxy_async();
+      sm90::named_sync(1, PRODUCERS * 128);   // this CTA's half is stored
+      if (pt == 0) {
+        const __nv_bfloat16* half = Bt + kr * BN;
+        sm90::bulk_copy_to_peer(sm90::peer_addr(half, peer), half, 2 * W_ELEMS,
+                                sm90::peer_addr(&full[s], peer));
+      }
+      sm90::mbar_arrive(&full[s]);
+    }
+    sm90::cluster_sync();
+  } else {
+    sm90::regs_inc<CONSUMER_REGS>();
+    // A consumer warpgroup: rows m0 + 128 wg .. of y (tc_gemm.cuh), B
+    // MN-major; a stage is released to the producers of both CTAs.
+    float tot[2][tc_gemm::ACC];
+    const int lane = t % 32;
+    tc_gemm::consume<true, STAGES, PROMOTE>(
+        tot, As + wg * 128 * BK, A_ELEMS, Bs, B_ELEMS, n_steps,
+        [&](int s, uint32_t parity) { sm90::mbar_wait_cluster(&full[s], parity); },
+        [&](int s) {
+          __syncwarp();
+          if (lane == 0) {
+            sm90::mbar_arrive(&empty[s]);
+            sm90::mbar_arrive_cluster(sm90::peer_addr(&empty[s], peer));
+          }
+        });
+    tc_gemm::store_tile(tot, pow2i(-*fl), y, M, N, m0 + wg * 128, n0, t);
+    sm90::cluster_sync();
+  }
+}
+
+template <typename TO>
+cudaError_t launch(const void* x, int ldx, const float* w, const int* fl, int seed,
+                   int mode, void* y, int M, int N, int K, cudaStream_t st) {
+  if (K <= 0)
+    return cudaMemsetAsync(y, 0, (size_t)M * N * sizeof(TO), st);
+  // x (M, K) with rows of ldx elements: boxes of 64 k x 256 rows
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)ldx * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {BK, BM};
+  CUtensorMap xmap, wmap = {};
+  if (!sm90::bf16_map(&xmap, x, 2, dims, strides, box)) return cudaErrorInvalidValue;
+  // the f32 master (K, N): boxes of 64 n x 32 rows, when its rows are
+  // 16-byte aligned; else the producer threads read it directly
+  const int w_tma = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (w_tma) {
+    const cuuint64_t wdims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)N * sizeof(float)};
+    const cuuint32_t wbox[2] = {BN, HALF};
+    if (!sm90::f32_map(&wmap, w, 2, wdims, wstrides, wbox)) return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = sm90::allow_smem<fxp_qmatmul_tc<TO>>(SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(2 * ((M + 2 * BM - 1) / (2 * BM)), (N + BN - 1) / BN);
+  fxp_qmatmul_tc<TO><<<grid, THREADS, SMEM, st>>>(
+      xmap, wmap, w, fl, (uint32_t)seed * 0x9E3779B9u, mode, static_cast<TO*>(y), M, N, K,
+      w_tma);
+  return cudaGetLastError();
+}
+
+}  // namespace tcf
 
 }  // namespace
 
@@ -645,6 +789,24 @@ int matmul_qdx_tc_launch(const void* dy, int ldy, const void* w, const void* fl,
                    ? tcq::launch<__nv_bfloat16>(dy, ldy, wp, flp, seed, mode, dx, M, N,
                                                 K, st)
                    : tcq::launch<float>(dy, ldy, wp, flp, seed, mode, dx, M, N, K, st));
+}
+
+// The tensor-core branch of fxp_qmatmul: x (M, K) bf16 with rows of `ldx`
+// elements (ldx >= K, a multiple of 8, x 16-byte aligned), y (M, N) f32 or
+// bf16. Returns cudaGetLastError(), or cudaErrorInvalidValue for a layout
+// it does not take or a tensor map that cuTensorMapEncodeTiled refuses.
+int fxp_qmatmul_tc_launch(const void* x, int ldx, const void* w, const void* fl, int seed,
+                          int mode, void* y, int y_dtype, int M, int N, int K,
+                          void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (ldx < K || ldx % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const float* wp = static_cast<const float*>(w);
+  const int* flp = static_cast<const int*>(fl);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(y_dtype == 1
+                   ? tcf::launch<__nv_bfloat16>(x, ldx, wp, flp, seed, mode, y, M, N, K, st)
+                   : tcf::launch<float>(x, ldx, wp, flp, seed, mode, y, M, N, K, st));
 }
 
 }  // extern "C"

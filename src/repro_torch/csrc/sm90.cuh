@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu and fxp_qmatmul.cu, written as raw PTX:
+// flash_attention.cu, fxp_qmatmul.cu and fxp_matmul_bwd.cu, written as raw
+// PTX:
 //  * mbarriers: init, arrive, arrive with an expected transaction count,
 //    parity wait;
 //  * clusters: rank, peer shared-memory addresses (mapa), bulk copies and
@@ -7,12 +8,15 @@
 //    named barriers; setmaxnreg;
 //  * TMA: 2-D and 4-D tile loads (cp.async.bulk.tensor) that complete on an
 //    mbarrier, and the host-side tensor maps (bf16 with the 128-byte
-//    swizzle, f32 without), encoded by
-//    cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so
-//    the library links against the runtime alone (no -lcuda);
+//    swizzle, f32 and int8 without), encoded by cuTensorMapEncodeTiled
+//    reached through cudaGetDriverEntryPoint, so the library links against
+//    the runtime alone (no -lcuda), and kept in a cache keyed by
+//    everything the encoding reads;
 //  * wgmma: shared-memory matrix descriptors for the 128-byte swizzle,
 //    fence / commit / wait, and the m64nNk16 bf16 products with f32
-//    accumulators that the kernels issue.
+//    accumulators that the kernels issue: SS (both operands in shared
+//    memory) with a K-major or an MN-major B, RS (A in registers) with an
+//    MN-major B.
 //
 // Layout convention (the 128-byte swizzle, CU_TENSOR_MAP_SWIZZLE_128B on
 // the TMA side, layout type 1 in a descriptor): a tile is stored as
@@ -29,6 +33,9 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace sm90 {
 
@@ -229,6 +236,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, MN-major:
+// the transpose bit set; B's rows run along the contraction, its 64 N
+// columns one 128-byte chunk; see the top of the file).
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, f32) (+)= A (64 x 16, bf16 in registers) * B (16 x 64, smem), B MN-major.
 __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(
@@ -317,31 +336,82 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// An f32 tensor map without swizzle (rows land densely in shared memory).
-inline bool f32_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+// Encoded maps of this process, keyed by everything the encoding reads
+// (element type, swizzle, rank, base address, dims, strides, box), so an
+// equal key gives the map that cuTensorMapEncodeTiled would encode again.
+// A launch copies its map into the kernel's parameters, so an entry may be
+// replaced at any time. 64 entries, replaced in turn.
+struct MapKey {
+  int dtype, swizzle, rank;
+  const void* base;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5];
+};
+
+inline bool encode_cached(CUtensorMap* map, CUtensorMapDataType dtype,
+                          CUtensorMapSwizzle swizzle, const void* base, int rank,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box) {
+  constexpr int SLOTS = 64;
+  static MapKey keys[SLOTS];
+  static CUtensorMap maps[SLOTS];
+  static int used = 0, next = 0;
+  static std::mutex lock;
+  MapKey key;
+  memset(&key, 0, sizeof key);
+  key.dtype = (int)dtype;
+  key.swizzle = (int)swizzle;
+  key.rank = rank;
+  key.base = base;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i + 1 < rank) key.strides[i] = strides[i];
+  }
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i) {
+    // the address and the innermost extent first: most entries differ there
+    if (keys[i].base == base && keys[i].dims[0] == key.dims[0] &&
+        memcmp(&keys[i], &key, sizeof key) == 0) {
+      *map = maps[i];
+      return true;
+    }
+  }
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), dims,
-            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (fn(map, dtype, rank, const_cast<void*>(base), dims, strides, box, ones,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  const int slot = used < SLOTS ? used++ : next;
+  next = (slot + 1) % SLOTS;
+  keys[slot] = key;
+  maps[slot] = *map;
+  return true;
 }
 
-// A bf16 tensor map with the 128-byte swizzle: `rank` dims (innermost
-// first), byte strides of dims 1..rank-1, box extents. Returns false if
-// cuTensorMapEncodeTiled refuses it.
+// `rank` dims (innermost first), byte strides of dims 1..rank-1, box
+// extents; each returns false if cuTensorMapEncodeTiled refuses the map.
+// f32 and int8 maps have no swizzle (rows land densely in shared memory);
+// bf16 maps have the 128-byte swizzle.
+inline bool f32_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE,
+                       base, rank, dims, strides, box);
+}
+
+inline bool int8_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE,
+                       base, rank, dims, strides, box);
+}
+
 inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
                      const cuuint64_t* dims, const cuuint64_t* strides,
                      const cuuint32_t* box) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B,
+                       base, rank, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -16,10 +16,14 @@ draws the words from the f32 master in registers: the CUDA kernels of
   (stochastically rounded with the portable stream of index k·N + n, or
   rounded to nearest).
 * ``matmul_qdx`` replaces ``_matmul_qdx_kernel``: dx = (dy @ Q(w)ᵀ)·2^-FL
-  on the same words. On bf16 dy (the main path) it runs on the tensor
-  cores (wgmma, dy by TMA, the words drawn into shared memory by a
-  producer warpgroup), counted in ``matmul_qdx.tc_launches``; on f32 dy it
-  runs the SIMT kernel. The choice is by dtype alone.
+  on the same words.
+
+``matmul_dx``, ``fxp_qmatmul`` and ``matmul_qdx`` each have two kernels,
+chosen by dtype alone: on bf16 activations (the main path) a tensor-core
+kernel (wgmma, the activations by TMA, the words read or drawn into shared
+memory by producer warpgroups), counted in the wrapper's ``tc_launches``;
+on f32 activations a SIMT kernel. A refused launch raises; neither falls
+back to the other or to the plain version.
 
 No kernel writes a dequantized weight or a word tensor to device memory
 (see the notes at the top of the CUDA sources for their designs).
@@ -117,13 +121,16 @@ fxp_matmul.launches = 0
 def _bwd_lib():
     lib = _build.load("fxp_matmul_bwd")
     dx, dw = lib.matmul_dx_launch, lib.matmul_dw_launch
+    dx_tc = lib.matmul_dx_tc_launch
     if dx.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         dx.argtypes = [p, i, p, p, i, p, i, i, i, i, p]
         dx.restype = ctypes.c_int
         dw.argtypes = [p, p, i, p, i, i, i, i, p]
         dw.restype = ctypes.c_int
-    return dx, dw
+        dx_tc.argtypes = [p, i, p, p, i, p, i, i, i, i, p]
+        dx_tc.restype = ctypes.c_int
+    return dx, dw, dx_tc
 
 
 def _check_operands(name: str, ref: torch.Tensor, **tensors) -> None:
@@ -134,13 +141,27 @@ def _check_operands(name: str, ref: torch.Tensor, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def _tma_rows(a: torch.Tensor) -> torch.Tensor:
+    """``a`` (R, C) itself when TMA can address its rows (16-byte aligned,
+    C a multiple of 8 elements), else a copy padded with zero columns to
+    the next multiple of 8."""
+    R, C = a.shape
+    if C % 8 == 0 and a.data_ptr() % 16 == 0:
+        return a
+    padded = a.new_zeros((R, C + -C % 8))
+    padded[:, :C] = a
+    return padded
+
+
 def matmul_dx(dy: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
               out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: dx = (dy @ wqᵀ) * scale, f32 accumulation.
 
     dy: (M, N) bf16/f32 contiguous; wq: (K, N) int8 contiguous, read in
     place (no transposed copy); scale: a one-element bf16/f32 tensor read
-    on the device. ``out_dtype`` (bf16/f32) defaults to dy's."""
+    on the device. ``out_dtype`` (bf16/f32) defaults to dy's. bf16 dy
+    takes the tensor-core kernel (counted in ``matmul_dx.tc_launches``),
+    f32 dy the SIMT one."""
     check_card(dy)
     out_dtype = out_dtype or dy.dtype
     if dy.ndim != 2 or wq.ndim != 2 or dy.shape[1] != wq.shape[1]:
@@ -157,15 +178,26 @@ def matmul_dx(dy: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
     K = wq.shape[0]
     dx = torch.empty((M, K), dtype=out_dtype, device=dy.device)
     stream = torch.cuda.current_stream(dy.device).cuda_stream
-    err = _bwd_lib()[0](dy.data_ptr(), _DTYPE_CODE[dy.dtype], wq.data_ptr(),
-                        scale.data_ptr(), _DTYPE_CODE[scale.dtype],
-                        dx.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K, stream)
+    tc = dy.dtype == torch.bfloat16
+    if tc:
+        a = _tma_rows(dy)
+        err = _bwd_lib()[2](a.data_ptr(), a.shape[1], wq.data_ptr(),
+                            scale.data_ptr(), _DTYPE_CODE[scale.dtype],
+                            dx.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
+                            stream)
+    else:
+        err = _bwd_lib()[0](dy.data_ptr(), _DTYPE_CODE[dy.dtype], wq.data_ptr(),
+                            scale.data_ptr(), _DTYPE_CODE[scale.dtype],
+                            dx.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
+                            stream)
     _build.check(err, "matmul_dx")
     matmul_dx.launches += 1
+    matmul_dx.tc_launches += int(tc)
     return dx
 
 
 matmul_dx.launches = 0
+matmul_dx.tc_launches = 0
 
 
 def matmul_dw(x: torch.Tensor, dy: torch.Tensor, *,
@@ -200,23 +232,14 @@ matmul_dw.launches = 0
 
 def _q_lib():
     lib = _build.load("fxp_qmatmul")
-    fns = lib.fxp_qmatmul_launch, lib.matmul_qdx_launch
+    fns = (lib.fxp_qmatmul_launch, lib.matmul_qdx_launch,
+           lib.fxp_qmatmul_tc_launch, lib.matmul_qdx_tc_launch)
     if fns[0].argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in fns:
             fn.argtypes = [p, i, p, p, i, i, p, i, i, i, i, p]
             fn.restype = ctypes.c_int
     return fns
-
-
-def _qdx_tc_lib():
-    lib = _build.load("fxp_qmatmul")
-    fn = lib.matmul_qdx_tc_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, i, i, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _seed32(seed) -> int:
@@ -226,18 +249,20 @@ def _seed32(seed) -> int:
 
 
 def _prologue(name: str, a: torch.Tensor, w: torch.Tensor, seed, fl, mode,
-              out_dtype, out_shape, entry: int) -> torch.Tensor:
-    """Check the operands and launch entry 0 (``fxp_qmatmul``), 1
-    (``matmul_qdx``, SIMT) or 2 (``matmul_qdx`` on the tensor cores: bf16
-    dy, whose rows are padded with zeros to a multiple of 8 elements when
-    they are not one already, as TMA needs 16-byte row strides)."""
+              out_dtype, out_shape, qdx: bool) -> torch.Tensor:
+    """Check the operands and launch ``fxp_qmatmul`` (``qdx`` False) or
+    ``matmul_qdx``: on the tensor cores for bf16 ``a`` (whose rows are
+    padded with zeros to a multiple of 8 elements when TMA cannot address
+    them), else on the SIMT kernel."""
     check_card(a)
     if a.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtypes {a.dtype} -> {out_dtype}, want "
                         "bf16/f32")
     if w.dtype != torch.float32:
         raise TypeError(f"{name}: the master must be float32, got {w.dtype}")
-    fl = torch.as_tensor(fl, dtype=torch.int32, device=a.device)
+    if not (isinstance(fl, torch.Tensor) and fl.dtype == torch.int32
+            and fl.device == a.device):
+        fl = torch.as_tensor(fl, dtype=torch.int32, device=a.device)
     if fl.numel() != 1:
         raise ValueError(f"{name}: fl must hold one element")
     if int(mode) not in (0, 1):
@@ -246,20 +271,18 @@ def _prologue(name: str, a: torch.Tensor, w: torch.Tensor, seed, fl, mode,
     M, N, K = out_shape[0], w.shape[1], w.shape[0]
     out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if entry == 2:
-        if N % 8 or a.data_ptr() % 16:
-            padded = a.new_zeros((M, N + -N % 8))
-            padded[:, :N] = a
-            a = padded
-        err = _qdx_tc_lib()(a.data_ptr(), a.shape[1], w.data_ptr(),
+    fns = _q_lib()
+    if a.dtype == torch.bfloat16:
+        a = _tma_rows(a)
+        args = (a.data_ptr(), a.shape[1], w.data_ptr(), fl.data_ptr(),
+                _seed32(seed), int(mode), out.data_ptr(),
+                _DTYPE_CODE[out_dtype], M, N, K)
+        err = fns[3 if qdx else 2](*args, stream)
+    else:
+        err = fns[int(qdx)](a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(),
                             fl.data_ptr(), _seed32(seed), int(mode),
                             out.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
                             stream)
-    else:
-        err = _q_lib()[entry](a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(),
-                              fl.data_ptr(), _seed32(seed), int(mode),
-                              out.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K,
-                              stream)
     _build.check(err, name)
     return out
 
@@ -272,17 +295,20 @@ def fxp_qmatmul(x: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
     x: (M, K) bf16/f32 contiguous; w: (K, N) f32 master, contiguous; fl: a
     one-element int32 tensor on the device, read by the kernel (no host
     sync); seed (int32 bits) and mode (1 SR, 0 RTN): host ints.
-    ``out_dtype`` (bf16/f32) defaults to x's."""
+    ``out_dtype`` (bf16/f32) defaults to x's. bf16 x takes the tensor-core
+    kernel (counted in ``fxp_qmatmul.tc_launches``), f32 x the SIMT one."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fxp_qmatmul: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
     y = _prologue("fxp_qmatmul", x, w, seed, fl, mode, out_dtype or x.dtype,
-                  (x.shape[0], w.shape[1]), 0)
+                  (x.shape[0], w.shape[1]), False)
     fxp_qmatmul.launches += 1
+    fxp_qmatmul.tc_launches += int(x.dtype == torch.bfloat16)
     return y
 
 
 fxp_qmatmul.launches = 0
+fxp_qmatmul.tc_launches = 0
 
 
 def matmul_qdx(dy: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
@@ -295,11 +321,10 @@ def matmul_qdx(dy: torch.Tensor, w: torch.Tensor, seed, fl, mode, *,
     if dy.ndim != 2 or w.ndim != 2 or dy.shape[1] != w.shape[1]:
         raise ValueError(f"matmul_qdx: shapes {tuple(dy.shape)}, "
                          f"{tuple(w.shape)}")
-    tc = dy.dtype == torch.bfloat16
     dx = _prologue("matmul_qdx", dy, w, seed, fl, mode, out_dtype or dy.dtype,
-                   (dy.shape[0], w.shape[0]), 2 if tc else 1)
+                   (dy.shape[0], w.shape[0]), True)
     matmul_qdx.launches += 1
-    matmul_qdx.tc_launches += int(tc)
+    matmul_qdx.tc_launches += int(dy.dtype == torch.bfloat16)
     return dx
 
 

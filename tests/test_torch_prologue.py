@@ -175,6 +175,30 @@ def test_prologue_wrappers_raise_off_the_card():
         fm.matmul_qdx(torch.zeros(4, 3), w, 0, torch.tensor(4), 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prologue_dispatch_counters_stay_put_off_the_card(dtype):
+    """Both prologue wrappers count tensor-core launches; a CPU tensor of
+    either dtype (bf16 would take the tensor-core kernel, f32 the SIMT
+    one) raises before any count moves, with fl given as a device int32
+    tensor or as a host int, and the plain path through ``ops.fxp_qdense``
+    moves none."""
+    counters = (fm.fxp_qmatmul, fm.matmul_qdx)
+    before = [(c.launches, c.tc_launches) for c in counters]
+    x, w, dy = torch.zeros(4, 8, dtype=dtype), torch.zeros(8, 3), \
+        torch.zeros(4, 3, dtype=dtype)
+    fl = torch.tensor(4, dtype=torch.int32)
+    for f in (fl, 4):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fm.fxp_qmatmul(x, w, 0, f, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fm.matmul_qdx(dy, w, 0, fl, 0)
+    tx = x.float().requires_grad_()
+    y = ops.fxp_qdense(tx, w, 0, fl, 1)
+    y.backward(torch.ones_like(y))
+    assert tx.grad.shape == (4, 8)
+    assert [(c.launches, c.tc_launches) for c in counters] == before
+
+
 # ---------------------------------------------------------------------------
 # The prologue leaves of quantize_params_packed
 

@@ -253,3 +253,23 @@ def test_backward_kernels_refuse_cpu_tensors():
     assert fxp_matmul.matmul_dx.launches == fxp_matmul.matmul_dw.launches == 0
     assert flash_attention.flash_attention_dq.launches == 0
     assert flash_attention.flash_attention_dkv.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_matmul_dx_dispatch_counters_stay_put_off_the_card(dtype):
+    """``matmul_dx`` counts tensor-core launches; a CPU dy of either dtype
+    (bf16 would take the tensor-core kernel, f32 the SIMT one) raises
+    before any count moves, and the dense layer's backward on the CPU (its
+    plain version) moves none."""
+    fn = fxp_matmul.matmul_dx
+    before = (fn.launches, fn.tc_launches)
+    dy = torch.ones(3, 8, dtype=dtype)
+    wq = torch.ones(5, 8, dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(dy, wq, torch.tensor(0.5))
+    x = torch.ones(3, 5, dtype=dtype, requires_grad=True)
+    y = ops.fxp_dense(x, wq, torch.tensor(0.5, dtype=dtype), torch.zeros(5, 8),
+                      use_pallas=True)
+    y.backward(torch.ones_like(y))
+    assert x.grad.shape == (3, 5)
+    assert (fn.launches, fn.tc_launches) == before
