@@ -27,7 +27,11 @@ Phases (any failure exits non-zero; nothing is caught):
      misaligned shapes in bf16 and f32 (``matmul_dx`` on bf16 dy on the
      tensor cores, on f32 dy on the SIMT kernel; its and the library's
      times also by CUDA-graph replay); ``flash_attention_dq``/``_dkv`` at
-     (4, 512, 24/8, 128) causal plus the contract's other cases; the SR
+     (4, 512, 24/8, 128) causal plus the contract's other cases, on both
+     branches (bf16 with D % 16 == 0 and D <= 128 on the tensor cores, at
+     D = 32, 64, 96 and 128; f32, and bf16 at D = 72 and 256, on the SIMT
+     kernels), their and SDPA's backward (pinned to the flash-attention
+     backend) also timed by CUDA-graph replay; the SR
      int8 words and the EDF ladder bit for bit; the float SR grid values (flat and stacked, f32
      and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28;
      ``fxp_qmatmul``/``matmul_qdx`` at every training shape and ragged
@@ -46,9 +50,9 @@ Phases (any failure exits non-zero; nothing is caught):
   4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
      weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
      prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward
-     (here and on every later path, every flash forward, ``matmul_dx``,
-     ``fxp_qmatmul`` and ``matmul_qdx`` must have taken the tensor-core
-     branch);
+     (here and on every later path, every flash forward, dq and dkv,
+     ``matmul_dx``, ``fxp_qmatmul`` and ``matmul_qdx`` must have taken the
+     tensor-core branch);
   5. serving, card against CPU: the same model at depth 2, same weights,
      plain versions on the CPU against the kernels on the card;
   6. training main path: full llama3.2-3b, RTN words at FL 10, 3 steps of
@@ -167,7 +171,8 @@ SOURCES = ("fxp_matmul", "flash_attention", "fxp_matmul_bwd",
            "flash_attention_bwd", "sr_quantize", "edf_ladder", "fxp_qmatmul",
            "int8_matmul", "kl_hist")
 # The kernels with a tensor-core branch (bf16 activations) beside a SIMT one.
-TC_KERNELS = ("flash_attention", "matmul_dx", "fxp_qmatmul", "matmul_qdx")
+TC_KERNELS = ("flash_attention", "matmul_dx", "fxp_qmatmul", "matmul_qdx",
+              "flash_attention_dq", "flash_attention_dkv")
 INT8_OPS = 1979e12                     # H100 SXM dense int8 tensor-core rate
 ZERO = {k: 0 for k in KERNELS}
 DENSE_CALLS = 7 * N_LAYERS + 1          # dense layers and the head
@@ -259,7 +264,7 @@ def graph_time_ms(fns, reps: int) -> float:
     captured in one CUDA graph and replayed, so the host's cost of a launch
     (the wrapper's checks, ctypes, the tensor maps) is not in it. Reported
     as ``device_ms`` beside ``ms`` (``cuda_time_ms``, the yardstick of
-    every row) for the redesigned kernels (the flash forward,
+    every row) for the redesigned kernels (the flash forward, dq and dkv,
     ``matmul_dx``, ``fxp_qmatmul``, ``matmul_qdx``) and their library
     calls, whose launches can cost the host more time than the card."""
     import torch
@@ -297,6 +302,22 @@ def graph_time_ms(fns, reps: int) -> float:
 def bound(nbytes: float, flops: float):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def bit_stable(torch, fn, reps: int, what: str) -> int:
+    """``fn`` called ``reps`` times more on the same inputs returns the first
+    call's outputs bit for bit: the tensor-core kernels use no atomics, so a
+    difference is a race (one in matmul_dx_tc's word staging showed only at
+    the head's long contraction, a word row in a few calls of forty).
+    Returns ``reps``."""
+    first = fn()
+    first = [t.clone() for t in (first if isinstance(first, tuple) else (first,))]
+    for _ in range(reps):
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        if not all(torch.equal(a, b) for a, b in zip(first, out)):
+            raise AssertionError(f"{what}: a repeated call differs bitwise")
+    return reps
 
 
 # ---------------------------------------------------------------------------
@@ -555,6 +576,9 @@ def check_matmul_bwd(torch, fm, gen):
             continue
         log(f"[kernels] matmul_dx {m}x{k}x{n} bf16 dy, f32 out: max err "
             f"{e32:.4g}")
+        stable = (bit_stable(torch, lambda: fm.matmul_dx(dys[0], ws[0], scale), 40,
+                             f"matmul_dx ({m},{k},{n})")
+                  if (k, n) == HEAD_SHAPE else None)
         del d32
         reps = 10 if k * n < 1e8 else 3
         wds = [(w.to(torch.bfloat16) * scale) for w in ws]
@@ -579,6 +603,8 @@ def check_matmul_bwd(torch, fm, gen):
             if name == "matmul_dx":
                 row["device_ms"] = graph_time_ms(kern, reps)
                 row["library_device_ms"] = graph_time_ms(lib, reps)
+                if stable:
+                    row["repeats_bit_equal"] = stable
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
             rows[name].append(row)
             log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
@@ -590,27 +616,78 @@ def check_matmul_bwd(torch, fm, gen):
     return rows, max_err
 
 
+def sdpa_flash_backward(torch, q, k, v, do):
+    """SDPA's backward on the inputs of a flash backward call, pinned to
+    PyTorch's flash-attention backend: (B, H, S, D) copies with the kv heads
+    repeated beforehand, the forward run once, then two closures over the
+    same inputs: ``autograd.grad`` through ``scaled_dot_product_attention``
+    under ``sdpa_kernel(FLASH_ATTENTION)`` (the launched yardstick), and the
+    aten flash backward op that call dispatches to (capturable in a CUDA
+    graph, the device yardstick). A yardstick only: the port never calls
+    it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+                  (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+    dot = do.transpose(1, 2).contiguous()
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+
+    def launched():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt.detach(), kt.detach(), vt.detach(), 0.0, True)
+    o, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+
+    def device():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt.detach(), kt.detach(), vt.detach(), o, lse, cq, ck, mq, mk,
+            0.0, True, seed, offset)
+
+    return launched, device
+
+
 def check_flash_bwd(torch, fa, gen):
     """``flash_attention_dq``/``_dkv`` (through ``flash_attention_bwd``) at
     the training shape and the contract's other cases, against the plain
-    backward on the same (q, k, v, o, lse, do). Tolerance: both compute in
-    f32 from the same inputs; bf16 outputs within one bf16 ulp +
-    1e-4·max|plain|, f32 outputs within 1e-4·max|plain|. A row that no key
-    reaches must give dq = 0. Times: each kernel, its plain version
-    (``plain_dq``, ``plain_dkv``) and its bound; SDPA's backward (kv heads
-    repeated beforehand) computes dq, dk and dv in one call, so its time
-    stands once, on the dq row, marked as covering both kernels."""
+    backward on the same (q, k, v, o, lse, do), on both branches: bf16 with
+    D % 16 == 0 and D <= 128 takes the tensor cores (the training shape,
+    sq<skv, and window+softcap, rows with no key and non-causal ragged at
+    D = 64, 96 and 128, window with rows with no key at D = 32), f32 and
+    bf16 at D = 256 or 72 the SIMT kernels; each case checks the branch
+    both kernels took. Tolerance: both compute in f32 from the same inputs;
+    bf16 outputs within one bf16 ulp + 1e-4·max|plain|, f32 outputs within
+    1e-4·max|plain|. A row that no key reaches must give dq = 0. Times at
+    the training shape: each kernel launched from the host (``ms``) and by
+    CUDA-graph replay (``device_ms``), its plain version (``plain_dq``,
+    ``plain_dkv``) and its bound; SDPA's backward, pinned to PyTorch's
+    flash-attention backend (kv heads repeated beforehand), computes dq, dk
+    and dv in one call, so its times (``library_ms`` launched,
+    ``library_device_ms`` by graph replay of the aten backward op) stand
+    once, on the dq row, marked as covering both kernels."""
     dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [
         # name, B, Sq, Skv, H, Hkv, D, dtype, causal, window, softcap
-        ("train", TRAIN_B, TRAIN_S, TRAIN_S, HEADS, KV_HEADS, HEAD_DIM,
-         torch.bfloat16, True, 0, 0.0),
-        ("sq<skv", 2, 77, 200, HEADS, KV_HEADS, HEAD_DIM, torch.bfloat16,
+        ("train", TRAIN_B, TRAIN_S, TRAIN_S, HEADS, KV_HEADS, HEAD_DIM, bf,
          True, 0, 0.0),
-        ("window+softcap", 2, 150, 150, 8, 2, 64, torch.float32, True, 37, 30.0),
-        ("no-key rows", 2, 100, 60, 6, 3, 128, torch.float32, True, 0, 0.0),
-        ("non-causal ragged", 1, 45, 45, 4, 4, 96, torch.float32, False, 0, 0.0),
-        ("window no-key", 1, 40, 21, 4, 2, 32, torch.float32, True, 5, 2.0),
+        ("sq<skv", 2, 77, 200, HEADS, KV_HEADS, HEAD_DIM, bf, True, 0, 0.0),
+        ("window+softcap", 2, 150, 150, 8, 2, 64, f32, True, 37, 30.0),
+        ("no-key rows", 2, 100, 60, 6, 3, 128, f32, True, 0, 0.0),
+        ("non-causal ragged", 1, 45, 45, 4, 4, 96, f32, False, 0, 0.0),
+        ("window no-key", 1, 40, 21, 4, 2, 32, f32, True, 5, 2.0),
+        *((f"window+softcap bf16 D={d}", 2, 150, 150, 8, 2, d, bf, True, 37,
+           30.0) for d in (64, 96, 128)),
+        *((f"no-key rows bf16 D={d}", 2, 100, 60, 6, 3, d, bf, True, 0, 0.0)
+          for d in (64, 96, 128)),
+        *((f"non-causal ragged bf16 D={d}", 1, 45, 45, 4, 4, d, bf, False, 0,
+           0.0) for d in (64, 96, 128)),
+        ("window no-key bf16", 1, 40, 21, 4, 2, 32, bf, True, 5, 2.0),
+        ("D=256 bf16 (SIMT)", 1, 130, 130, 4, 2, 256, bf, True, 0, 0.0),
+        ("D=72 bf16 (SIMT)", 1, 33, 40, 4, 2, 72, bf, True, 0, 0.0),
     ]
     rows = {"flash_attention_dq": [], "flash_attention_dkv": []}
     max_err = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
@@ -621,12 +698,20 @@ def check_flash_bwd(torch, fa, gen):
         do = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
         o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        tc0 = (fa.flash_attention_dq.tc_launches,
+               fa.flash_attention_dkv.tc_launches)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        tc = (fa.flash_attention_dq.tc_launches - tc0[0],
+              fa.flash_attention_dkv.tc_launches - tc0[1])
+        want_tc = int(dt == bf and D % 16 == 0 and D <= 128)
+        if tc != (want_tc, want_tc):
+            raise AssertionError(f"flash backward {name}: tensor-core "
+                                 f"launches (dq, dkv) {tc}")
         want = fa.plain_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         errs = []
         for g, w in zip(got, want):
-            if dt == torch.bfloat16:
+            if dt == bf:
                 ok, e = close_bf16(g, w, 1e-4)
             else:
                 e = (g - w).abs().max().item()
@@ -643,41 +728,50 @@ def check_flash_bwd(torch, fa, gen):
                 "flash_attention_dkv": max(errs[1], errs[2])}
         for kname, e in kerr.items():
             max_err[kname] = max(max_err[kname], e)
-        log(f"[kernels] flash backward {name} {[B, Sq, Skv, H, Hkv, D]}: max err "
-            f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}")
+        branch = "tensor cores" if want_tc else "simt"
+        log(f"[kernels] flash backward {name} {[B, Sq, Skv, H, Hkv, D]} "
+            f"({branch}): max err dq {errs[0]:.3g}, dk {errs[1]:.3g}, "
+            f"dv {errs[2]:.3g}")
         if name != "train":
             continue
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-        rep = H // Hkv
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
-                      (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
-        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        dot = do.transpose(1, 2).contiguous()
-        library_ms = cuda_time_ms([lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True)], 20)
+        launched, device = sdpa_flash_backward(torch, q, k, v, do)
+        library = {"library_ms": cuda_time_ms([launched], 20),
+                   "library_device_ms": graph_time_ms([device], 20),
+                   "library_covers": "flash_attention_dq+flash_attention_dkv",
+                   "library_backend": "SDPA backward pinned to "
+                                      "SDPBackend.FLASH_ATTENTION (aten::"
+                                      "_scaled_dot_product_flash_attention_"
+                                      "backward)"}
         pairs = B * H * Sq * (Sq + 1) // 2             # causal, Sq == Skv
         ins = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * B * H * Sq
         args = (q, k, v, do, lse, delta)
         for kname, fn, plain, flops, outs, lib in (
                 ("flash_attention_dq", fa.flash_attention_dq, fa.plain_dq,
-                 6.0 * D * pairs, 2 * q.numel(),
-                 {"library_ms": library_ms,
-                  "library_covers": "flash_attention_dq+flash_attention_dkv"}),
+                 6.0 * D * pairs, 2 * q.numel(), library),
                 ("flash_attention_dkv", fa.flash_attention_dkv, fa.plain_dkv,
                  8.0 * D * pairs, 2 * (k.numel() + v.numel()),
-                 {"library_ms": None,
+                 {"library_ms": None, "library_device_ms": None,
                   "library_covers": "see flash_attention_dq"})):
+            kern = [lambda: fn(*args, **kw)]
+            tc0 = fn.tc_launches
             row = {"case": name, "shape": [B, Sq, Skv, H, Hkv, D],
-                   "max_abs_err": kerr[kname],
-                   "ms": cuda_time_ms([lambda: fn(*args, **kw)], 20),
+                   "branch": branch, "max_abs_err": kerr[kname],
+                   "ms": cuda_time_ms(kern, 20),
+                   "device_ms": graph_time_ms(kern, 20),
                    "plain_ms": cuda_time_ms([lambda: plain(*args, **kw)], 5),
                    **lib}
+            if fn.tc_launches == tc0:
+                raise AssertionError(f"{kname} {name}: timed off the tensor "
+                                     "cores")
+            row["repeats_bit_equal"] = bit_stable(
+                torch, lambda: fn(*args, **kw), 20, f"{kname} {name}")
             row["bound_ms"], row["bound_by"] = bound(ins + outs, flops)
             rows[kname].append(row)
             log(f"[kernels] {kname} {row['shape']}: " + ", ".join(
                 f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
                 for key, val in row.items() if key not in ("case", "shape")))
-        del qt, kt, vt, out, args
+        del launched, device, args
     torch.cuda.empty_cache()
     return rows, max_err
 
@@ -1004,6 +1098,10 @@ def check_qmatmul(torch, fm, gen):
                    "device_ms": graph_time_ms([lambda: kern(a, w, seed, fl, 1)],
                                               reps),
                    "library_device_ms": graph_time_ms([lib], reps)}
+            if (k, n) == HEAD_SHAPE:
+                row["repeats_bit_equal"] = bit_stable(
+                    torch, lambda: kern(a, w, seed, fl, 1), 20,
+                    f"{name} ({m},{k},{n})")
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
             rows[name].append(row)
             log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
@@ -1122,9 +1220,18 @@ def check_ops_kernels(torch, gen):
     for nb in (256, 150):
         got, want = kh.kl_hist(x, q, nb), kh.plain(x, q, nb)
         torch.cuda.synchronize()
-        if not torch.equal(got, want) or float(got[0].sum()) != x.numel():
+        # every element in some bin: the f32 counts (exact up to 2^24, within
+        # half an ulp above it, as the reference's) add up to numel within
+        # their own rounding, summed in f64
+        c = got[0].double()
+        half_ulp = torch.where(c >= 2.0 ** 24,
+                               torch.exp2(torch.floor(torch.log2(c.clamp_min(1.0))) - 24),
+                               torch.zeros_like(c))
+        missing = abs(float(c.sum()) - x.numel())
+        if not torch.equal(got, want) or missing > float(half_ulp.sum()):
             raise AssertionError(f"kl_hist {tuple(x.shape)} {nb} bins: counts "
-                                 f"differ by {(got - want).abs().max().item()}")
+                                 f"differ by {(got - want).abs().max().item()}, "
+                                 f"sum off numel by {missing}")
         if nb != 256:
             continue
         lo, hi = (float(v) for v in torch.aminmax(x))
@@ -1583,7 +1690,7 @@ def wrappers():
 
 
 def check_tensor_cores(tag, launches):
-    """Every flash forward, ``matmul_dx``, ``fxp_qmatmul`` and
+    """Every flash forward, dq and dkv, ``matmul_dx``, ``fxp_qmatmul`` and
     ``matmul_qdx`` of a main path's run (bf16 activations) took the
     tensor-core branch: the wrappers' ``tc_launches``, set to 0 with
     ``launches`` just before the run, equal their launches."""
@@ -2772,12 +2879,14 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         entry("flash_attention_dq", "flash_attention_bwd.cu",
               "flash_attention.py:245", fbwd_err["flash_attention_dq"],
               {**summed({"train": fbwd_rows["flash_attention_dq"][0]},
-                        {"train": N_LAYERS * (steps + float_steps)}),
+                        {"train": N_LAYERS * (steps + float_steps)},
+                        device_keys),
                "library_covers": "flash_attention_dq+flash_attention_dkv"}),
         entry("flash_attention_dkv", "flash_attention_bwd.cu",
               "flash_attention.py:279", fbwd_err["flash_attention_dkv"],
               {**summed({"train": fbwd_rows["flash_attention_dkv"][0]},
-                        {"train": N_LAYERS * (steps + float_steps)}),
+                        {"train": N_LAYERS * (steps + float_steps)},
+                        device_keys),
                "library_covers": "see flash_attention_dq"}),
         entry("sr_quantize_fused_stacked_int8", "sr_quantize.cu",
               "sr_quantize.py:299", 0.0,

@@ -382,6 +382,11 @@ matmul_dx_tc(const __grid_constant__ CUtensorMap dymap,
           pieces[q] = words_bf16(
               *reinterpret_cast<const uint2*>(Wp + slot * W_BYTES + p * 8));
         }
+        // the generic reads of the slot before the TMA that refills it
+        // (async proxy): without the fence a refill could land under
+        // reads still in flight, one word row of a step in a thousand
+        // calls at the head (and nearly every call with AHEAD = 2)
+        sm90::fence_proxy_async();
         sm90::mbar_arrive(&we[slot]);
       } else {
 #pragma unroll

@@ -459,6 +459,7 @@ matmul_qdx_tc(const __grid_constant__ CUtensorMap dymap,
         const float4 lo = src[0], hi = src[1];
         v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
         v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        sm90::fence_proxy_async();   // these reads before the slot's refill by TMA
         sm90::mbar_arrive(&wempty[slot]);
       } else {
         load8(w + (size_t)k * N + n0 + 8 * c, k < K ? N - n0 - 8 * c : 0, false, v);
@@ -660,6 +661,7 @@ fxp_qmatmul_tc(const __grid_constant__ CUtensorMap xmap,
         const float4 lo = src[0], hi = src[1];
         v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
         v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        sm90::fence_proxy_async();   // these reads before the slot's refill by TMA
         sm90::mbar_arrive(&wempty[slot]);
       } else {
         load8(w + (size_t)k * N + n, k < K ? N - n : 0, false, v);

@@ -86,8 +86,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// Orders this thread's generic-proxy shared-memory writes before later
-// async-proxy reads (wgmma operands, TMA).
+// Orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones: writes before wgmma or TMA reads them, and reads before
+// a TMA load refills the same bytes (the mbarrier that releases a slot does
+// not order the two proxies).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

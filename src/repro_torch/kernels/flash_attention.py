@@ -15,12 +15,21 @@ the (Sq × Skv) logits never leave the SM and tiles that the causal/window
 mask cannot reach are skipped (see the notes at the top of the CUDA
 sources for their designs).
 
-The forward has two branches, chosen here by dtype and shape alone (never
-by falling back after a failure): bf16 q/k/v with a head dim that is a
-multiple of 16 (and Skv ≥ 1, 16-byte aligned bases) run on the tensor
-cores (wgmma, K/V by TMA), counted in ``flash_attention.tc_launches``;
-f32 inputs and other head dims run the SIMT kernel. Both count in
-``flash_attention.launches``.
+All three have two branches, chosen here by dtype and shape alone (never
+by falling back after a failure, no environment switch), both counted in
+the wrapper's ``launches`` and the tensor-core one also in its
+``tc_launches``:
+
+* the forward runs on the tensor cores (wgmma, K/V by TMA) for bf16
+  q/k/v with a head dim that is a multiple of 16 (up to 256, Skv ≥ 1,
+  16-byte aligned bases);
+* ``flash_attention_dq`` and ``flash_attention_dkv`` run on the tensor
+  cores for bf16 q/k/v/do with a head dim that is a multiple of 16 up to
+  ``TC_BWD_MAX_HEAD_DIM`` = 128 (Sq ≥ 1, Skv ≥ 1, 16-byte aligned bases):
+  every product a wgmma fed by TMA, the f32 P and g split into bf16
+  hi + lo register operands;
+* f32 inputs and other head dims (the backward's D = 256 too) run the
+  SIMT kernels.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ plain_bwd = ref_flash_attention_bwd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+TC_BWD_MAX_HEAD_DIM = 128     # the backward's tensor-core branch
 
 
 def _lib():
@@ -135,16 +145,34 @@ flash_attention.tc_launches = 0
 
 
 def _bwd_lib():
+    """The four entry points of ``flash_attention_bwd.cu``: the SIMT dq and
+    dkv (with a dtype code), then their tensor-core branches."""
     lib = _build.load("flash_attention_bwd")
-    dq, dkv = lib.flash_attention_dq_launch, lib.flash_attention_dkv_launch
-    if dq.argtypes is None:
+    fns = (lib.flash_attention_dq_launch, lib.flash_attention_dkv_launch,
+           lib.flash_attention_dq_tc_launch, lib.flash_attention_dkv_tc_launch)
+    if fns[0].argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, f, p]
-        dq.restype = ctypes.c_int
-        dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
-                        f, p]
-        dkv.restype = ctypes.c_int
-    return dq, dkv
+        tail = [i, i, i, i, i, i, f, i, i, f, p]     # B .. softcap, stream
+        fns[0].argtypes = [p] * 7 + [i] + tail
+        fns[1].argtypes = [p] * 8 + [i] + tail
+        fns[2].argtypes = [p] * 7 + tail
+        fns[3].argtypes = [p] * 8 + tail
+        for fn in fns:
+            fn.restype = ctypes.c_int
+    return fns
+
+
+def bwd_takes_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor) -> bool:
+    """True when ``flash_attention_dq`` and ``flash_attention_dkv`` run their
+    tensor-core branch: bf16, a head dim that is a multiple of 16 up to
+    ``TC_BWD_MAX_HEAD_DIM``, at least one query and one key, 16-byte
+    aligned bases (TMA reads them)."""
+    D = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and D % 16 == 0
+            and D <= TC_BWD_MAX_HEAD_DIM and q.shape[1] > 0
+            and k.shape[1] > 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, do)))
 
 
 def _stats_ok(name: str, q: torch.Tensor, lse: torch.Tensor,
@@ -159,8 +187,10 @@ def _stats_ok(name: str, q: torch.Tensor, lse: torch.Tensor,
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                        window: int = 0, softcap: float = 0.0,
                        scale: float | None = None) -> torch.Tensor:
-    """Launch the dQ kernel. q/do: (B, Sq, H, D); k/v: (B, Skv, Hkv, D);
-    lse/delta: (B, H, Sq) f32. Returns dq in q's dtype."""
+    """Launch the dQ kernel: its tensor-core branch where
+    :func:`bwd_takes_tensor_cores` (counted in ``tc_launches`` too), else
+    the SIMT one. q/do: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); lse/delta:
+    (B, H, Sq) f32. Returns dq in q's dtype."""
     _check("flash_attention_dq", q, k, v, do=do, lse=lse, delta=delta)
     _stats_ok("flash_attention_dq", q, lse, delta)
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -170,23 +200,30 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     sc = scale if scale is not None else 1.0 / D ** 0.5
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bwd_lib()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dq.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Skv, H,
-                        Hkv, D, float(sc), int(bool(causal)), int(window),
-                        float(softcap), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    shape = (B, Sq, Skv, H, Hkv, D, float(sc), int(bool(causal)), int(window),
+             float(softcap), stream)
+    tc = bwd_takes_tensor_cores(q, k, v, do)
+    if tc:
+        err = _bwd_lib()[2](*ptrs, *shape)
+    else:
+        err = _bwd_lib()[0](*ptrs, _DTYPE_CODE[q.dtype], *shape)
     _build.check(err, "flash_attention_dq")
     flash_attention_dq.launches += 1
+    flash_attention_dq.tc_launches += int(tc)
     return dq
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.tc_launches = 0
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
                         scale: float | None = None):
-    """Launch the dK/dV kernel (the GQA group summed inside it). Shapes as
+    """Launch the dK/dV kernel (the GQA group summed inside it), on the
+    branch :func:`flash_attention_dq` takes. Shapes as
     :func:`flash_attention_dq`; returns (dk, dv) in k's dtype."""
     _check("flash_attention_dkv", q, k, v, do=do, lse=lse, delta=delta)
     _stats_ok("flash_attention_dkv", q, lse, delta)
@@ -197,17 +234,23 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     sc = scale if scale is not None else 1.0 / D ** 0.5
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bwd_lib()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], B,
-                        Sq, Skv, H, Hkv, D, float(sc), int(bool(causal)),
-                        int(window), float(softcap), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (B, Sq, Skv, H, Hkv, D, float(sc), int(bool(causal)), int(window),
+             float(softcap), stream)
+    tc = bwd_takes_tensor_cores(q, k, v, do)
+    if tc:
+        err = _bwd_lib()[3](*ptrs, *shape)
+    else:
+        err = _bwd_lib()[1](*ptrs, _DTYPE_CODE[q.dtype], *shape)
     _build.check(err, "flash_attention_dkv")
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.tc_launches += int(tc)
     return dk, dv
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.tc_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

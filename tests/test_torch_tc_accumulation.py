@@ -16,7 +16,18 @@ that the promotion interval each kernel uses keeps the sums within
 outputs within 1e-5·max|plain|, bf16 outputs within one bf16 ulp +
 2^-16·max|plain|. Without promotion the drift toward zero passes the f32
 bound at the LM head's contraction (N = 128256).
+
+The flash backward's tensor-core branch (``csrc/flash_attention_bwd.cu``,
+``flash_dq_tc`` and ``flash_dkv_tc``) multiplies f32 P and g, split into
+bf16 hi + lo, by bf16 K, Q and dO, and restarts its accumulators every
+``PROMOTE`` tiles of 64 along the contraction. dkv contracts over the rep·Sq
+query rows of a GQA group, dq over the Skv keys; the tests below emulate
+both on llama3.2-3b's heads (rep 3, D = 128) with causal attention from a
+numpy seed, up to the registry's longest training sequence (4096), and fix
+the interval and the need for ``lo``.
 """
+import functools
+import math
 import re
 
 import numpy as np
@@ -50,6 +61,7 @@ def _kernel_promote(source: str, namespace: str) -> int:
 # (fxp_qmatmul_tc) and tcdx::PROMOTE (matmul_dx_tc).
 QMATMUL_PROMOTE = _kernel_promote("fxp_qmatmul.cu", "tcf")
 DX_PROMOTE = _kernel_promote("fxp_matmul_bwd.cu", "tcdx")
+BWD_PROMOTE = _kernel_promote("flash_attention_bwd.cu", "tcb")   # both kernels
 FL = 10                    # chip_smoke's FL; words of 0.02·N(0, 1) masters
 
 
@@ -192,3 +204,149 @@ def test_words_of_the_emulation_are_the_prologue_words():
     for mode in (1, 0):
         assert torch.equal(ops.qdense_words(w, 5, fl, mode),
                            ref_qdense_words(w, 5, fl, mode))
+
+
+# ---------------------------------------------------------------------------
+# The flash backward: f32 P and g split into bf16 hi + lo
+
+REP, HEAD_DIM = 3, 128     # llama3.2-3b's GQA group and head dim
+LONGEST_TRAIN_S = 4096     # the registry's longest training sequence
+TILE = 64                  # rows (dkv) or keys (dq) per tile
+
+
+def emulate_split(a: torch.Tensor, b: torch.Tensor, promote, lo=True):
+    """a (R, C) f32, b (C, Q) holding bf16 values, C in the kernel's order.
+    Returns the f32 sums over C as the tensor-core branch forms them: a split
+    into bf16 hi + lo; per chunk of 16, hi·b then lo·b, each an exact sum
+    added into the accumulator toward zero; the accumulator promoted into a
+    round-to-nearest total every ``promote`` tiles of 64 (None: never).
+    ``lo=False`` is the mutant that drops the low half."""
+    hi = a.to(torch.bfloat16).float()
+    parts = (hi, (a - hi).to(torch.bfloat16).float()) if lo else (hi,)
+    tot = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    acc = torch.zeros_like(tot)
+    bd = b.double()
+    for c in range(0, a.shape[1], CHUNK):
+        for part in parts:
+            acc = _toward_zero(acc.double() + part[:, c:c + CHUNK].double()
+                               @ bd[c:c + CHUNK])
+        if promote is not None and (c + CHUNK) % (promote * TILE) == 0:
+            tot, acc = tot + acc, torch.zeros_like(acc)
+    return tot + acc
+
+
+@functools.lru_cache(maxsize=None)
+def _causal_attention(S: int):
+    """One causal (1, S, REP, HEAD_DIM) query group against one kv head, bf16
+    values from a numpy seed: q and dO (REP, S, D), k and v (S, D), and each
+    row's lse and delta = dO·o (REP, S), computed in f32 by row blocks."""
+    rng = np.random.default_rng(S)
+    q, do = (_bf16(rng, (REP, S, HEAD_DIM)).float() for _ in range(2))
+    k, v = (_bf16(rng, (S, HEAD_DIM)).float() for _ in range(2))
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    lse, delta = torch.empty(REP, S), torch.empty(REP, S)
+    keys = torch.arange(S)
+    for r in range(REP):
+        for r0 in range(0, S, 1024):
+            rows = torch.arange(r0, min(r0 + 1024, S))
+            s = torch.where(keys[None] <= rows[:, None],
+                            q[r, rows] @ k.T * scale, torch.tensor(-1e30))
+            lse[r, rows] = torch.logsumexp(s, -1)
+            o = torch.exp(s - lse[r, rows, None]) @ v
+            delta[r, rows] = (o * do[r, rows]).sum(-1)
+    return q, k, v, do, lse, delta, scale
+
+
+def _p_and_g(s, dp, lse, delta, valid):
+    p = torch.where(valid, torch.exp(s - lse), torch.zeros(()))
+    return p, p * (dp - delta)
+
+
+def _dkv_tile0(S: int):
+    """dkv's contraction for the first key tile (reached by every row of
+    every head): gᵀ and Pᵀ (64 keys, REP·S rows head-major), q and dO rows,
+    and the exact dK and dV of the tile."""
+    q, k, v, do, lse, delta, scale = _causal_attention(S)
+    kt, vt = k[:TILE], v[:TILE]
+    valid = torch.arange(TILE)[:, None] <= torch.arange(S)[None]
+    p, g = _p_and_g(torch.einsum("kd,rsd->rks", kt, q) * scale,
+                    torch.einsum("kd,rsd->rks", vt, do), lse[:, None],
+                    delta[:, None], valid[None])
+    pt = p.permute(1, 0, 2).reshape(TILE, REP * S)
+    gt = g.permute(1, 0, 2).reshape(TILE, REP * S)
+    qr, dor = q.reshape(REP * S, HEAD_DIM), do.reshape(REP * S, HEAD_DIM)
+    dk = gt.double() @ qr.double() * scale
+    dv = pt.double() @ dor.double()
+    return (gt, qr, dk, scale), (pt, dor, dv, 1.0)
+
+
+def _dq_last_rows(S: int):
+    """dq's contraction for the last 64 rows of a head (they reach every
+    key): g (64 rows, S keys), k, and the exact dQ of the rows."""
+    q, k, v, do, lse, delta, scale = _causal_attention(S)
+    rows = torch.arange(S - TILE, S)
+    valid = torch.arange(S)[None] <= rows[:, None]
+    _, g = _p_and_g(q[0, rows] @ k.T * scale, do[0, rows] @ v.T,
+                    lse[0, rows, None], delta[0, rows, None], valid)
+    return g, k, g.double() @ k.double() * scale, scale
+
+
+def _sums_within(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """max|got − exact| in units of 1e-4·max|exact|: check_flash_bwd's f32
+    bound, here on the sums before the output's bf16 rounding."""
+    return float((got.double() - exact).abs().max()
+                 / (1e-4 * exact.abs().max()))
+
+
+def _bf16_out_within(got: torch.Tensor, exact: torch.Tensor) -> bool:
+    """check_flash_bwd's bf16 bound: one bf16 ulp + 1e-4·max|exact|."""
+    w = exact.float()
+    err = (got.to(torch.bfloat16).float().double() - exact).abs()
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    return bool((err <= torch.exp2(e - 7).double()
+                 + 1e-4 * exact.abs().max()).all())
+
+
+@pytest.mark.parametrize("seq", [512, LONGEST_TRAIN_S])
+def test_flash_dkv_promotion_within_bounds(seq):
+    """dK and dV of the key tile every row reaches, at the training shape's
+    S = 512 and the registry's longest training S: with the kernel's
+    interval the sums stay within a quarter of the f32 bound (the rest is
+    left to the plain version's own f32 sums) and the bf16 outputs within
+    check_flash_bwd's."""
+    for a, b, exact, scale in _dkv_tile0(seq):
+        got = emulate_split(a, b, BWD_PROMOTE) * scale
+        assert _sums_within(got, exact) <= 0.25, _sums_within(got, exact)
+        assert _bf16_out_within(got, exact)
+
+
+def test_flash_dq_promotion_within_bounds():
+    """dQ of the rows that reach every key, at the longest training S (its
+    contraction, Skv keys, is a third of dkv's: without promotion its drift
+    would stay within the budget too, and the kernel promotes all the
+    same)."""
+    g, k, exact, scale = _dq_last_rows(LONGEST_TRAIN_S)
+    got = emulate_split(g, k, BWD_PROMOTE) * scale
+    assert _sums_within(got, exact) <= 0.25
+    assert _bf16_out_within(got, exact)
+
+
+@pytest.mark.parametrize("seq", [512, LONGEST_TRAIN_S])
+def test_flash_dkv_without_lo_fails(seq):
+    """The mutant that multiplies only the bf16 hi of P and g: its dK and dV
+    leave check_flash_bwd's bf16 bound, so the kernels keep lo."""
+    for a, b, exact, scale in _dkv_tile0(seq):
+        got = emulate_split(a, b, BWD_PROMOTE, lo=False) * scale
+        assert not _bf16_out_within(got, exact)
+
+
+def test_flash_dkv_without_promotion_drifts():
+    """The mutant that never promotes: at the longest training S (12288 rows
+    of a GQA group) its toward-zero drift alone takes the dK and dV sums
+    past a quarter of the f32 bound, the budget the tests above hold the
+    kernels to (at S = 8192 it reaches the whole bound); the kernel's
+    interval keeps them under a tenth of it."""
+    for a, b, exact, scale in _dkv_tile0(LONGEST_TRAIN_S):
+        assert _sums_within(emulate_split(a, b, None) * scale, exact) > 0.25
+        assert _sums_within(emulate_split(a, b, BWD_PROMOTE) * scale,
+                            exact) < 0.1
