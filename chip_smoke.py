@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernels, each against its plain version on the same inputs, with the
      times of the kernel, the plain version, one PyTorch call
      (``library_ms``, a yardstick only) and the bound: ``fxp_matmul`` at
-     every shape of the serving and training paths plus ragged shapes;
+     every shape of the serving and training paths plus ragged shapes and
+     a misaligned x, on all three branches (bf16 x with M > 16 on the
+     tensor cores, M <= 16 on the GEMV, f32 x with M > 16 on the SIMT
+     kernel), the kernel and ``torch.matmul`` also timed by CUDA-graph
+     replay;
      ``flash_attention`` at the prefill and training shapes plus ragged /
      window+softcap / no-key-rows / non-causal cases and lse, on both
      branches (bf16 with D % 16 == 0 on the tensor cores, D up to 256;
@@ -24,9 +28,10 @@ Phases (any failure exits non-zero; nothing is caught):
      SDPA also timed by CUDA-graph replay (``device_ms``,
      ``library_device_ms``); ``matmul_dx`` and
      ``matmul_dw`` at every training shape (M = 2048) plus ragged and
-     misaligned shapes in bf16 and f32 (``matmul_dx`` on bf16 dy on the
-     tensor cores, on f32 dy on the SIMT kernel; its and the library's
-     times also by CUDA-graph replay); ``flash_attention_dq``/``_dkv`` at
+     misaligned shapes in bf16 and f32 (both on bf16 operands on the
+     tensor cores, on f32 on the SIMT kernels; ``matmul_dw`` timed with
+     bf16 and f32 out; their and the library's times also by CUDA-graph
+     replay); ``flash_attention_dq``/``_dkv`` at
      (4, 512, 24/8, 128) causal plus the contract's other cases, on both
      branches (bf16 with D % 16 == 0 and D <= 128 on the tensor cores, at
      D = 32, 64, 96 and 128; f32, and bf16 at D = 72 and 256, on the SIMT
@@ -51,8 +56,9 @@ Phases (any failure exits non-zero; nothing is caught):
      weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
      prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward
      (here and on every later path, every flash forward, dq and dkv,
-     ``matmul_dx``, ``fxp_qmatmul`` and ``matmul_qdx`` must have taken the
-     tensor-core branch);
+     ``matmul_dx``, ``matmul_dw``, ``fxp_qmatmul``, ``matmul_qdx`` and
+     ``fxp_matmul`` at M > 16 must have taken the tensor-core branch, and
+     ``fxp_matmul`` at M <= 16, decode and the prefill's head, its GEMV);
   5. serving, card against CPU: the same model at depth 2, same weights,
      plain versions on the CPU against the kernels on the card;
   6. training main path: full llama3.2-3b, RTN words at FL 10, 3 steps of
@@ -170,9 +176,11 @@ KERNELS = ("fxp_matmul", "matmul_dx", "matmul_dw", "flash_attention",
 SOURCES = ("fxp_matmul", "flash_attention", "fxp_matmul_bwd",
            "flash_attention_bwd", "sr_quantize", "edf_ladder", "fxp_qmatmul",
            "int8_matmul", "kl_hist")
-# The kernels with a tensor-core branch (bf16 activations) beside a SIMT one.
+# The kernels with a tensor-core branch (bf16 activations; for fxp_matmul
+# with M > 16, beside its GEMV at M <= 16) beside a SIMT one.
 TC_KERNELS = ("flash_attention", "matmul_dx", "fxp_qmatmul", "matmul_qdx",
-              "flash_attention_dq", "flash_attention_dkv")
+              "flash_attention_dq", "flash_attention_dkv", "matmul_dw",
+              "fxp_matmul")
 INT8_OPS = 1979e12                     # H100 SXM dense int8 tensor-core rate
 ZERO = {k: 0 for k in KERNELS}
 DENSE_CALLS = 7 * N_LAYERS + 1          # dense layers and the head
@@ -326,11 +334,18 @@ def bit_stable(torch, fn, reps: int, what: str) -> int:
 
 def check_fxp_matmul(torch, fm, gen):
     """Every (M, K, N) of the serving path and of the training path
-    (M = batch·seq), plus ragged shapes on both of the kernel's paths.
-    Tolerance: the kernel and the plain version sum the same exact f32
-    products in different orders, so a bf16 output may round to the
+    (M = batch·seq), plus ragged shapes and a misaligned x, each on the
+    branch it should take (the wrapper's counts): bf16 x with M > 16 on the
+    tensor cores, M <= 16 on the GEMV, f32 x with M > 16 on the SIMT
+    kernel. Tolerance: the kernel and the plain version sum the same exact
+    f32 products in different orders, so a bf16 output may round to the
     neighbouring value: |kernel − plain| <= one bf16 ulp at |plain|
-    + 2^-16·max|plain|."""
+    + 2^-16·max|plain|; f32 outputs within 1e-5·max|plain|. Times at the
+    serving and training shapes: the kernel, the plain version, one
+    ``torch.matmul`` of x against the bf16-dequantized words and the
+    bound; the kernel and the library call also by CUDA-graph replay
+    (``device_ms``, ``library_device_ms``). The tensor-core kernel repeated
+    at the training head's shape must give equal bits."""
     dev = "cuda"
     scale = torch.tensor(2.0 ** -10, dtype=torch.bfloat16, device=dev)
     prefill_m, decode_m = BATCH * PROMPT, BATCH
@@ -338,16 +353,36 @@ def check_fxp_matmul(torch, fm, gen):
              for m in (prefill_m, decode_m, TRAIN_M)]
     cases += [(decode_m, *HEAD_SHAPE), (prefill_m, *HEAD_SHAPE),
               (TRAIN_M, *HEAD_SHAPE),
-              (37, 3071, 1025), (3, 3071, 1025), (16, 100, 36), (17, 129, 257)]
+              (37, 3071, 1025), (3, 3071, 1025), (16, 100, 36), (17, 129, 257),
+              MISALIGNED]
+    c = fm.fxp_matmul
+
+    def branch(m, dtype):
+        return "gemv" if m <= 16 else "tc" if dtype == torch.bfloat16 else "simt"
+
+    def on_branch(x, w, s, **kw):
+        """One launch, on the branch that x's M and dtype call for."""
+        want = branch(x.shape[0], x.dtype)
+        before = (c.launches, c.tc_launches, c.gemv_launches)
+        out = fm.fxp_matmul(x, w, s, **kw)
+        moved = tuple(b - a for a, b in zip(
+            before, (c.launches, c.tc_launches, c.gemv_launches)))
+        if moved != (1, int(want == "tc"), int(want == "gemv")):
+            raise AssertionError(f"fxp_matmul {tuple(x.shape)} {x.dtype}: "
+                                 f"launches {moved}, want the {want} branch")
+        return out
+
     rows, max_err = [], 0.0
     for (m, k, n) in cases:
         timed = (k, n) in LAYER_SHAPES or (k, n) == HEAD_SHAPE
         copies = max(1, min(16, math.ceil(128e6 / (k * n)))) if timed else 1
         xs = [torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(copies)]
+        if (m, k, n) == MISALIGNED:
+            xs = [misaligned(torch, x) for x in xs]
         ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies)]
-        got = fm.fxp_matmul(xs[0], ws[0], scale)
+        got = on_branch(xs[0], ws[0], scale)
         want = fm.plain(xs[0], ws[0], scale)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
@@ -356,36 +391,52 @@ def check_fxp_matmul(torch, fm, gen):
             raise AssertionError(f"fxp_matmul ({m},{k},{n}): max err "
                                  f"{err.max().item()} over tolerance")
         max_err = max(max_err, err.max().item())
-        row = {"m": m, "k": k, "n": n, "max_abs_err": err.max().item()}
+        row = {"m": m, "k": k, "n": n, "branch": branch(m, xs[0].dtype),
+               "max_abs_err": err.max().item()}
+
+        def f32_close(got, want, what):
+            e32 = (got - want).abs().max().item()
+            if got.dtype != torch.float32 or \
+                    e32 > 1e-5 * want.abs().max().item():
+                raise AssertionError(f"fxp_matmul {what} ({m},{k},{n}): {e32}")
+
+        # bf16 x with f32 out: the branch's f32 sums at every shape
+        f32_close(on_branch(xs[0], ws[0], scale, out_dtype=torch.float32),
+                  fm.plain(xs[0], ws[0], scale, out_dtype=torch.float32),
+                  "bf16 -> f32")
         if timed:
             reps = 20 if k * n * max(m, 64) < 4e10 else 3
-            row["ms"] = cuda_time_ms(
-                [lambda x=x, w=w: fm.fxp_matmul(x, w, scale)
-                 for x, w in zip(xs, ws)], reps)
+            kern = [lambda x=x, w=w: fm.fxp_matmul(x, w, scale)
+                    for x, w in zip(xs, ws)]
+            wds = [(w.to(torch.bfloat16) * scale) for w in ws]
+            lib = [lambda x=x, w=w: torch.matmul(x, w) for x, w in zip(xs, wds)]
+            row["ms"] = cuda_time_ms(kern, reps)
             row["plain_ms"] = cuda_time_ms(
                 [lambda x=x, w=w: fm.plain(x, w, scale)
                  for x, w in zip(xs, ws)], max(3, reps // 4))
-            wds = [(w.to(torch.bfloat16) * scale) for w in ws]
-            row["library_ms"] = cuda_time_ms(
-                [lambda x=x, w=w: torch.matmul(x, w) for x, w in zip(xs, wds)],
-                reps)
-            del wds
+            row["library_ms"] = cuda_time_ms(lib, reps)
+            row["device_ms"] = graph_time_ms(kern, reps)
+            row["library_device_ms"] = graph_time_ms(lib, reps)
+            del wds, lib
+            if (m, k, n) == (TRAIN_M, *HEAD_SHAPE):
+                row["repeats_bit_equal"] = bit_stable(
+                    torch, lambda: fm.fxp_matmul(xs[0], ws[0], scale), 20,
+                    f"fxp_matmul ({m},{k},{n})")
             row["bound_ms"], row["bound_by"] = bound(
                 2 * m * k + k * n + 2 * m * n + 2, 2.0 * m * k * n)
-        # f32 activations and f32 output on the same words (tests the other
-        # instantiations; f32 sums in another order, rtol 1e-5 of the max)
-        if (m, k, n) == (37, 3071, 1025) or (m, k, n) == (3, 3071, 1025):
+        else:
+            # f32 activations and f32 output on the same words (the other
+            # instantiations: SIMT at M > 16, the GEMV below)
             xf = xs[0].float()
-            g32 = fm.fxp_matmul(xf, ws[0], scale.float(), out_dtype=torch.float32)
-            w32 = fm.plain(xf, ws[0], scale.float(), out_dtype=torch.float32)
-            e32 = (g32 - w32).abs().max().item()
-            if e32 > 1e-5 * w32.abs().max().item():
-                raise AssertionError(f"fxp_matmul f32 ({m},{k},{n}): {e32}")
+            f32_close(on_branch(xf, ws[0], scale.float(), out_dtype=torch.float32),
+                      fm.plain(xf, ws[0], scale.float(), out_dtype=torch.float32),
+                      "f32")
         rows.append(row)
         log(f"[kernels] fxp_matmul {m}x{k}x{n}: " + ", ".join(
             f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
             for key, val in row.items() if key not in ("m", "k", "n")))
         del xs, ws, got, want
+    torch.cuda.empty_cache()
     return rows, max_err
 
 
@@ -494,30 +545,36 @@ def close_bf16(got, want, extra: float):
 def check_matmul_bwd(torch, fm, gen):
     """``matmul_dx`` and ``matmul_dw`` at every (K, N) of the training path
     with M = batch·seq, plus the ragged shapes of ``RAGGED`` and a
-    misaligned dy in bf16 and f32, each against its plain version. bf16 dy
-    must take ``matmul_dx``'s tensor-core branch and f32 dy its SIMT one.
-    Tolerance: bf16 outputs within one bf16 ulp + 2^-16·max|plain|
-    (summation order); f32 outputs within 1e-5·max|plain|. bf16 dy with f32
-    out is checked at every shape, so the tensor-core kernel's f32 sums are
-    held at the head's contraction too. Times: the
-    kernel, the plain version, one ``torch.matmul`` of the same product
-    (dx: dy @ the dequantized bf16 wqᵀ; dw: xᵀ @ dy) and the bound; for
-    ``matmul_dx`` the kernel and the library call also by CUDA-graph
-    replay (``device_ms``, ``library_device_ms``)."""
+    misaligned dy in bf16 and f32, each against its plain version. bf16
+    operands must take each wrapper's tensor-core branch and f32 ones its
+    SIMT one. Tolerance: bf16 outputs within one bf16 ulp + 2^-16·max|plain|
+    (summation order); f32 outputs within 1e-5·max|plain|. bf16 operands
+    with f32 out are checked at every shape, so the tensor-core kernels'
+    f32 sums are held at the head's contraction (dx) and output (dw) too.
+    Times: the kernel, the plain version, one ``torch.matmul`` of the same
+    product (dx: dy @ the dequantized bf16 wqᵀ; dw: xᵀ @ dy, bf16 out, for
+    both of dw's output dtypes) and the bound; the kernel and the library
+    call also by CUDA-graph replay (``device_ms``, ``library_device_ms``).
+    ``matmul_dw`` is timed with bf16 out (the packed path's ``wref``) and
+    f32 out (path B's master, ``matmul_dw_f32``). Both tensor-core kernels
+    repeated at the head's shape must give equal bits; ``matmul_dw`` with
+    no rows (M = 0) must write zeros."""
     dev = "cuda"
     scale = torch.tensor(2.0 ** -10, dtype=torch.bfloat16, device=dev)
     m = TRAIN_M
     cases = [(m, k, n) for (k, n) in LAYER_SHAPES] + [(m, *HEAD_SHAPE)]
     cases += RAGGED + [MISALIGNED]
-    rows = {"matmul_dx": [], "matmul_dw": []}
+    rows = {"matmul_dx": [], "matmul_dw": [], "matmul_dw_f32": []}
     max_err = {"matmul_dx": 0.0, "matmul_dw": 0.0}
 
-    def dx_on_branch(dy, wq, s, want_tc, **kw):
-        l0, t0 = fm.matmul_dx.launches, fm.matmul_dx.tc_launches
-        out = fm.matmul_dx(dy, wq, s, **kw)
-        if (fm.matmul_dx.launches - l0, fm.matmul_dx.tc_launches - t0) != \
-                (1, int(want_tc)):
-            raise AssertionError(f"matmul_dx {tuple(dy.shape)} {dy.dtype}: "
+    def on_branch(fn, a, *args, **kw):
+        """``fn`` (``matmul_dx`` or ``matmul_dw``) launched once, on the
+        tensor cores iff ``a`` is bf16."""
+        want_tc = a.dtype == torch.bfloat16
+        l0, t0 = fn.launches, fn.tc_launches
+        out = fn(a, *args, **kw)
+        if (fn.launches - l0, fn.tc_launches - t0) != (1, int(want_tc)):
+            raise AssertionError(f"{fn.__name__} {tuple(a.shape)} {a.dtype}: "
                                  f"tensor cores {want_tc} not taken")
         return out
 
@@ -533,8 +590,9 @@ def check_matmul_bwd(torch, fm, gen):
               for _ in range(copies)]
         ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies)]
-        dx = dx_on_branch(dys[0], ws[0], scale, True, out_dtype=torch.bfloat16)
-        dw = fm.matmul_dw(xs[0], dys[0], out_dtype=torch.bfloat16)
+        dx = on_branch(fm.matmul_dx, dys[0], ws[0], scale,
+                       out_dtype=torch.bfloat16)
+        dw = on_branch(fm.matmul_dw, xs[0], dys[0], out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         ok_x, ex = close_bf16(dx, fm.plain_dx(dys[0], ws[0], scale), 2.0 ** -16)
         ok_w, ew = close_bf16(dw, fm.plain_dw(xs[0], dys[0]), 2.0 ** -16)
@@ -542,6 +600,7 @@ def check_matmul_bwd(torch, fm, gen):
             raise AssertionError(f"matmul_dx/dw ({m},{k},{n}): max err {ex}/{ew}")
         max_err["matmul_dx"] = max(max_err["matmul_dx"], ex)
         max_err["matmul_dw"] = max(max_err["matmul_dw"], ew)
+        del dx, dw
 
         def f32_close(name, got, want):
             e32 = (got - want).abs().max().item()
@@ -550,68 +609,77 @@ def check_matmul_bwd(torch, fm, gen):
                 raise AssertionError(f"matmul_{name} f32 ({m},{k},{n}): {e32}")
             return e32
 
-        d32, s32 = dys[0].float(), scale.float()
-        # the tensor-core kernel's f32 sums at every contraction, the head's
-        # N = 128256 included, where they show its promotion
-        e32 = f32_close("dx bf16->f32", dx_on_branch(
-            dys[0], ws[0], scale, True, out_dtype=torch.float32),
+        d32, s32, x32 = dys[0].float(), scale.float(), xs[0].float()
+        # the tensor-core kernels' f32 sums at every shape, the head's
+        # N = 128256 included, where dx's contraction shows its promotion
+        # and dw's output is largest
+        e32 = f32_close("dx bf16->f32", on_branch(
+            fm.matmul_dx, dys[0], ws[0], scale, out_dtype=torch.float32),
             fm.plain_dx(d32, ws[0], s32))
+        ew32 = f32_close("dw bf16->f32", on_branch(fm.matmul_dw, xs[0], dys[0]),
+                         fm.plain_dw(x32, d32))
         if not timed:
             # the other f32 instantiations on the same values
-            x32 = xs[0].float()
             for name, got, want in (
-                    ("dx", dx_on_branch(d32, ws[0], s32, False,
-                                        out_dtype=torch.float32),
+                    ("dx", on_branch(fm.matmul_dx, d32, ws[0], s32,
+                                     out_dtype=torch.float32),
                      fm.plain_dx(d32, ws[0], s32)),
-                    ("dx bf16, f32 scale", dx_on_branch(
-                        dys[0], ws[0], s32, True, out_dtype=torch.float32),
+                    ("dx bf16, f32 scale", on_branch(
+                        fm.matmul_dx, dys[0], ws[0], s32,
+                        out_dtype=torch.float32),
                      fm.plain_dx(d32, ws[0], s32)),
-                    ("dw", fm.matmul_dw(x32, d32), fm.plain_dw(x32, d32)),
-                    ("dw bf16->f32", fm.matmul_dw(xs[0], dys[0]),
+                    ("dw", on_branch(fm.matmul_dw, x32, d32),
                      fm.plain_dw(x32, d32))):
                 f32_close(name, got, want)
             log(f"[kernels] matmul_dx/dw {m}x{k}x{n} (ragged"
                 f"{', misaligned dy' if (m, k, n) == MISALIGNED else ''}): "
                 f"max err {ex:.4g}/{ew:.4g}")
             continue
-        log(f"[kernels] matmul_dx {m}x{k}x{n} bf16 dy, f32 out: max err "
-            f"{e32:.4g}")
-        stable = (bit_stable(torch, lambda: fm.matmul_dx(dys[0], ws[0], scale), 40,
-                             f"matmul_dx ({m},{k},{n})")
-                  if (k, n) == HEAD_SHAPE else None)
-        del d32
+        log(f"[kernels] matmul_dx/dw {m}x{k}x{n} bf16 in, f32 out: max err "
+            f"{e32:.4g}/{ew32:.4g}")
+        head = (k, n) == HEAD_SHAPE
+        del d32, x32
         reps = 10 if k * n < 1e8 else 3
         wds = [(w.to(torch.bfloat16) * scale) for w in ws]
         flops = 2.0 * m * k * n
-        for name, kern, plain, lib, nbytes in (
+        dw_lib = [lambda x=x, d=d: torch.matmul(x.T, d) for x, d in zip(xs, dys)]
+        dw_plain = [lambda x=x, d=d: fm.plain_dw(x, d) for x, d in zip(xs, dys)]
+        for name, kern, plain, lib, nbytes, err, repeat in (
                 ("matmul_dx",
                  [lambda d=d, w=w: fm.matmul_dx(d, w, scale) for d, w in zip(dys, ws)],
                  [lambda d=d, w=w: fm.plain_dx(d, w, scale) for d, w in zip(dys, ws)],
                  [lambda d=d, w=w: torch.matmul(d, w.T) for d, w in zip(dys, wds)],
-                 2 * m * n + k * n + 2 * m * k + 2),
+                 2 * m * n + k * n + 2 * m * k + 2, ex, 40),
                 ("matmul_dw",
                  [lambda x=x, d=d: fm.matmul_dw(x, d, out_dtype=torch.bfloat16)
                   for x, d in zip(xs, dys)],
-                 [lambda x=x, d=d: fm.plain_dw(x, d) for x, d in zip(xs, dys)],
-                 [lambda x=x, d=d: torch.matmul(x.T, d) for x, d in zip(xs, dys)],
-                 2 * m * k + 2 * m * n + 2 * k * n)):
-            row = {"m": m, "k": k, "n": n,
-                   "max_abs_err": ex if name == "matmul_dx" else ew,
+                 dw_plain, dw_lib, 2 * m * k + 2 * m * n + 2 * k * n, ew, 20),
+                ("matmul_dw_f32",
+                 [lambda x=x, d=d: fm.matmul_dw(x, d) for x, d in zip(xs, dys)],
+                 dw_plain, dw_lib, 2 * m * k + 2 * m * n + 4 * k * n, ew32, 0)):
+            row = {"m": m, "k": k, "n": n, "max_abs_err": err,
                    "ms": cuda_time_ms(kern, reps),
                    "plain_ms": cuda_time_ms(plain, max(2, reps // 3)),
-                   "library_ms": cuda_time_ms(lib, reps)}
-            if name == "matmul_dx":
-                row["device_ms"] = graph_time_ms(kern, reps)
-                row["library_device_ms"] = graph_time_ms(lib, reps)
-                if stable:
-                    row["repeats_bit_equal"] = stable
+                   "library_ms": cuda_time_ms(lib, reps),
+                   "device_ms": graph_time_ms(kern, reps),
+                   "library_device_ms": graph_time_ms(lib, reps)}
+            if head and repeat:
+                row["repeats_bit_equal"] = bit_stable(
+                    torch, kern[0], repeat, f"{name} ({m},{k},{n})")
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
             rows[name].append(row)
             log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
                 f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
                 for key, val in row.items() if key not in ("m", "k", "n")))
-        del wds
-        del dys, xs, ws, dx, dw
+        del wds, dw_lib, dw_plain
+        del dys, xs, ws
+    # no rows: dw is exact zeros, on the tensor cores, in both dtypes
+    x0 = torch.empty(0, 136, dtype=torch.bfloat16, device=dev)
+    dy0 = torch.empty(0, 72, dtype=torch.bfloat16, device=dev)
+    for od in (torch.bfloat16, torch.float32):
+        z = on_branch(fm.matmul_dw, x0, dy0, out_dtype=od)
+        if z.shape != (136, 72) or z.dtype != od or bool(z.any()):
+            raise AssertionError(f"matmul_dw M = 0 ({od}): not zeros")
     torch.cuda.empty_cache()
     return rows, max_err
 
@@ -1008,11 +1076,11 @@ def check_qmatmul(torch, fm, gen):
     kernel, the plain version, one ``torch.matmul`` of bf16 x (dy) against
     the bf16-dequantized words (their transpose) and the bound; the kernel
     and the library call also by CUDA-graph replay (``device_ms``,
-    ``library_device_ms``); and ``matmul_dw`` with f32 out, which the prologue's dw
-    takes."""
+    ``library_device_ms``). The prologue's dw, ``matmul_dw`` with f32 out,
+    is timed in ``check_matmul_bwd``."""
     from repro_torch.kernels import ops
     dev = "cuda"
-    rows = {"fxp_qmatmul": [], "matmul_qdx": [], "matmul_dw_f32": []}
+    rows = {"fxp_qmatmul": [], "matmul_qdx": []}
     max_err = {"fxp_qmatmul": 0.0, "matmul_qdx": 0.0}
     f = 10
     fl = torch.tensor(f, dtype=torch.int32, device=dev)
@@ -1107,10 +1175,6 @@ def check_qmatmul(torch, fm, gen):
             log(f"[kernels] {name} {m}x{k}x{n}: " + ", ".join(
                 f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
                 for key, val in row.items() if key not in ("m", "k", "n")))
-        row = {"m": m, "k": k, "n": n,
-               "ms": cuda_time_ms([lambda: fm.matmul_dw(x, dy)], reps)}
-        rows["matmul_dw_f32"].append(row)
-        log(f"[kernels] matmul_dw {m}x{k}x{n} f32 out: ms={row['ms']:.4g}")
         del x, dy, w, words
         torch.cuda.empty_cache()
     return rows, max_err
@@ -1422,14 +1486,20 @@ def instrument(eng, torch, fm, fa, record):
     def wrap(fn, kind):
         def call(*args):
             torch.cuda.synchronize()
-            n0 = (fm.fxp_matmul.launches, fa.flash_attention.launches)
+            counts = (lambda: (fm.fxp_matmul.launches,
+                               fa.flash_attention.launches,
+                               fm.fxp_matmul.tc_launches,
+                               fm.fxp_matmul.gemv_launches))
+            n0 = counts()
             t0 = time.perf_counter()
             out = fn(*args)
             torch.cuda.synchronize()
+            n1 = counts()
             record.append({"kind": kind,
                            "ms": (time.perf_counter() - t0) * 1e3,
-                           "fxp": fm.fxp_matmul.launches - n0[0],
-                           "flash": fa.flash_attention.launches - n0[1]})
+                           **{key: b - a for key, a, b in zip(
+                               ("fxp", "flash", "fxp_tc", "fxp_gemv"),
+                               n0, n1)}})
             return out
         return call
     eng._prefill = wrap(eng._prefill, "prefill")
@@ -1461,21 +1531,25 @@ def main_path(torch, fm, fa):
     record = []
     instrument(eng, torch, fm, fa, record)
     torch.cuda.reset_peak_memory_stats()
-    fm.fxp_matmul.launches = 0
-    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+    reset_counts({"fxp_matmul": fm.fxp_matmul,
+                  "flash_attention": fa.flash_attention})
     t0 = time.perf_counter()
     out, logits = eng.generate(prompts, NEW)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {"fxp_matmul": fm.fxp_matmul.launches,
                 "flash_attention": fa.flash_attention.launches}
-    check_tensor_cores("main", launches)
     per_fwd = 7 * N_LAYERS + 1
+    # the prefill's dense layers (M = 512) take the tensor cores, its head
+    # (the last position of each prompt, M = 4) and every decode call the
+    # GEMV
+    check_tensor_cores("main", launches, gemv=1 + per_fwd * (NEW - 1))
     if record[0]["kind"] != "prefill" or len(record) != NEW:
         raise AssertionError(f"unexpected step record {record}")
     for r in record:
-        want = (per_fwd, N_LAYERS if r["kind"] == "prefill" else 0)
-        if (r["fxp"], r["flash"]) != want:
+        want = ((per_fwd, N_LAYERS, per_fwd - 1, 1) if r["kind"] == "prefill"
+                else (per_fwd, 0, 0, per_fwd))
+        if (r["fxp"], r["flash"], r["fxp_tc"], r["fxp_gemv"]) != want:
             raise AssertionError(f"{r['kind']}: launches {r} != {want}")
     if launches != {"fxp_matmul": per_fwd * NEW, "flash_attention": N_LAYERS}:
         raise AssertionError(f"main-path launches {launches}")
@@ -1689,17 +1763,34 @@ def wrappers():
     return out
 
 
-def check_tensor_cores(tag, launches):
-    """Every flash forward, dq and dkv, ``matmul_dx``, ``fxp_qmatmul`` and
-    ``matmul_qdx`` of a main path's run (bf16 activations) took the
-    tensor-core branch: the wrappers' ``tc_launches``, set to 0 with
-    ``launches`` just before the run, equal their launches."""
+def reset_counts(ws):
+    """Set every wrapper's counts (launches, and the tensor-core and GEMV
+    launches of those that have them) to 0."""
+    for w in ws.values():
+        for key in ("launches", "tc_launches", "gemv_launches"):
+            if hasattr(w, key):
+                setattr(w, key, 0)
+
+
+def check_tensor_cores(tag, launches, gemv=0):
+    """Every flash forward, dq and dkv, ``matmul_dx``, ``matmul_dw``,
+    ``fxp_qmatmul``, ``matmul_qdx`` and ``fxp_matmul`` at M > 16 of a main
+    path's run (bf16 activations) took the tensor-core branch, and the
+    ``gemv`` launches of ``fxp_matmul`` at M <= 16 (decode, the prefill's
+    head) its GEMV: the wrappers' ``tc_launches`` and ``gemv_launches``, set
+    to 0 with ``launches`` just before the run, account for every launch."""
     ws = wrappers()
     for name in TC_KERNELS:
-        if name in launches and ws[name].tc_launches != launches[name]:
+        if name not in launches:
+            continue
+        want = launches[name] - (gemv if name == "fxp_matmul" else 0)
+        if ws[name].tc_launches != want:
             raise AssertionError(f"{tag}: {ws[name].tc_launches} of "
                                  f"{launches[name]} {name} launches took "
-                                 "the tensor cores")
+                                 f"the tensor cores, want {want}")
+    if "fxp_matmul" in launches and ws["fxp_matmul"].gemv_launches != gemv:
+        raise AssertionError(f"{tag}: {ws['fxp_matmul'].gemv_launches} "
+                             f"fxp_matmul launches took the GEMV, want {gemv}")
 
 
 def train_path(torch, fm, fa):
@@ -1730,10 +1821,7 @@ def train_path(torch, fm, fa):
         log(f"[train] {line}")
 
     torch.cuda.reset_peak_memory_stats()
-    for w in ws.values():
-        w.launches = 0
-        if hasattr(w, "tc_launches"):
-            w.tc_launches = 0
+    reset_counts(ws)
     state, history = train_loop.train(cfg, steps=TRAIN_STEPS, state=state,
                                       log=log_step, device="cuda")
     launches = {k: w.launches for k, w in ws.items()}
@@ -1902,10 +1990,7 @@ def sr_train_path(torch):
         log(f"[sr] {line}")
 
     torch.cuda.reset_peak_memory_stats()
-    for w in ws.values():
-        w.launches = 0
-        if hasattr(w, "tc_launches"):
-            w.tc_launches = 0
+    reset_counts(ws)
     state, history = train_loop.train(cfg, steps=2, state=state, log=log_step,
                                       device="cuda")
     after = wlfl_histogram(state)
@@ -2075,10 +2160,7 @@ def run_steps(torch, tag, cfg, state, steps, per_step, per_switch=None):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in ws.values():
-        w.launches = 0
-        if hasattr(w, "tc_launches"):
-            w.tc_launches = 0
+    reset_counts(ws)
     start = int(state["step"])
     state, history = train_loop.train(cfg, steps=steps, state=state,
                                       log=log_step, device="cuda")
@@ -2207,10 +2289,7 @@ def float_train_path(torch, fm, fa):
     instrument(eng, torch, fm, fa, record)
     torch.cuda.reset_peak_memory_stats()
     ws = wrappers()
-    for w in ws.values():
-        w.launches = 0
-        if hasattr(w, "tc_launches"):
-            w.tc_launches = 0
+    reset_counts(ws)
     t0 = time.perf_counter()
     out, logits = eng.generate(prompts, NEW)
     torch.cuda.synchronize()
@@ -2520,8 +2599,7 @@ def default_quantizer_path(torch):
                      generator=torch.Generator(device="cuda").manual_seed(SEED))
     ws = wrappers()
     torch.cuda.synchronize()
-    for w in ws.values():
-        w.launches = 0
+    reset_counts(ws)
     got = torch.empty_like(leaf)
     for l in range(leaf.shape[0]):
         u = threefry.uniform(lkey, leaf.shape, offset=l * n, count=n,
@@ -2676,19 +2754,29 @@ def main() -> int:
         marks[name] = time.perf_counter() - t_start - sum(marks.values())
         log(f"[time] phase {name}: {marks[name]:.1f} s")
 
-    # 3. kernels
+    # 3. kernels, each check's seconds in check_seconds
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    fxp_rows, fxp_err = check_fxp_matmul(torch, fm, gen)
-    flash_rows, flash_err = check_flash(torch, fa, gen)
-    bwd_rows, bwd_err = check_matmul_bwd(torch, fm, gen)
-    fbwd_rows, fbwd_err = check_flash_bwd(torch, fa, gen)
-    sr_rows = check_sr_quantize(torch, sq, gen)
-    edf_rows = check_edf_ladder(torch, el, gen)
-    grid_rows = check_sr_grid(torch, sq, gen)
-    q_rows, q_err = check_qmatmul(torch, fm, gen)
-    cublas_rows = check_cublas_reduction(torch, gen)
-    ops_rows = check_ops_kernels(torch, gen)
+    check_s = {}
+
+    def timed(check, *modules):
+        t0 = time.perf_counter()
+        out = check(torch, *modules, gen)
+        torch.cuda.synchronize()
+        check_s[check.__name__] = time.perf_counter() - t0
+        return out
+
+    fxp_rows, fxp_err = timed(check_fxp_matmul, fm)
+    flash_rows, flash_err = timed(check_flash, fa)
+    bwd_rows, bwd_err = timed(check_matmul_bwd, fm)
+    fbwd_rows, fbwd_err = timed(check_flash_bwd, fa)
+    sr_rows = timed(check_sr_quantize, sq)
+    edf_rows = timed(check_edf_ladder, el)
+    grid_rows = timed(check_sr_grid, sq)
+    q_rows, q_err = timed(check_qmatmul, fm)
+    cublas_rows = timed(check_cublas_reduction)
+    ops_rows = timed(check_ops_kernels)
     torch.cuda.empty_cache()
+    log("[time] checks: " + ", ".join(f"{k} {v:.1f} s" for k, v in check_s.items()))
     mark("3 kernels")
 
     # 4. serving main path; 5. serving, card against CPU
@@ -2749,7 +2837,7 @@ def main() -> int:
         "float_depth2": float_depth2, "prologue_train": prologue_res,
         "prologue_depth2": prologue_depth2, "ops_kernels": ops_rows,
         "default_train": default_res, "default_depth2": default_depth2,
-        "kernels": kernels, "phase_seconds": marks,
+        "kernels": kernels, "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -2780,7 +2868,11 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
     4). Phase 14's default quantizer launches no kernel; its ops path
     launches ``sr_quantize`` once per (3072, 8192) f32 layer of the
     stacked leaf, ``kl_hist`` once on the (28, 3072, 8192) leaf (256 bins)
-    and ``int8_matmul`` twice at 2048 x 3072 x 8192."""
+    and ``int8_matmul`` twice at 2048 x 3072 x 8192. ``fxp_matmul``'s entry
+    also sums its two bf16 branches apart (``tensor_cores``: M > 16, the
+    prefill's layers and training; ``gemv``: M <= 16, decode and the
+    prefill's head), and ``matmul_dw`` takes path B's calls at the f32-out
+    times of ``check_matmul_bwd``."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     device_keys = ("device_ms", "library_device_ms")
 
@@ -2813,10 +2905,19 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         fwd_calls[(BATCH, k, n)] = per_layer * N_LAYERS * (NEW - 1)
     fwd_calls[(BATCH, *HEAD_SHAPE)] = NEW
     prologue_calls = dense_calls(PROLOGUE_STEPS)
+    fxp_by_shape = by_shape(fxp_rows)
+    # fxp_matmul by branch: M > 16 on the tensor cores (prefill, training),
+    # M <= 16 on the GEMV (decode, the prefill's head); the main paths'
+    # runs hold each launch to its branch (check_tensor_cores)
+    fxp_branches = {
+        name: {"launches": sum(calls.values()),
+               **summed(fxp_by_shape, calls, device_keys)}
+        for name, calls in (
+            ("tensor_cores", {s: c for s, c in fwd_calls.items() if s[0] > 16}),
+            ("gemv", {s: c for s, c in fwd_calls.items() if s[0] <= 16}))}
     dw_by_shape = by_shape(bwd_rows["matmul_dw"])
-    for r in q_rows["matmul_dw_f32"]:            # path B's f32-out dw
-        dw_by_shape[("f32",) + (r["m"], r["k"], r["n"])] = {
-            **dw_by_shape[(r["m"], r["k"], r["n"])], "ms": r["ms"]}
+    for shape, r in by_shape(bwd_rows["matmul_dw_f32"]).items():
+        dw_by_shape[("f32",) + shape] = r        # path B's f32-out dw
     dw_calls = {**train_calls,
                 **{("f32",) + s: c for s, c in prologue_calls.items()}}
 
@@ -2868,14 +2969,15 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
 
     return [
         entry("fxp_matmul", "fxp_matmul.cu", "fxp_matmul.py:84", fxp_err,
-              summed(by_shape(fxp_rows), fwd_calls)),
+              {**summed(fxp_by_shape, fwd_calls, device_keys),
+               **fxp_branches}),
         entry("flash_attention", "flash_attention.cu", "flash_attention.py:82",
               flash_err, summed(flash_by_case, flash_calls, device_keys)),
         entry("matmul_dx", "fxp_matmul_bwd.cu", "fxp_matmul.py:203",
               bwd_err["matmul_dx"], summed(by_shape(bwd_rows["matmul_dx"]),
                                            train_calls, device_keys)),
         entry("matmul_dw", "fxp_matmul_bwd.cu", "fxp_matmul.py:259",
-              bwd_err["matmul_dw"], summed(dw_by_shape, dw_calls)),
+              bwd_err["matmul_dw"], summed(dw_by_shape, dw_calls, device_keys)),
         entry("flash_attention_dq", "flash_attention_bwd.cu",
               "flash_attention.py:245", fbwd_err["flash_attention_dq"],
               {**summed({"train": fbwd_rows["flash_attention_dq"][0]},

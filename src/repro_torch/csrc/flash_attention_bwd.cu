@@ -415,15 +415,6 @@ constexpr int STAGES = 2;    // ring depth
 // tests/test_torch_tc_accumulation.py).
 constexpr int PROMOTE = 8;
 
-// The dynamic shared memory from its first 1024-byte boundary (the 128-byte
-// swizzle's atom). Offset from `raw` itself, not rounded as an integer, so
-// that the compiler keeps shared-space addressing for everything carved
-// from it: through an integer it addresses the totals generically, one
-// 64-bit address a thread per element, and dq spills them.
-__device__ __forceinline__ __nv_bfloat16* align1024(uint8_t* raw) {
-  return reinterpret_cast<__nv_bfloat16*>(raw + ((1024 - (sm90::smem_u32(raw) & 1023)) & 1023));
-}
-
 // The bf16 hi + lo split of two f32 values, each half packed as the
 // register of an A fragment (hi rounds a to nearest, lo rounds a - hi,
 // which is exact in f32).
@@ -548,7 +539,7 @@ flash_dq_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
             float scale, int causal, int window, float softcap) {
   using C = DqCfg<DP>;
   extern __shared__ uint8_t smem_raw[];
-  __nv_bfloat16* Qs = align1024(smem_raw);
+  __nv_bfloat16* Qs = sm90::align1024<__nv_bfloat16>(smem_raw);
   __nv_bfloat16* Os = Qs + C::Q_ELEMS;
   __nv_bfloat16* Ks = Os + C::Q_ELEMS;
   __nv_bfloat16* Vs = Ks + STAGES * C::KV_ELEMS;
@@ -712,7 +703,7 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
              float softcap) {
   using C = DkvCfg<DP>;
   extern __shared__ uint8_t smem_raw[];
-  __nv_bfloat16* Ks = align1024(smem_raw);
+  __nv_bfloat16* Ks = sm90::align1024<__nv_bfloat16>(smem_raw);
   __nv_bfloat16* Vs = Ks + C::KV_ELEMS;
   __nv_bfloat16* Qr = Vs + C::KV_ELEMS;           // ring of Q tiles
   __nv_bfloat16* Or = Qr + STAGES * C::R_ELEMS;   // ring of dO tiles

@@ -3,33 +3,55 @@
 // Replaces the TPU kernel `_fxp_matmul_kernel` of
 // src/repro/kernels/fxp_matmul.py (reached through `fxp_matmul`, its
 // pallas_call). x is (M, K) bf16 or f32, wq is (K, N) int8 words, the scale
-// is a device scalar (bf16 or f32) applied in f32 after an f32
-// accumulation, and y is (M, N) bf16 or f32. Any <M, K, N>: every load and
-// store is bounds-checked, so ragged K tails contribute exact zeros.
+// is a device scalar (bf16 or f32) applied in f32 once to the f32 sum, and
+// y is (M, N) bf16 or f32. Any <M, K, N>: elements out of range read as
+// zeros, so ragged K tails contribute exact zeros, and every store is
+// masked.
 //
 // What bounds it on an H100: at decode (M = batch) the int8 weight bytes,
-// K*N per call, over 3.35 TB/s; at prefill (M = batch*seq in the hundreds)
-// the 2*M*K*N operations. The words are converted to f32 in registers on
-// the way from device memory to shared memory: no dequantized weight is
-// ever written to device memory, so the bytes moved are the int8 words.
+// K*N per call, over 3.35 TB/s; at prefill and in training (M = batch*seq
+// in the hundreds or thousands) the 2*M*K*N operations at the bf16
+// tensor-core rate. No kernel writes a dequantized weight to device
+// memory: the words are converted on the way from device memory to the
+// products, so the bytes moved are the int8 words.
 //
-// Design (first, simple version; the tensor-core path is later work):
-//  * M > 16: a shared-memory-tiled SIMT GEMM, 64x64 output tiles, K in
-//    steps of 32, 256 threads each holding a 4x4 f32 accumulator; f32 FMA
-//    on exact products (an int8 word and a bf16 activation are both exact
-//    in f32). Words come in 4-byte vector loads where N and the pointer
-//    allow it, and are stored to shared memory already converted to f32.
-//  * M <= 16 (decode): a split-K GEMV. Each warp owns 128 columns (4 per
-//    lane, one 4-byte load of words per k) and a chunk of K, accumulates
-//    all M rows in registers, and adds its partial sums into an f32
-//    workspace with atomicAdd; a second small kernel applies the scale and
-//    writes y. The many independent loads per warp keep the memory system
-//    busy where a tiled kernel would leave most SMs idle. The order of the
-//    f32 atomic sums varies from run to run (last-bit differences).
+// Three kernels, chosen by the wrapper by dtype and M alone:
+//  * bf16 x, M > 16 (prefill, training): fxp_matmul_tc, on the tensor
+//    cores. It is matmul_dx_tc's pipeline (tc_words.cuh) with the operands
+//    swapped: x is A, K-major by TMA (boxes of 64 k x 256 rows); the words
+//    (K, N) arrive by TMA in boxes of 64 n x 64 k, and producer warpgroups
+//    convert them to bf16 (exact) into the MN-major swizzled layout that
+//    fxp_qmatmul_tc writes for its drawn words, which wgmma reads with the
+//    transpose bit. A CTA owns 256 rows and 64 columns of y, with two
+//    consumer warpgroups and two producer warpgroups taking the steps of
+//    64 along k in turn, the registers split 168 / 88 by setmaxnreg; the
+//    accumulators restart every 32 steps into round-to-nearest totals
+//    (wgmma's sums round toward zero). Rows past M read as zeros and are
+//    not stored, so it takes any M. It replaces a SIMT kernel that ran at
+//    15x torch.matmul's time (PERF.md section 6).
+//  * f32 x, M > 16: a shared-memory-tiled SIMT GEMM, 64x64 output tiles,
+//    K in steps of 32, 256 threads each holding a 4x4 f32 accumulator; f32
+//    FMA on exact products (an int8 word and a bf16 activation are both
+//    exact in f32). Words come in 4-byte vector loads where N and the
+//    pointer allow it, and are stored to shared memory already converted
+//    to f32.
+//  * M <= 16 (decode, either dtype): a split-K GEMV. Each warp owns 128
+//    columns (4 per lane, one 4-byte load of words per k) and a chunk of K,
+//    accumulates all M rows in registers, and adds its partial sums into
+//    an f32 workspace with atomicAdd; a second small kernel applies the
+//    scale and writes y. The many independent loads per warp keep the
+//    memory system busy where a tiled kernel would leave most SMs idle.
+//    The order of the f32 atomic sums varies from run to run (last-bit
+//    differences).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
+#include "tc_words.cuh"
 
 namespace {
 
@@ -225,17 +247,43 @@ cudaError_t launch(const void* x, const int8_t* w, const void* scale,
     fxp_matmul_finish<TY><<<blocks, 256, 0, stream>>>(ws, scale, scale_bf16, yp, total);
     return cudaGetLastError();
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fxp_matmul_tiled<TX, TY><<<grid, NT, 0, stream>>>(xp, w, scale, scale_bf16, yp, M, N, K, vec4);
-  return cudaGetLastError();
+  if constexpr (std::is_same<TX, float>::value) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    fxp_matmul_tiled<TX, TY><<<grid, NT, 0, stream>>>(xp, w, scale, scale_bf16, yp, M, N, K,
+                                                      vec4);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;   // bf16 x with M > 16 takes fxp_matmul_tc
+  }
 }
+
+// ---------------------------------------------------------------------------
+// Tensor cores (bf16 x, M > 16): tc_words.cuh's pipeline, the words MN-major
+
+namespace tcfw {
+
+// steps summed by wgmma before promotion, as fxp_qmatmul_tc: over K <= 8192
+// the drift stays well inside check_fxp_matmul's bounds
+// (tests/test_torch_tc_accumulation.py)
+constexpr int PROMOTE = 32;
+struct fxp_matmul_tc;                    // names the kernel
+
+template <typename TO>
+cudaError_t launch(const void* x, int ldx, const int8_t* w, const void* scale, int sb,
+                   void* y, int M, int N, int K, cudaStream_t st) {
+  return tc_words::launch<fxp_matmul_tc, true, PROMOTE, TO>(x, ldx, w, K, N, scale, sb, y, M,
+                                                             N, K, st);
+}
+
+}  // namespace tcfw
 
 }  // namespace
 
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. `ws` is an (M, N) f32 workspace,
-// used (and may be null) only when M <= 16. Returns cudaGetLastError().
+// used (and may be null) only when M <= 16. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for bf16 x with M > 16 (fxp_matmul_tc_launch's).
 int fxp_matmul_launch(const void* x, int x_dtype, const void* w,
                       const void* scale, int scale_dtype, void* y, int y_dtype,
                       void* ws, int M, int N, int K, void* stream) {
@@ -254,6 +302,24 @@ int fxp_matmul_launch(const void* x, int x_dtype, const void* w,
   else
     err = launch<float, float>(x, wp, scale, sb, y, wsp, M, N, K, st);
   return (int)err;
+}
+
+// The tensor-core branch of fxp_matmul: x (M, K) bf16 with rows of `ldx`
+// elements (ldx >= K, a multiple of 8, x 16-byte aligned), y (M, N) f32 or
+// bf16. Returns cudaGetLastError(), or cudaErrorInvalidValue for a layout
+// it does not take or a tensor map that cuTensorMapEncodeTiled refuses.
+int fxp_matmul_tc_launch(const void* x, int ldx, const void* w, const void* scale,
+                         int scale_dtype, void* y, int y_dtype, int M, int N, int K,
+                         void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (ldx < K || ldx % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int sb = scale_dtype == 1;
+  return (int)(y_dtype == 1
+                   ? tcfw::launch<__nv_bfloat16>(x, ldx, wp, scale, sb, y, M, N, K, st)
+                   : tcfw::launch<float>(x, ldx, wp, scale, sb, y, M, N, K, st));
 }
 
 }  // extern "C"

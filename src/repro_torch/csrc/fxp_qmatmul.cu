@@ -505,7 +505,7 @@ matmul_qdx_tc(const __grid_constant__ CUtensorMap dymap,
     // to the producers of both CTAs.
     float tot[2][tc_gemm::ACC];
     const int lane = t % 32;
-    tc_gemm::consume<false, STAGES, PROMOTE>(
+    tc_gemm::consume<false, false, STAGES, PROMOTE>(
         tot, As + wg * 128 * BK, A_ELEMS, Bs, B_ELEMS, n_steps,
         [&](int s, uint32_t parity) { sm90::mbar_wait_cluster(&full[s], parity); },
         [&](int s) {
@@ -702,7 +702,7 @@ fxp_qmatmul_tc(const __grid_constant__ CUtensorMap xmap,
     // MN-major; a stage is released to the producers of both CTAs.
     float tot[2][tc_gemm::ACC];
     const int lane = t % 32;
-    tc_gemm::consume<true, STAGES, PROMOTE>(
+    tc_gemm::consume<false, true, STAGES, PROMOTE>(
         tot, As + wg * 128 * BK, A_ELEMS, Bs, B_ELEMS, n_steps,
         [&](int s, uint32_t parity) { sm90::mbar_wait_cluster(&full[s], parity); },
         [&](int s) {

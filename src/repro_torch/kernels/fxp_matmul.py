@@ -18,12 +18,14 @@ draws the words from the f32 master in registers: the CUDA kernels of
 * ``matmul_qdx`` replaces ``_matmul_qdx_kernel``: dx = (dy @ Q(w)ᵀ)·2^-FL
   on the same words.
 
-``matmul_dx``, ``fxp_qmatmul`` and ``matmul_qdx`` each have two kernels,
-chosen by dtype alone: on bf16 activations (the main path) a tensor-core
-kernel (wgmma, the activations by TMA, the words read or drawn into shared
-memory by producer warpgroups), counted in the wrapper's ``tc_launches``;
-on f32 activations a SIMT kernel. A refused launch raises; neither falls
-back to the other or to the plain version.
+Every wrapper takes a tensor-core kernel on bf16 activations (the main
+path), counted in its ``tc_launches``: wgmma, the activations by TMA, the
+words read or drawn into shared memory by producer warpgroups (none for
+``matmul_dw``, whose operands both arrive by TMA as they lie); and a SIMT
+kernel on f32 activations. ``fxp_matmul`` chooses by M too: at M <= 16
+(decode) either dtype takes its split-K GEMV, counted in
+``gemv_launches``, and bf16 x with M > 16 the tensor cores. A refused
+launch raises; no branch falls back to another or to the plain version.
 
 No kernel writes a dequantized weight or a word tensor to device memory
 (see the notes at the top of the CUDA sources for their designs).
@@ -52,12 +54,14 @@ _SPLITK_MAX_M = 16          # the kernel's GEMV path takes M <= 16
 
 def _lib():
     lib = _build.load("fxp_matmul")
-    fn = lib.fxp_matmul_launch
+    fn, tc = lib.fxp_matmul_launch, lib.fxp_matmul_tc_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, p, p, i, p, i, p, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        tc.argtypes = [p, i, p, p, i, p, i, i, i, i, p]
+        tc.restype = ctypes.c_int
+    return fn, tc
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,7 +86,10 @@ def fxp_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
 
     x: (M, K) bf16/f32 contiguous; wq: (K, N) int8 contiguous; scale: a
     one-element bf16/f32 tensor (2^-FL) on the same device, read by the
-    kernel (no host sync). ``out_dtype`` (bf16/f32) defaults to x's."""
+    kernel (no host sync). ``out_dtype`` (bf16/f32) defaults to x's. M <= 16
+    takes the split-K GEMV (counted in ``fxp_matmul.gemv_launches``), bf16
+    x with M > 16 the tensor-core kernel (``fxp_matmul.tc_launches``), f32
+    x with M > 16 the SIMT one."""
     check_card(x)
     out_dtype = out_dtype or x.dtype
     if x.ndim != 2 or wq.ndim != 2 or x.shape[1] != wq.shape[0]:
@@ -103,34 +110,48 @@ def fxp_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
     M, K = x.shape
     N = wq.shape[1]
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ws = (torch.empty((M, N), dtype=torch.float32, device=x.device)
-          if M <= _SPLITK_MAX_M else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib()(x.data_ptr(), _DTYPE_CODE[x.dtype], wq.data_ptr(),
-                 scale.data_ptr(), _DTYPE_CODE[scale.dtype], y.data_ptr(),
-                 _DTYPE_CODE[out_dtype], None if ws is None else ws.data_ptr(),
-                 M, N, K, stream)
+    gemv = M <= _SPLITK_MAX_M
+    tc = not gemv and x.dtype == torch.bfloat16
+    if tc:
+        a = _tma_rows(x)
+        err = _lib()[1](a.data_ptr(), a.shape[1], wq.data_ptr(),
+                        scale.data_ptr(), _DTYPE_CODE[scale.dtype],
+                        y.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K, stream)
+    else:
+        ws = (torch.empty((M, N), dtype=torch.float32, device=x.device)
+              if gemv else None)
+        err = _lib()[0](x.data_ptr(), _DTYPE_CODE[x.dtype], wq.data_ptr(),
+                        scale.data_ptr(), _DTYPE_CODE[scale.dtype],
+                        y.data_ptr(), _DTYPE_CODE[out_dtype],
+                        None if ws is None else ws.data_ptr(), M, N, K, stream)
     _build.check(err, "fxp_matmul")
     fxp_matmul.launches += 1
+    fxp_matmul.tc_launches += int(tc)
+    fxp_matmul.gemv_launches += int(gemv)
     return y
 
 
 fxp_matmul.launches = 0
+fxp_matmul.tc_launches = 0
+fxp_matmul.gemv_launches = 0
 
 
 def _bwd_lib():
     lib = _build.load("fxp_matmul_bwd")
     dx, dw = lib.matmul_dx_launch, lib.matmul_dw_launch
-    dx_tc = lib.matmul_dx_tc_launch
+    dx_tc, dw_tc = lib.matmul_dx_tc_launch, lib.matmul_dw_tc_launch
     if dx.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         dx.argtypes = [p, i, p, p, i, p, i, i, i, i, p]
         dx.restype = ctypes.c_int
-        dw.argtypes = [p, p, i, p, i, i, i, i, p]
+        dw.argtypes = [p, p, p, i, i, i, i, p]
         dw.restype = ctypes.c_int
         dx_tc.argtypes = [p, i, p, p, i, p, i, i, i, i, p]
         dx_tc.restype = ctypes.c_int
-    return dx, dw, dx_tc
+        dw_tc.argtypes = [p, i, p, i, p, i, i, i, i, p]
+        dw_tc.restype = ctypes.c_int
+    return dx, dw, dx_tc, dw_tc
 
 
 def _check_operands(name: str, ref: torch.Tensor, **tensors) -> None:
@@ -206,7 +227,9 @@ def matmul_dw(x: torch.Tensor, dy: torch.Tensor, *,
 
     x: (M, K), dy: (M, N), contiguous, both bf16 or both f32. The result is
     (K, N) in ``out_dtype``: f32, or bf16 rounded to nearest even (the
-    straight-through cast onto a bf16 receiver)."""
+    straight-through cast onto a bf16 receiver). bf16 operands take the
+    tensor-core kernel (counted in ``matmul_dw.tc_launches``), f32 ones the
+    SIMT one."""
     check_card(x)
     if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]:
         raise ValueError(f"matmul_dw: shapes {tuple(x.shape)}, {tuple(dy.shape)}")
@@ -220,14 +243,23 @@ def matmul_dw(x: torch.Tensor, dy: torch.Tensor, *,
     N = dy.shape[1]
     dw = torch.empty((K, N), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _bwd_lib()[1](x.data_ptr(), dy.data_ptr(), _DTYPE_CODE[x.dtype],
-                        dw.data_ptr(), _DTYPE_CODE[out_dtype], M, K, N, stream)
+    tc = x.dtype == torch.bfloat16
+    if tc:
+        a, b = _tma_rows(x), _tma_rows(dy)
+        err = _bwd_lib()[3](a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1],
+                            dw.data_ptr(), _DTYPE_CODE[out_dtype], M, K, N,
+                            stream)
+    else:
+        err = _bwd_lib()[1](x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                            _DTYPE_CODE[out_dtype], M, K, N, stream)
     _build.check(err, "matmul_dw")
     matmul_dw.launches += 1
+    matmul_dw.tc_launches += int(tc)
     return dw
 
 
 matmul_dw.launches = 0
+matmul_dw.tc_launches = 0
 
 
 def _q_lib():

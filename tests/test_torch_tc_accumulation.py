@@ -1,11 +1,13 @@
-"""The arithmetic of the tensor-core branches of ``fxp_qmatmul`` and
-``matmul_dx`` (``csrc/fxp_qmatmul.cu`` ``fxp_qmatmul_tc``,
-``csrc/fxp_matmul_bwd.cu`` ``matmul_dx_tc``), emulated in plain PyTorch on
-the CPU and held against the port's plain versions and the reference's
-Pallas kernels in interpret mode.
+"""The arithmetic of the tensor-core branches of ``fxp_qmatmul``,
+``matmul_dx``, ``fxp_matmul`` and ``matmul_dw`` (``csrc/fxp_qmatmul.cu``
+``fxp_qmatmul_tc``, ``csrc/fxp_matmul_bwd.cu`` ``matmul_dx_tc`` and
+``matmul_dw_tc``, ``csrc/fxp_matmul.cu`` ``fxp_matmul_tc``), emulated in
+plain PyTorch on the CPU and held against the port's plain versions and the
+reference's Pallas kernels in interpret mode.
 
-Both branches multiply bf16 activations by int8 words held as bf16, so
-every product is exact in f32. ``wgmma`` sums the 16 products of a k16
+The word branches multiply bf16 activations by int8 words held as bf16, and
+``matmul_dw_tc`` bf16 activations by bf16 gradients, so every product is
+exact in f32. ``wgmma`` sums the 16 products of a k16
 chunk and adds them to its f32 accumulator rounded toward zero; every
 ``PROMOTE`` steps of 64 along the contraction the kernel restarts the
 accumulator and adds it into a total with round-to-nearest. The emulation
@@ -15,7 +17,8 @@ that the promotion interval each kernel uses keeps the sums within
 ``chip_smoke.check_qmatmul``'s and ``check_matmul_bwd``'s bounds: f32
 outputs within 1e-5·max|plain|, bf16 outputs within one bf16 ulp +
 2^-16·max|plain|. Without promotion the drift toward zero passes the f32
-bound at the LM head's contraction (N = 128256).
+bound at the LM head's contraction (N = 128256), and ``matmul_dw``'s
+drift passes it at the registry's microbatch of 32 × 4096 rows.
 
 The flash backward's tensor-core branch (``csrc/flash_attention_bwd.cu``,
 ``flash_dq_tc`` and ``flash_dkv_tc``) multiplies f32 P and g, split into
@@ -42,7 +45,8 @@ from repro.kernels import fxp_matmul as jfm  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels._build import CSRC  # noqa: E402
-from repro_torch.kernels.ref import (ref_fxp_qdense, ref_matmul_dx,  # noqa: E402
+from repro_torch.kernels.ref import (ref_fxp_matmul, ref_fxp_qdense,  # noqa: E402
+                                     ref_matmul_dw, ref_matmul_dx,
                                      ref_qdense_words)
 
 STEP = 64                  # contraction per pipeline step, as the kernels
@@ -58,9 +62,14 @@ def _kernel_promote(source: str, namespace: str) -> int:
 
 
 # Steps between promotions, read from the kernels: tcf::PROMOTE
-# (fxp_qmatmul_tc) and tcdx::PROMOTE (matmul_dx_tc).
+# (fxp_qmatmul_tc), tcdx::PROMOTE (matmul_dx_tc), tcfw::PROMOTE
+# (fxp_matmul_tc) and tcdw::PROMOTE (matmul_dw_tc).
 QMATMUL_PROMOTE = _kernel_promote("fxp_qmatmul.cu", "tcf")
 DX_PROMOTE = _kernel_promote("fxp_matmul_bwd.cu", "tcdx")
+FWD_PROMOTE = _kernel_promote("fxp_matmul.cu", "tcfw")
+DW_PROMOTE = _kernel_promote("fxp_matmul_bwd.cu", "tcdw")
+TRAIN_M = 2048             # chip_smoke's training rows: 4 x 512
+MICROBATCH_M = 32 * 4096   # the registry's llama3.2-3b microbatch (8-way accumulation)
 BWD_PROMOTE = _kernel_promote("flash_attention_bwd.cu", "tcb")   # both kernels
 FL = 10                    # chip_smoke's FL; words of 0.02·N(0, 1) masters
 
@@ -196,6 +205,100 @@ def test_dx_emulation_matches_interpret_kernel():
                              out_dtype=jdt, interpret=True)
         want = torch.from_numpy(np.asarray(want.astype(jnp.float32))).to(dt)
         assert _within(got.to(dt), want), dt
+
+
+def _fwd_case(m, k, n):
+    rng = np.random.default_rng(5 * k + n)
+    x = _bf16(rng, (m, k))
+    wq = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    scale = torch.tensor(2.0 ** -FL, dtype=torch.bfloat16)
+    return x, wq, scale
+
+
+def _emulated_fwd(x, wq, scale, promote):
+    return emulate_tc(x.float(), wq.float(), promote) * scale.float()
+
+
+def _dw_case(m, k, n):
+    rng = np.random.default_rng(m + 7 * k + n)
+    return _bf16(rng, (m, k)), _bf16(rng, (m, n))
+
+
+def _emulated_dw(x, dy, promote):
+    return emulate_tc(x.float().T, dy.float(), promote)
+
+
+@pytest.mark.parametrize("k", [3072, 8192])
+def test_fxp_matmul_promotion_within_bounds(k):
+    """The forward's training and prefill contractions (K = d_model and
+    d_ff), random int8 words: f32 and bf16 out."""
+    x, wq, scale = _fwd_case(6, k, 24)
+    got = _emulated_fwd(x, wq, scale, FWD_PROMOTE)
+    want = ref_fxp_matmul(x.float(), wq, scale.float(), out_dtype=torch.float32)
+    assert _within(got, want), (got - want).abs().max()
+    assert _within(got.to(torch.bfloat16), ref_fxp_matmul(x, wq, scale))
+
+
+@pytest.mark.parametrize("m", [TRAIN_M, MICROBATCH_M])
+def test_dw_promotion_within_bounds(m):
+    """dw's contraction over the rows of a step: chip_smoke's 4 x 512 and
+    the registry's microbatch of 32 x 4096, where the accumulation over
+    microbatches adds these sums (so remat and accumulation need no other
+    interval): f32 out within a quarter of the bound (the rest is left to
+    the plain version's own f32 sums), and bf16 out within its bound."""
+    x, dy = _dw_case(m, 4, 12)
+    got = _emulated_dw(x, dy, DW_PROMOTE)
+    want = ref_matmul_dw(x, dy)
+    err = (got - want).abs().max()
+    assert err <= 0.25 * 1e-5 * want.abs().max(), err
+    assert _within(got.to(torch.bfloat16), want.to(torch.bfloat16))
+
+
+def test_dw_without_promotion_drifts():
+    """The mutant that never promotes: over the microbatch's 131072 rows
+    its toward-zero drift passes the f32 bound (at M = 2048 it stays within
+    it, and the kernel promotes all the same)."""
+    x, dy = _dw_case(MICROBATCH_M, 4, 12)
+    want = ref_matmul_dw(x, dy)
+    assert not _within(_emulated_dw(x, dy, None), want)
+    x, dy = _dw_case(TRAIN_M, 4, 12)
+    assert _within(_emulated_dw(x, dy, None), ref_matmul_dw(x, dy))
+
+
+def test_fxp_matmul_without_promotion_stays_within_bounds():
+    """The forward's contraction is at most K = 8192: even the mutant that
+    never promotes stays within the f32 bound there, so its interval is
+    chosen for margin (as fxp_qmatmul_tc's), not forced."""
+    x, wq, scale = _fwd_case(6, 8192, 24)
+    want = ref_fxp_matmul(x.float(), wq, scale.float(), out_dtype=torch.float32)
+    assert _within(_emulated_fwd(x, wq, scale, None), want)
+
+
+def test_fxp_matmul_emulation_matches_interpret_kernel():
+    """A small ragged shape against the reference's ``fxp_matmul`` in
+    interpret mode, f32 and bf16 out."""
+    x, wq, scale = _fwd_case(9, 300, 70)
+    got = _emulated_fwd(x, wq, scale, FWD_PROMOTE)
+    jx = jnp.asarray(interop.tensor_to_numpy(x))
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        want = jfm.fxp_matmul(jx, jnp.asarray(wq.numpy()), jnp.float32(2.0 ** -FL),
+                              out_dtype=jdt, interpret=True)
+        want = torch.from_numpy(np.asarray(want.astype(jnp.float32))).to(dt)
+        assert _within(got.to(dt), want), dt
+
+
+def test_dw_emulation_matches_interpret_kernel():
+    """A small ragged shape (M = 600: the interpret kernel's M steps of 256
+    with a tail) against the reference's ``matmul_dw`` in interpret mode,
+    f32 out and its bf16 rounding."""
+    x, dy = _dw_case(600, 9, 70)
+    got = _emulated_dw(x, dy, DW_PROMOTE)
+    want = jfm.matmul_dw(jnp.asarray(interop.tensor_to_numpy(x)),
+                         jnp.asarray(interop.tensor_to_numpy(dy)), interpret=True)
+    want = torch.from_numpy(np.asarray(want))
+    assert want.dtype == torch.float32
+    assert _within(got, want)
+    assert _within(got.to(torch.bfloat16), want.to(torch.bfloat16))
 
 
 def test_words_of_the_emulation_are_the_prologue_words():

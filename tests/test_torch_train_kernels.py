@@ -273,3 +273,45 @@ def test_matmul_dx_dispatch_counters_stay_put_off_the_card(dtype):
     y.backward(torch.ones_like(y))
     assert x.grad.shape == (3, 5)
     assert (fn.launches, fn.tc_launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [4, 37])
+def test_fxp_matmul_and_dw_dispatch_counters_stay_put_off_the_card(dtype, m):
+    """``fxp_matmul`` counts its tensor-core launches (bf16 x, M > 16) and
+    its GEMV launches (M <= 16), ``matmul_dw`` its tensor-core launches
+    (bf16); a CPU tensor of either dtype and either side of M = 16 raises
+    before any count moves, and the dense layer on the CPU (its plain
+    versions, forward and backward) moves none."""
+    fns = (fxp_matmul.fxp_matmul, fxp_matmul.matmul_dw)
+    counts = lambda: [(f.launches, f.tc_launches, getattr(f, "gemv_launches", 0))
+                      for f in fns]
+    before = counts()
+    x = torch.ones(m, 5, dtype=dtype)
+    wq = torch.ones(5, 8, dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fxp_matmul.fxp_matmul(x, wq, torch.tensor(0.5, dtype=dtype))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fxp_matmul.matmul_dw(x, torch.ones(m, 8, dtype=dtype))
+    tx = x.clone().requires_grad_()
+    y = ops.fxp_dense(tx, wq, torch.tensor(0.5, dtype=dtype), torch.zeros(5, 8),
+                      use_pallas=True)
+    y.backward(torch.ones_like(y))
+    assert tx.grad.shape == (m, 5)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("shape, offset", [((6, 16), 0), ((6, 13), 0), ((6, 16), 1)])
+def test_tma_rows_pads_only_what_tma_cannot_address(shape, offset):
+    """The tensor-core wrappers hand TMA rows of a multiple of 8 elements
+    from a 16-byte-aligned base: ``_tma_rows`` returns such a tensor itself
+    and otherwise a copy padded with zero columns, equal on the first
+    columns."""
+    flat = torch.arange(shape[0] * shape[1] + offset, dtype=torch.bfloat16)
+    a = flat[offset:].view(shape)
+    got = fxp_matmul._tma_rows(a)
+    aligned = shape[1] % 8 == 0 and a.data_ptr() % 16 == 0
+    assert (got is a) == aligned
+    assert got.shape[1] % 8 == 0 and got.data_ptr() % 16 == 0
+    assert torch.equal(got[:, :shape[1]], a)
+    assert not got[:, shape[1]:].any()
