@@ -13,6 +13,8 @@ each.
 Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit; require compute capability 9.0;
   2. build: nvcc the CUDA sources of ``src/repro_torch/csrc`` (in parallel);
+     ptxas must report no spill for the GEMV and the int8 tensor-core
+     kernel;
   3. kernels, each against its plain version on the same inputs, with the
      times of the kernel, the plain version, one PyTorch call
      (``library_ms``, a yardstick only) and the bound: ``fxp_matmul`` at
@@ -20,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught):
      a misaligned x, on all three branches (bf16 x with M > 16 on the
      tensor cores, M <= 16 on the GEMV, f32 x with M > 16 on the SIMT
      kernel), the kernel and ``torch.matmul`` also timed by CUDA-graph
-     replay;
+     replay, the GEMV at M = 1, 3, 4, 8, 16 and on misaligned words, and
+     repeated for equal bits at the decode head and the MLP wo;
      ``flash_attention`` at the prefill and training shapes plus ragged /
      window+softcap / no-key-rows / non-causal cases and lse, on both
      branches (bf16 with D % 16 == 0 on the tensor cores, D up to 256;
@@ -48,8 +51,12 @@ Phases (any failure exits non-zero; nothing is caught):
      bit for bit on the stacked (28, 3072, 8192) leaf at <8,4> and <16,13>,
      one layer of it, bf16 x, a ragged size and the pathological values;
      ``int8_matmul`` bit for bit at M = 2048 on the four dense shapes and
-     the head, at 509 x 1031 x 127, at M = 4 and on the largest sums, its
-     scale gradients within 1e-5; ``kl_hist`` bit for bit on that leaf
+     the head, at 509 x 1031 x 127, at M = 4, on a misaligned xq and on the
+     largest sums, each on the branch its shape and alignment name (the
+     tensor cores or ``__dp4a``), repeated for equal bits at the head,
+     timed by CUDA-graph replay against ``torch._int_mm`` with wq
+     row-major and column-major, its scale gradients within 1e-5;
+     ``kl_hist`` bit for bit on that leaf
      against its SR copy at 256 and 150 bins and on the pathological
      values;
   4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
@@ -59,6 +66,7 @@ Phases (any failure exits non-zero; nothing is caught):
      ``matmul_dx``, ``matmul_dw``, ``fxp_qmatmul``, ``matmul_qdx`` and
      ``fxp_matmul`` at M > 16 must have taken the tensor-core branch, and
      ``fxp_matmul`` at M <= 16, decode and the prefill's head, its GEMV);
+     8 profiled decode steps show one GEMV kernel a call and no memset;
   5. serving, card against CPU: the same model at depth 2, same weights,
      plain versions on the CPU against the kernels on the card;
   6. training main path: full llama3.2-3b, RTN words at FL 10, 3 steps of
@@ -101,7 +109,8 @@ Phases (any failure exits non-zero; nothing is caught):
      layer of one of the step's stacked leaves with the step's own noise
      (equal to the controller's grid values bit for bit), ``ops.kl_hist``
      of that leaf against its SR copy and ``ops.int8_matmul`` forward and
-     backward on words of the step, each launch counted;
+     backward on words of the step (both on the tensor cores), each launch
+     counted;
  15. phase 14's configuration, card against CPU at depth 2: the quantized
      copy each step read bit-equal, one step within the slice-2 bounds
      (the CPU taking the plain attention's AV product in the card's bf16),
@@ -312,6 +321,26 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def spill_free(reports, kernels) -> None:
+    """ptxas -v of each source built in this run: every function whose name
+    holds ``kernels[source]`` has 0 bytes of spill stores and loads. A
+    source already built (no report) is not checked."""
+    for source, key in kernels.items():
+        lines = reports.get(source, "").splitlines()
+        seen = 0
+        for i, line in enumerate(lines):
+            if "Function properties for" not in line or key not in line:
+                continue
+            seen += 1
+            props = next((l for l in lines[i + 1:i + 3] if "spill" in l), "")
+            if "0 bytes spill stores, 0 bytes spill loads" not in props:
+                raise AssertionError(f"{source}: {line.strip()} {props.strip()}")
+        if lines and not seen:
+            raise AssertionError(f"{source}: no ptxas report for {key}")
+        log(f"[build] {source}: {seen} {key} functions, no spill"
+            if lines else f"[build] {source}: built before, spills not checked")
+
+
 def bit_stable(torch, fn, reps: int, what: str) -> int:
     """``fn`` called ``reps`` times more on the same inputs returns the first
     call's outputs bit for bit: the tensor-core kernels use no atomics, so a
@@ -345,7 +374,9 @@ def check_fxp_matmul(torch, fm, gen):
     ``torch.matmul`` of x against the bf16-dequantized words and the
     bound; the kernel and the library call also by CUDA-graph replay
     (``device_ms``, ``library_device_ms``). The tensor-core kernel repeated
-    at the training head's shape must give equal bits."""
+    at the training head's shape, and the GEMV at the decode head's and
+    the MLP wo's, must give equal bits. The GEMV's cases cover its three M
+    buckets (M <= 4, 8, 16), M = 1, ragged K and N and misaligned words."""
     dev = "cuda"
     scale = torch.tensor(2.0 ** -10, dtype=torch.bfloat16, device=dev)
     prefill_m, decode_m = BATCH * PROMPT, BATCH
@@ -354,7 +385,7 @@ def check_fxp_matmul(torch, fm, gen):
     cases += [(decode_m, *HEAD_SHAPE), (prefill_m, *HEAD_SHAPE),
               (TRAIN_M, *HEAD_SHAPE),
               (37, 3071, 1025), (3, 3071, 1025), (16, 100, 36), (17, 129, 257),
-              MISALIGNED]
+              MISALIGNED, (8, 1000, 300), (1, 8192, 200), GEMV_MISALIGNED_W]
     c = fm.fxp_matmul
 
     def branch(m, dtype):
@@ -382,6 +413,8 @@ def check_fxp_matmul(torch, fm, gen):
             xs = [misaligned(torch, x) for x in xs]
         ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies)]
+        if (m, k, n) == GEMV_MISALIGNED_W:
+            ws = [misaligned(torch, w) for w in ws]
         got = on_branch(xs[0], ws[0], scale)
         want = fm.plain(xs[0], ws[0], scale)
         torch.cuda.synchronize()
@@ -418,7 +451,8 @@ def check_fxp_matmul(torch, fm, gen):
             row["device_ms"] = graph_time_ms(kern, reps)
             row["library_device_ms"] = graph_time_ms(lib, reps)
             del wds, lib
-            if (m, k, n) == (TRAIN_M, *HEAD_SHAPE):
+            if (m, k, n) in ((TRAIN_M, *HEAD_SHAPE), (decode_m, *HEAD_SHAPE),
+                             (decode_m, D_FF, D_MODEL)):
                 row["repeats_bit_equal"] = bit_stable(
                     torch, lambda: fm.fxp_matmul(xs[0], ws[0], scale), 20,
                     f"fxp_matmul ({m},{k},{n})")
@@ -1059,6 +1093,7 @@ def misaligned(torch, t):
 RAGGED = [(37, 3071, 1025), (130, 257, 129), (7, 67, 33), (2050, 100, 8),
           (700, 200, 328)]
 MISALIGNED = (600, 264, 136)
+GEMV_MISALIGNED_W = (5, 300, 64)        # the GEMV's words one byte off 16
 
 
 def check_qmatmul(torch, fm, gen):
@@ -1226,12 +1261,19 @@ def check_ops_kernels(torch, gen):
     f64 -> f32 rounds as int32 -> f32 does) at M = 2048 on the four dense
     shapes and the head, at 509 x 1031 x 127, at M = 4 and on the largest
     sums (all words -128 with K = 8192: acc = 2^27; all 127: 132 128 768,
-    which f32 rounds); its scale gradients through ``ops.int8_matmul``
+    which f32 rounds) and on a misaligned xq, each on the branch that
+    ``takes_tensor_cores`` names (the counters: the tensor cores where TMA
+    can address both operands, else ``__dp4a``); the tensor-core kernel
+    repeated at the head's shape must give equal bits; its scale gradients
+    through ``ops.int8_matmul``
     within 1e-5 relative of the plain version's (Σ dy·acc in another
     order). ``kl_hist`` counts bit for bit on that leaf against its SR copy
     at 256 and 150 bins and on the pathological values. Times: the kernel,
     the plain version, a library yardstick (``torch._int_mm``, cuBLASLt's
-    int8 product with int32 out; two ``torch.histc`` calls over [lo, hi],
+    int8 product with int32 out, with wq as it lies and, made before the
+    timing, column-major as cuBLASLt's int8 kernels want it, the faster of
+    the two named; ``int8_matmul`` and both also by CUDA-graph replay;
+    two ``torch.histc`` calls over [lo, hi],
     timed only, since histc bins by its own formula; none for the SR
     values) and the bound."""
     from repro_torch.kernels import int8_matmul as im
@@ -1340,39 +1382,81 @@ def check_ops_kernels(torch, gen):
     # int8_matmul
     s = torch.tensor(0.02 * 0.3, dtype=torch.float32, device=dev)
     cases = [(TRAIN_M, k, n) for (k, n) in LAYER_SHAPES] + [(TRAIN_M, *HEAD_SHAPE)]
-    cases += [(509, 1031, 127), (BATCH, D_MODEL, D_MODEL), (37, 3071, 1025)]
+    cases += [(509, 1031, 127), (BATCH, D_MODEL, D_MODEL), (37, 3071, 1025),
+              (64, 256, 64)]
+    c = im.int8_matmul
+
+    def on_branch(xq, wq, s):
+        """One launch, on the branch ``takes_tensor_cores`` names."""
+        want_tc = im.takes_tensor_cores(xq.shape[1], wq.shape[1],
+                                        xq.data_ptr(), wq.data_ptr())
+        before = (c.launches, c.tc_launches)
+        out = im.int8_matmul(xq, wq, s)
+        if (c.launches - before[0], c.tc_launches - before[1]) != (1, int(want_tc)):
+            raise AssertionError(f"int8_matmul {tuple(xq.shape)} @ "
+                                 f"{tuple(wq.shape)}: not on the "
+                                 f"{'tensor-core' if want_tc else 'dp4a'} branch")
+        return out, want_tc
+
     for (m, k, n) in cases:
         xq = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
                            dtype=torch.int8)
         wq = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                            dtype=torch.int8)
-        got, want = im.int8_matmul(xq, wq, s), im.plain(xq, wq, s)
+        if (m, k, n) == (64, 256, 64):
+            xq = misaligned(torch, xq)
+        got, tc = on_branch(xq, wq, s)
+        want = im.plain(xq, wq, s)
         torch.cuda.synchronize()
         if got.dtype != torch.float32 or not torch.equal(got, want):
             raise AssertionError(f"int8_matmul ({m},{k},{n}): max err "
                                  f"{(got - want).abs().max().item()}")
         del got, want
         if m != TRAIN_M:
+            log(f"[kernels] int8_matmul {m}x{k}x{n}: bit-equal on the "
+                f"{'tensor-core' if tc else 'dp4a'} branch")
             continue
         reps = 10 if k * n < 1e8 else 3
-        row = {"m": m, "k": k, "n": n, "max_abs_err": 0.0,
-               "ms": cuda_time_ms([lambda: im.int8_matmul(xq, wq, s)], reps),
+        wq_t = wq.t().contiguous()          # column-major wq for cuBLASLt
+        kern = [lambda: im.int8_matmul(xq, wq, s)]
+        lib_rm = [lambda: torch._int_mm(xq, wq)]
+        lib_cm = [lambda: torch._int_mm(xq, wq_t.t())]
+        row = {"m": m, "k": k, "n": n, "branch": "tc" if tc else "dp4a",
+               "max_abs_err": 0.0, "ms": cuda_time_ms(kern, reps),
                "plain_ms": cuda_time_ms([lambda: im.plain(xq, wq, s)],
                                         max(2, reps // 3)),
-               "library_ms": cuda_time_ms([lambda: torch._int_mm(xq, wq)], reps),
-               "library_covers": "torch._int_mm (int32 out, no scale)"}
+               "library_ms_row_major": cuda_time_ms(lib_rm, reps),
+               "library_ms_col_major": cuda_time_ms(lib_cm, reps),
+               "device_ms": graph_time_ms(kern, reps),
+               "library_device_ms_row_major": graph_time_ms(lib_rm, reps),
+               "library_device_ms_col_major": graph_time_ms(lib_cm, reps)}
+        faster = ("col_major" if row["library_device_ms_col_major"]
+                  <= row["library_device_ms_row_major"] else "row_major")
+        row["library_ms"] = row[f"library_ms_{faster}"]
+        row["library_device_ms"] = row[f"library_device_ms_{faster}"]
+        row["library_covers"] = (f"torch._int_mm (int32 out, no scale), wq "
+                                 f"{faster.replace('_', '-')}")
+        if n == VOCAB:
+            row["repeats_bit_equal"] = bit_stable(
+                torch, lambda: im.int8_matmul(xq, wq, s), 20,
+                f"int8_matmul ({m},{k},{n})")
         row["bound_ms"], row["bound_by"] = max(
             ((m * k + k * n + 4.0 * m * n) / HBM_BYTES_PER_S * 1e3, "bytes"),
             (2.0 * m * k * n / INT8_OPS * 1e3, "operations"))
         rows["int8_matmul"].append(row)
-        log(f"[kernels] int8_matmul {m}x{k}x{n}: bit-equal, ms={row['ms']:.4g}, "
-            f"plain_ms={row['plain_ms']:.4g}, _int_mm {row['library_ms']:.4g}, "
-            f"bound_ms={row['bound_ms']:.4g} ({row['bound_by']})")
-        del xq, wq
+        log(f"[kernels] int8_matmul {m}x{k}x{n}: bit-equal on the "
+            f"{row['branch']} branch, ms={row['ms']:.4g} (device "
+            f"{row['device_ms']:.4g}), plain_ms={row['plain_ms']:.4g}, _int_mm "
+            f"row-major {row['library_ms_row_major']:.4g} (device "
+            f"{row['library_device_ms_row_major']:.4g}), column-major "
+            f"{row['library_ms_col_major']:.4g} (device "
+            f"{row['library_device_ms_col_major']:.4g}), bound_ms="
+            f"{row['bound_ms']:.4g} ({row['bound_by']})")
+        del xq, wq, wq_t
     one = torch.ones((), dtype=torch.float32, device=dev)
     for word, want_acc in ((-128, 2.0 ** 27), (127, 132128768.0)):
         xq = torch.full((64, 8192), word, dtype=torch.int8, device=dev)
-        got = im.int8_matmul(xq, xq.T.contiguous(), one)
+        got, _ = on_branch(xq, xq.T.contiguous(), one)
         if not torch.equal(got, im.plain(xq, xq.T.contiguous(), one)) \
                 or float(got[0, 0]) != want_acc:
             raise AssertionError(f"int8_matmul largest sums ({word}): "
@@ -1572,6 +1656,13 @@ def main_path(torch, fm, fa):
            "launches": launches, "logits_std": float(logits.std()),
            "sample": [int(t) for t in out[0][:16]],
            "profile": profile_steps(torch, eng, prompts)}
+    dec = res["profile"]["decode_8_steps"]
+    if (dec["gemv_launches"], dec["gemv_finish_launches"], dec["memsets"]) != (
+            8 * per_fwd, 0, 0):
+        raise AssertionError(
+            f"profiled decode: {dec['gemv_launches']} GEMV kernels for "
+            f"{8 * per_fwd} calls, {dec['gemv_finish_launches']} finish "
+            f"kernels and {dec['memsets']} memsets (want one kernel a call)")
     for name, r in (("cold", res["cold"]), ("warm", warm)):
         log(f"[main] {name}: prefill {r['prefill_ms']:.2f} ms, decode "
             f"{r['decode_ms_per_step']:.2f} ms/step, {r['tokens_per_s']:.1f} "
@@ -1610,13 +1701,14 @@ def device_breakdown(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, n = {}, 0
+    groups, counts, n = {}, {}, 0
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
             continue
         n += 1
         name = e.name
-        for key in ("fxp_qmatmul", "matmul_qdx", "fxp_matmul", "flash_fwd",
+        for key in ("fxp_qmatmul", "matmul_qdx", "fxp_matmul_gemv",
+                    "fxp_matmul_finish", "fxp_matmul", "flash_fwd",
                     "matmul_dx", "matmul_dw", "flash_dq", "flash_dkv",
                     "sr_kernel", "edf_ladder", "nvjet", "gemm", "Memset",
                     "Memcpy"):
@@ -1626,12 +1718,16 @@ def device_breakdown(torch, fn):
         else:
             name = name[:48]
         groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        counts[name] = counts.get(name, 0) + 1
     busy = sum(groups.values())
     top = dict(sorted(groups.items(), key=lambda kv: -kv[1])[:12])
     gemms = sorted({e.key for e in prof.key_averages() if e.key in LIBRARY_GEMMS})
     return {"wall_ms": wall_ms, "device_events": n, "busy_ms": busy,
             "busy_share": busy / wall_ms if n else None, "groups_ms": top,
-            "library_gemm_ops": gemms}
+            "groups_n": {k: counts[k] for k in top}, "library_gemm_ops": gemms,
+            "gemv_launches": counts.get("fxp_matmul_gemv", 0),
+            "memsets": counts.get("Memset", 0),
+            "gemv_finish_launches": counts.get("fxp_matmul_finish", 0)}
 
 
 def profile_steps(torch, eng, prompts):
@@ -2617,6 +2713,10 @@ def default_quantizer_path(torch):
     ops_launches = {k: w.launches for k, w in ws.items()}
     if ops_launches != OPS_PATH:
         raise AssertionError(f"ops path launches {ops_launches} != {OPS_PATH}")
+    if ws["int8_matmul"].tc_launches != OPS_PATH["int8_matmul"]:
+        raise AssertionError(f"ops path: {ws['int8_matmul'].tc_launches} of "
+                             f"{OPS_PATH['int8_matmul']} int8_matmul launches "
+                             "on the tensor cores")
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         raise AssertionError("ops.sr_quantize with the step's noise differs "
                              "from the controller's grid values")
@@ -2747,6 +2847,8 @@ def main() -> int:
             if any(key in line for key in ("registers", "spill", "Warning",
                                            "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
+    spill_free(reports, {"fxp_matmul": "fxp_matmul_gemv",
+                         "int8_matmul": "int8_matmul_tc"})
 
     marks = {"build": time.perf_counter() - t_start}
 
@@ -3012,8 +3114,13 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         entry("sr_quantize", "sr_quantize.cu", "sr_quantize.py:66", 0.0,
               summed(given_by, given_calls)),
         entry("int8_matmul", "int8_matmul.cu", "fxp_matmul.py:145", 0.0,
-              {**summed(by_shape(ops_rows["int8_matmul"]), i8_calls),
-               "library_covers": "torch._int_mm (int32 out, no scale)"}),
+              {**summed(by_shape(ops_rows["int8_matmul"]), i8_calls,
+                        device_keys + ("library_ms_row_major",
+                                       "library_ms_col_major",
+                                       "library_device_ms_row_major",
+                                       "library_device_ms_col_major")),
+               "library_covers": by_shape(ops_rows["int8_matmul"])[
+                   (TRAIN_M, D_MODEL, D_FF)]["library_covers"]}),
         entry("kl_hist", "kl_hist.cu", "kl_hist.py:27", 0.0,
               {**summed(kl_by, kl_calls),
                "library_covers": "two torch.histc calls (their own bin "

@@ -1,22 +1,24 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu, fxp_qmatmul.cu and fxp_matmul_bwd.cu, written as raw
-// PTX:
+// flash_attention.cu, fxp_qmatmul.cu, fxp_matmul_bwd.cu, fxp_matmul.cu and
+// int8_matmul.cu, written as raw PTX:
 //  * mbarriers: init, arrive, arrive with an expected transaction count,
-//    parity wait;
-//  * clusters: rank, peer shared-memory addresses (mapa), bulk copies and
-//    barrier arrivals into a peer CTA, cluster-scope waits and syncs;
+//    parity wait; cp.async copies of 16 bytes;
+//  * clusters: rank, peer shared-memory addresses (mapa), loads, bulk copies
+//    and barrier arrivals into a peer CTA, cluster-scope waits and syncs;
 //    named barriers; setmaxnreg;
 //  * TMA: 2-D and 4-D tile loads (cp.async.bulk.tensor) that complete on an
 //    mbarrier, and the host-side tensor maps (bf16 with the 128-byte
-//    swizzle, f32 and int8 without), encoded by cuTensorMapEncodeTiled
-//    reached through cudaGetDriverEntryPoint, so the library links against
-//    the runtime alone (no -lcuda), and kept in a cache keyed by
-//    everything the encoding reads;
+//    swizzle, f32 without, int8 with or without it), encoded by
+//    cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so
+//    the library links against the runtime alone (no -lcuda), and kept in
+//    a cache keyed by everything the encoding reads;
 //  * wgmma: shared-memory matrix descriptors for the 128-byte swizzle,
 //    fence / commit / wait, and the m64nNk16 bf16 products with f32
 //    accumulators that the kernels issue: SS (both operands in shared
 //    memory) m64n64 with a K-major A and a K-major or an MN-major B, and
 //    m64n128 with both MN-major; RS (A in registers) with an MN-major B;
+//    and the m64n256k32 s8 product with s32 accumulators, both operands
+//    K-major (int8_matmul.cu);
 //  * the dynamic shared memory from a 1024-byte boundary, carved by
 //    pointer offsets (align1024).
 //
@@ -29,7 +31,9 @@
 // adding 32 bytes to the start address. An MN-major operand (rows along
 // the contraction, 64 of M or N contiguous) has SBO = 1024 (eight
 // contraction rows) and LBO = the stride from one 64-wide chunk to the
-// next; it steps 16 along the contraction by adding 16 * 128 bytes.
+// next; it steps 16 along the contraction by adding 16 * 128 bytes. An
+// int8 K-major operand has the same bytes: 128 elements a row, a k32 step
+// 32 bytes along it.
 #pragma once
 
 #include <cuda.h>
@@ -106,6 +110,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 16 bytes from global to shared memory without registers (cp.async, L2
+// only), and the wait for all of this thread's copies.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Thread block clusters: a CTA's rank, the address of the same shared
 // memory location in a peer CTA, bulk copies and mbarrier arrivals there,
@@ -124,6 +138,14 @@ __device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
                : "=r"(r)
                : "r"(smem_u32(p)), "r"(rank));
   return r;
+}
+
+// An f32 of a peer CTA's shared memory: the value at `p` in CTA `rank`.
+__device__ __forceinline__ float ld_peer_f32(const float* p, uint32_t rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(peer_addr(p, rank))
+               : "memory");
+  return v;
 }
 
 // An arrival on a barrier at a shared::cluster address (this CTA's or a
@@ -239,6 +261,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // D (64 x 64, f32) (+)= A (64 x 16, smem) * B (16 x 64, smem), A and B K-major.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
@@ -313,6 +340,17 @@ __device__ __forceinline__ void wgmma_rs_n256_mn(float (&d)[128], const uint32_t
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 256, s32) (+)= A (64 x 32, s8, smem) * B (32 x 256, s8, smem), both
+// K-major (8-bit operands have no transpose bit). The int32 sums are exact.
+__device__ __forceinline__ void wgmma_ss_n256_s8(int32_t (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------
@@ -432,6 +470,15 @@ inline bool int8_map(CUtensorMap* map, const void* base, int rank, const cuuint6
                      const cuuint64_t* strides, const cuuint32_t* box) {
   return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE,
                        base, rank, dims, strides, box);
+}
+
+// int8 with the 128-byte swizzle: a box 128 bytes wide lands as a K-major
+// operand that wgmma reads (int8_matmul_tc's xq).
+inline bool int8_map_sw128(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_128B, base,
+                       rank, dims, strides, box);
 }
 
 inline bool bf16_map(CUtensorMap* map, const void* base, int rank,

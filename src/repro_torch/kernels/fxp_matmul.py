@@ -23,7 +23,8 @@ path), counted in its ``tc_launches``: wgmma, the activations by TMA, the
 words read or drawn into shared memory by producer warpgroups (none for
 ``matmul_dw``, whose operands both arrive by TMA as they lie); and a SIMT
 kernel on f32 activations. ``fxp_matmul`` chooses by M too: at M <= 16
-(decode) either dtype takes its split-K GEMV, counted in
+(decode) either dtype takes its GEMV (one launch, the K split over a
+thread-block cluster in a fixed order, ``gemv_plan``), counted in
 ``gemv_launches``, and bf16 x with M > 16 the tensor cores. A refused
 launch raises; no branch falls back to another or to the plain version.
 
@@ -49,19 +50,56 @@ plain_q = ref_fxp_qdense
 plain_qdx = ref_matmul_qdx
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SPLITK_MAX_M = 16          # the kernel's GEMV path takes M <= 16
+# The GEMV of csrc/fxp_matmul.cu (namespace gemv): M <= 16; a CTA of 8
+# warps owns 128 columns of y; up to 8 CTAs of a cluster split K.
+GEMV_MAX_M = 16
+GEMV_COLS = 128
+GEMV_MAX_CLUSTER = 8
+
+
+def takes_gemv(m: int) -> bool:
+    """Whether ``fxp_matmul`` at M = ``m`` takes the GEMV (decode, the
+    prefill's head): M <= 16, either dtype."""
+    return m <= GEMV_MAX_M
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """The GEMV's split of (m, k, n), a function of the shape alone:
+    (mb, cs, kc). mb is the M bucket (4, 8 or 16); a CTA's k rows go
+    round-robin to 16 slots at mb = 4 (8 warps, each reading two word rows
+    at once), 8 above. The k rows go to a cluster of cs CTAs, kc each (rank
+    r the rows [r·kc, (r+1)·kc), kc a multiple of the slots): cs doubles
+    from 1 while the grid holds fewer than 96 CTAs, or fewer than 256 with
+    more than 1536 rows a CTA, and each CTA keeps at least 128 rows (the
+    fastest split of each decode shape of llama3.2-3b on an H100 among
+    1, 2, 4 and 8, PERF.md section 6)."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    mb = 4 if m <= 4 else 8 if m <= 8 else 16
+    slots = 16 if mb == 4 else 8
+    tiles, cs = cdiv(n, GEMV_COLS), 1
+    while cs < GEMV_MAX_CLUSTER and k >= 2 * cs * 128:
+        ctas, rows = tiles * cs, cdiv(k, cs)
+        if not (ctas < 96 or (ctas < 256 and rows > 1536)):
+            break
+        cs *= 2
+    return mb, cs, cdiv(cdiv(k, cs), slots) * slots
 
 
 def _lib():
     lib = _build.load("fxp_matmul")
-    fn, tc = lib.fxp_matmul_launch, lib.fxp_matmul_tc_launch
-    if fn.argtypes is None:
+    fns = (lib.fxp_matmul_launch, lib.fxp_matmul_tc_launch,
+           lib.fxp_matmul_gemv_launch)
+    if fns[0].argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, i, p, i, p, i, i, i, p]
-        fn.restype = ctypes.c_int
-        tc.argtypes = [p, i, p, p, i, p, i, i, i, i, p]
-        tc.restype = ctypes.c_int
-    return fn, tc
+        fns[0].argtypes = [p, i, p, p, i, p, i, i, i, i, p]
+        fns[1].argtypes = [p, i, p, p, i, p, i, i, i, i, p]
+        fns[2].argtypes = [p, i, p, p, i, p, i, i, i, i, i, i, p]
+        for fn in fns:
+            fn.restype = ctypes.c_int
+    return fns
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,9 +125,9 @@ def fxp_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
     x: (M, K) bf16/f32 contiguous; wq: (K, N) int8 contiguous; scale: a
     one-element bf16/f32 tensor (2^-FL) on the same device, read by the
     kernel (no host sync). ``out_dtype`` (bf16/f32) defaults to x's. M <= 16
-    takes the split-K GEMV (counted in ``fxp_matmul.gemv_launches``), bf16
-    x with M > 16 the tensor-core kernel (``fxp_matmul.tc_launches``), f32
-    x with M > 16 the SIMT one."""
+    takes the GEMV (counted in ``fxp_matmul.gemv_launches``; its split is
+    ``gemv_plan``), bf16 x with M > 16 the tensor-core kernel
+    (``fxp_matmul.tc_launches``), f32 x with M > 16 the SIMT one."""
     check_card(x)
     out_dtype = out_dtype or x.dtype
     if x.ndim != 2 or wq.ndim != 2 or x.shape[1] != wq.shape[0]:
@@ -111,20 +149,20 @@ def fxp_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
     N = wq.shape[1]
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    gemv = M <= _SPLITK_MAX_M
+    gemv = takes_gemv(M)
     tc = not gemv and x.dtype == torch.bfloat16
-    if tc:
+    codes = (_DTYPE_CODE[scale.dtype], y.data_ptr(), _DTYPE_CODE[out_dtype])
+    if gemv:
+        _, cs, kc = gemv_plan(M, K, N)
+        err = _lib()[2](x.data_ptr(), _DTYPE_CODE[x.dtype], wq.data_ptr(),
+                        scale.data_ptr(), *codes, M, N, K, cs, kc, stream)
+    elif tc:
         a = _tma_rows(x)
         err = _lib()[1](a.data_ptr(), a.shape[1], wq.data_ptr(),
-                        scale.data_ptr(), _DTYPE_CODE[scale.dtype],
-                        y.data_ptr(), _DTYPE_CODE[out_dtype], M, N, K, stream)
+                        scale.data_ptr(), *codes, M, N, K, stream)
     else:
-        ws = (torch.empty((M, N), dtype=torch.float32, device=x.device)
-              if gemv else None)
         err = _lib()[0](x.data_ptr(), _DTYPE_CODE[x.dtype], wq.data_ptr(),
-                        scale.data_ptr(), _DTYPE_CODE[scale.dtype],
-                        y.data_ptr(), _DTYPE_CODE[out_dtype],
-                        None if ws is None else ws.data_ptr(), M, N, K, stream)
+                        scale.data_ptr(), *codes, M, N, K, stream)
     _build.check(err, "fxp_matmul")
     fxp_matmul.launches += 1
     fxp_matmul.tc_launches += int(tc)
