@@ -13,8 +13,8 @@ each.
 Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit; require compute capability 9.0;
   2. build: nvcc the CUDA sources of ``src/repro_torch/csrc`` (in parallel);
-     ptxas must report no spill for the GEMV and the int8 tensor-core
-     kernel;
+     ptxas must report no spill for the GEMV, the int8 tensor-core
+     kernel and the float SR grid-value kernel;
   3. kernels, each against its plain version on the same inputs, with the
      times of the kernel, the plain version, one PyTorch call
      (``library_ms``, a yardstick only) and the bound: ``fxp_matmul`` at
@@ -41,7 +41,9 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels), their and SDPA's backward (pinned to the flash-attention
      backend) also timed by CUDA-graph replay; the SR
      int8 words and the EDF ladder bit for bit; the float SR grid values (flat and stacked, f32
-     and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28;
+     and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28,
+     layers of a chunk's length ± 1, bf16 out with n_l % 8 != 0, x and q
+     misaligned and 65535 layers, also timed by CUDA-graph replay;
      ``fxp_qmatmul``/``matmul_qdx`` at every training shape and ragged
      and misaligned shapes in both modes (both on bf16 x / dy on the
      tensor cores; on f32 on the SIMT
@@ -969,10 +971,15 @@ def check_sr_grid(torch, sq, gen):
     stacked blocks/ leaves with a per-layer <WL,FL> that takes WL 2…32 and
     FL −3…28 among others; embed and head flat at <8,10>), and at ragged
     shapes, WL 2…32 against FL −3…28, seeds of both signs and the
-    pathological values. Times (f32 and bf16 out): kernel, plain version,
-    bound (4 bytes read and 4 or 2 written per element; the ~22 integer and
-    float operations per element, a division among them, at the CUDA-core
-    rate take less)."""
+    pathological values; and at the edges of the chunked kernel: layers of
+    a chunk's length ± 1, bf16 out with n_l % 8 != 0, x one element past a
+    16-byte boundary, q off x (through the C entry points, as the wrappers
+    allocate q aligned), and 65535 layers of 5 elements (against the plain
+    formula on the hash index of every element). Times (f32 and bf16 out):
+    kernel launched (``ms``) and by CUDA-graph replay (``device_ms``, with
+    ``device_tb_per_s``), plain version, bound (4 bytes read and 4 or 2
+    written per element; the ~22 integer and float operations per element
+    at the CUDA-core rate take less)."""
     dev = "cuda"
     rows = {"sr_quantize_fused_stacked": [], "sr_quantize_fused": []}
     wl_cycle = (8, 16, 32, 2, 12, 24, 5)
@@ -1002,20 +1009,23 @@ def check_sr_grid(torch, sq, gen):
             del got, want
             n = x.numel()
             out_b = 4 if dt == torch.float32 else 2
+            call = [lambda: kern(x, seed, wl, fl, out_dtype=dt)]
             row = {"shape": list(shape), "out": str(dt).split(".")[-1],
-                   "max_abs_err": 0.0,
-                   "ms": cuda_time_ms([lambda: kern(x, seed, wl, fl,
-                                                    out_dtype=dt)], 5),
+                   "max_abs_err": 0.0, "ms": cuda_time_ms(call, 5),
+                   "device_ms": graph_time_ms(call, 5),
                    "plain_ms": cuda_time_ms([lambda: plain(
                        x, seed, wl, fl, out_dtype=dt)], 2),
-                   "library_ms": None}
+                   "library_ms": None, "library_device_ms": None}
+            row["device_tb_per_s"] = ((4.0 + out_b) * n
+                                      / (row["device_ms"] * 1e9))
             row["bound_ms"], row["bound_by"] = max(
                 ((4.0 + out_b) * n / HBM_BYTES_PER_S * 1e3, "bytes"),
                 (22.0 * n / F32_OPS * 1e3, "operations"))
             rows[name].append(row)
             log(f"[kernels] {name} {list(shape)} {row['out']}: bit-equal, "
-                f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
-                f"bound_ms={row['bound_ms']:.4g}")
+                f"ms={row['ms']:.4g} (device {row['device_ms']:.4g}, "
+                f"{row['device_tb_per_s']:.3g} TB/s), plain_ms="
+                f"{row['plain_ms']:.4g}, bound_ms={row['bound_ms']:.4g}")
 
     for (k, n) in STACKED_SHAPES:
         x = torch.randn(N_LAYERS, k, n, generator=gen, device=dev) * 0.05
@@ -1068,9 +1078,68 @@ def check_sr_grid(torch, sq, gen):
             if not same(sq.sr_quantize_fused(x, 31, wl, fl),
                         sq.plain_grid(x, 31, wl, fl)):
                 raise AssertionError(f"flat grid pathological at <{w},{f}>")
+    # the chunked kernel's edges: layers of CHUNK - 1, CHUNK and CHUNK + 1
+    # elements, bf16 out with n_l % 8 != 0 (every other layer starts 8
+    # bytes off a 16-byte boundary of q), x misaligned, q off x
+    C = sq.GRID_CHUNK
+    lib = sq._lib()
+
+    def direct(x, seed, wl, fl, dt, off):
+        """The C entry point with q ``off`` elements past an aligned
+        buffer's start (stacked for a 1-D wl, else flat)."""
+        buf = torch.empty(x.numel() + off, dtype=dt, device=dev)
+        q = buf[off:].view(x.shape)
+        stream = torch.cuda.current_stream().cuda_stream
+        head = (x.data_ptr(), q.data_ptr(), sq._OUT_CODE[dt], wl.data_ptr(),
+                fl.data_ptr(), sq._seed32(seed))
+        if wl.dim():
+            err = lib[3](*head, x.shape[0], x[0].numel(), stream)
+        else:
+            err = lib[2](*head, x.numel(), stream)
+        sq._build.check(err, "sr_quantize_fused[_stacked] (q off x)")
+        return q
+
+    for shape in [(3, C - 1), (2, C), (3, C + 1), (5, 4100), (3, 4, 4097)]:
+        x = torch.randn(*shape, generator=gen, device=dev) * 3.0
+        wl, fl = prec(shape[0])
+        for dt in (torch.float32, torch.bfloat16):
+            want = sq.plain_grid_stacked(x, 5, wl, fl, out_dtype=dt)
+            want0 = sq.plain_grid(x[0], 5, wl[0], fl[0], out_dtype=dt)
+            for xx in (x, misaligned(torch, x)):
+                if not same(sq.sr_quantize_fused_stacked(xx, 5, wl, fl,
+                                                         out_dtype=dt), want):
+                    raise AssertionError(f"stacked grid edge {shape} {dt} "
+                                         f"x at {xx.data_ptr() % 16}")
+                x0 = xx[0] if xx is x else misaligned(torch, x[0])
+                if not same(sq.sr_quantize_fused(x0.contiguous(), 5, wl[0],
+                                                 fl[0], out_dtype=dt), want0):
+                    raise AssertionError(f"flat grid edge {shape[1:]} {dt} "
+                                         f"x at {x0.data_ptr() % 16}")
+                for off in (1, 2, 3):
+                    if not same(direct(xx, 5, wl, fl, dt, off), want):
+                        raise AssertionError(f"stacked grid edge {shape} {dt}"
+                                             f" q {off} elements off")
+                    if not same(direct(x0.contiguous(), 5, wl[0], fl[0], dt,
+                                       off), want0):
+                        raise AssertionError(f"flat grid edge {shape[1:]} "
+                                             f"{dt} q {off} elements off")
+    # the most layers a launch takes, 5 elements each: the plain formula on
+    # every element's hash index l·stride + e (stride 512)
+    L, n = 65535, 5
+    x = torch.randn(L, n, generator=gen, device=dev) * 3.0
+    wl, fl = prec(L)
+    idx = (torch.arange(L, device=dev)[:, None] * 512
+           + torch.arange(n, device=dev))
+    u = sq.uniform_from_index(-9, idx)
+    for dt in (torch.float32, torch.bfloat16):
+        want = sq.plain_given(x, u, wl[:, None], fl[:, None]).to(dt)
+        if not same(sq.sr_quantize_fused_stacked(x, -9, wl, fl, out_dtype=dt),
+                    want):
+            raise AssertionError(f"stacked grid at L = {L} {dt}")
     log("[kernels] sr_quantize_fused[_stacked] ragged shapes, WL 2..32 x "
-        "FL -3..28, seeds of both signs, pathological values, f32 and bf16: "
-        "bit-equal")
+        "FL -3..28, seeds of both signs, pathological values, layers of "
+        f"{C} - 1, {C}, {C} + 1 and 4100 elements, x and q misaligned, "
+        f"{L} layers, f32 and bf16: bit-equal")
     return rows
 
 
@@ -2848,7 +2917,8 @@ def main() -> int:
                                            "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
     spill_free(reports, {"fxp_matmul": "fxp_matmul_gemv",
-                         "int8_matmul": "int8_matmul_tc"})
+                         "int8_matmul": "int8_matmul_tc",
+                         "sr_quantize": "sr_grid_kernel"})
 
     marks = {"build": time.perf_counter() - t_start}
 
@@ -3100,9 +3170,9 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         entry("edf_ladder_hists", "edf_ladder.cu", "edf_ladder.py:41", 0.0,
               summed(edf_by_shape, edf_calls)),
         entry("sr_quantize_fused_stacked", "sr_quantize.cu",
-              "sr_quantize.py:282", 0.0, summed(gs_by, gs_calls)),
+              "sr_quantize.py:282", 0.0, summed(gs_by, gs_calls, device_keys)),
         entry("sr_quantize_fused", "sr_quantize.cu", "sr_quantize.py:174", 0.0,
-              summed(gf_by, gf_calls)),
+              summed(gf_by, gf_calls, device_keys)),
         entry("fxp_qmatmul", "fxp_qmatmul.cu", "fxp_matmul.py:345",
               q_err["fxp_qmatmul"],
               summed(by_shape(q_rows["fxp_qmatmul"]), prologue_calls,

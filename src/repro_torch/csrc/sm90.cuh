@@ -1,8 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
 // flash_attention.cu, fxp_qmatmul.cu, fxp_matmul_bwd.cu, fxp_matmul.cu and
-// int8_matmul.cu, written as raw PTX:
+// int8_matmul.cu, and by the float SR kernel of sr_quantize.cu, written as
+// raw PTX:
 //  * mbarriers: init, arrive, arrive with an expected transaction count,
 //    parity wait; cp.async copies of 16 bytes;
+//  * 1-D bulk copies (cp.async.bulk, no tensor map): global to shared
+//    memory completing on an mbarrier, shared to global memory in bulk
+//    groups, and the waits for those groups;
 //  * clusters: rank, peer shared-memory addresses (mapa), loads, bulk copies
 //    and barrier arrivals into a peer CTA, cluster-scope waits and syncs;
 //    named barriers; setmaxnreg;
@@ -118,6 +122,44 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 1-D bulk copies: `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// moved by the async proxy. A load completes on `bar` (the caller has raised
+// its expected bytes); a store joins this thread's current bulk group, which
+// bulk_commit closes. Shared memory that threads wrote is fenced
+// (fence_proxy_async) before a store reads it.
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups are pending: ..._read waits
+// only for their reads of shared memory (the source may then be rewritten),
+// bulk_wait for the whole copies.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------

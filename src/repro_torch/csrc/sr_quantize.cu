@@ -30,27 +30,42 @@
 // * 2^-24 with h the murmur3 finalizer of idx + (uint32)seed * 0x9E3779B9
 // (uint32 arithmetic, wrapping). Int8 words clip q to [-128, 127]. Grid
 // values clip q to [-qmax - 1, qmax], qmax = 2^(wl-1) - 1 computed in f32 (at
-// WL 32 it rounds to 2^31, as the reference's), and write q / 2^fl, an IEEE
-// division (__fdiv_rn: 2^fl is clamped to the normal range, so 2^-fl is not
-// always its reciprocal), as f32 or as bf16 rounded to nearest even. 2^e is
-// built from the exponent bits (e clamped to [-126, 127]), never exp2f. The
-// products and differences are written as __fmul_rn / __fsub_rn so that no
-// fused multiply-add changes a rounding: the values are bit for bit those of
-// the reference's portable stream.
+// WL 32 it rounds to 2^31, as the reference's), and write q / 2^fl as f32 or
+// as bf16 rounded to nearest even. 2^e is built from the exponent bits (e
+// clamped to [-126, 127]), never exp2f. sr_quantize divides (__fdiv_rn); the
+// two fused grid-value entry points multiply by the exact reciprocal 2^-e
+// (2^-127, at e = 127, is subnormal and still exact): q is an integer or a
+// NaN, so q / 2^e and q * 2^-e are the same real number rounded once, and
+// the bits agree as long as nothing flushes subnormals (the build has no
+// --use_fast_math). The products and differences are written as __fmul_rn /
+// __fsub_rn so that no fused multiply-add changes a rounding: the values are
+// bit for bit those of the reference's portable stream.
 //
 // What bounds them on an H100: the bytes, 4 read per element and 1 (int8),
 // 4 (f32) or 2 (bf16) written (sr_quantize: x and u read, 12 bytes per f32
 // element and 8 per bf16 element) (3.6 G elements a training step of
 // llama3.2-3b: 18 GB for int8 words, 28.9 GB for f32 grid values, >= 5.4
-// and 8.6 ms at 3.35 TB/s). Design: elementwise with no reduction; a
-// grid-stride loop with one float4 load and one 4-word store per thread and
-// step wherever the layer's length and the pointers allow it, the layer on
-// grid.y, <WL,FL> read once per thread from device memory (no host
-// synchronisation).
+// and 8.6 ms at 3.35 TB/s). Design of the int8 words and of sr_quantize:
+// elementwise with no reduction; a grid-stride loop with one float4 load
+// and one 4-word store per thread and step wherever the layer's length and
+// the pointers allow it, the layer on grid.y, <WL,FL> read once per thread
+// from device memory (no host synchronisation). Design of the grid values
+// (namespace grid): the (layer, chunk) pairs flattened into one list of
+// chunks of CHUNK elements that never cross a layer, walked by a persistent
+// grid of CTAS_PER_SM CTAs an SM, so that every SM has equal work and no
+// tail wave; one thread streams whole chunks into a ring of STAGES
+// shared-memory stages by 1-D bulk copies (96 KB in flight an SM, where a
+// grid-stride loop has one 16-byte load a thread), the CTA's threads write
+// a chunk's outputs to a staging slot, and one bulk copy stores it. A
+// chunk's part whose x or q address is not 16-byte aligned (a head and a
+// tail of under 16 bytes, or the whole chunk when x and q cannot be
+// aligned together) takes an element path in the same kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -254,6 +269,204 @@ uint32_t layer_stride(long long n_l) {
   return (uint32_t)((n_l + LANES - 1) / LANES) * LANES;
 }
 
+}  // namespace
+
+// The float SR grid values (sr_quantize_fused and sr_quantize_fused_stacked;
+// the flat tensor is one layer with stride 0). The plan is mirrored by
+// grid_plan, grid_chunk, grid_bulk and grid_split in kernels/sr_quantize.py,
+// which the CPU tests emulate.
+namespace grid {
+
+// One CTA an SM with 32 KB chunks ran 3-8% faster than two with 16 KB ones
+// on an H100 (fewer barriers a byte; PERF.md section 6).
+constexpr int NT = 256;              // threads a CTA
+constexpr int CHUNK = 8192;          // elements a chunk (32 KB of x)
+constexpr int STAGES = 4;            // the ring of x chunks
+constexpr int SLOTS = 2;             // staging slots of outputs
+constexpr int CTAS_PER_SM = 1;
+
+template <typename T>
+constexpr size_t smem_bytes() {
+  return (size_t)STAGES * CHUNK * sizeof(float) + (size_t)SLOTS * CHUNK * sizeof(T);
+}
+
+struct Plan {
+  long long n_l;       // elements a layer
+  long long cpl;       // chunks a layer: ceil(n_l / CHUNK)
+  long long chunks;    // L * cpl
+  uint32_t stride;     // the layer stride of the hash index
+  uint32_t seed_mix;
+  int period;          // element g is bulk-copied from g % period == phase on;
+  int phase;           // period 0: no element is (x and q cannot be aligned)
+};
+
+// Chunk c: layer l, elements [g0, g1) of the flat tensor, of which [a, b)
+// goes by bulk copies and [g0, a) and [b, g1) by the element path.
+struct Span {
+  long long l, g0, g1, a, b;
+};
+
+__device__ __forceinline__ Span span_of(const Plan& p, long long c) {
+  Span s;
+  // a 32-bit division wherever both fit (every tensor of a real model)
+  s.l = (c | p.cpl) >> 32 ? c / p.cpl : (long long)((uint32_t)c / (uint32_t)p.cpl);
+  s.g0 = s.l * p.n_l + (c - s.l * p.cpl) * CHUNK;
+  s.g1 = min(s.g0 + CHUNK, (s.l + 1) * p.n_l);
+  if (p.period == 0) {
+    s.a = s.b = s.g1;
+  } else {
+    s.a = min(s.g0 + ((p.phase - s.g0) & (p.period - 1)), s.g1);
+    s.b = s.a + ((s.g1 - s.a) & ~(long long)(p.period - 1));
+  }
+  return s;
+}
+
+// 2^-e for the clamped e of pow2i: the exact reciprocal of pow2i(e)
+// (2^-127 is the subnormal 0x00400000).
+__device__ __forceinline__ float recip_pow2i(int e) {
+  e = min(max(e, -126), 127);
+  return __int_as_float(e == 127 ? 0x00400000 : (127 - e) << 23);
+}
+
+template <typename T>
+__device__ __forceinline__ T out_of(float v);
+template <>
+__device__ __forceinline__ float out_of<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 out_of<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// grid_value with the reciprocal product for the division
+template <typename T>
+__device__ __forceinline__ T value(float x, const Grid& g, float inv, uint32_t i,
+                                   uint32_t seed_mix) {
+  float q = sr_round(x, g.scale, uniform(i, seed_mix));
+  q = q < g.lo ? g.lo : (q > g.hi ? g.hi : q);
+  return out_of<T>(__fmul_rn(q, inv));
+}
+
+// Persistent: CTA b takes chunks b, b + gridDim.x, ... Thread 0 keeps
+// STAGES chunks of x in flight and issues each chunk's store; one barrier a
+// chunk hands the stage back and the staging slot to the store.
+template <typename T>
+__global__ void __launch_bounds__(NT, CTAS_PER_SM)
+sr_grid_kernel(const float* __restrict__ x, T* __restrict__ q,
+               const int* __restrict__ wl, const int* __restrict__ fl, Plan p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  T* slots = reinterpret_cast<T*>(smem + (size_t)STAGES * CHUNK * sizeof(float));
+  __shared__ uint64_t full[STAGES];
+  const int tid = threadIdx.x;
+  const long long first = blockIdx.x, step = gridDim.x;
+  const long long mine = (p.chunks - 1 - first) / step + 1;
+
+  auto issue = [&](long long i) {
+    const Span s = span_of(p, first + i * step);
+    const int st = (int)(i % STAGES);
+    const uint32_t bytes = (uint32_t)(s.b - s.a) * sizeof(float);
+    sm90::mbar_arrive_expect_tx(&full[st], bytes);
+    if (bytes) sm90::bulk_load(ring + (size_t)st * CHUNK, x + s.a, bytes, &full[st]);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) sm90::mbar_init(&full[st], 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (long long i = 0; i < STAGES && i < mine; ++i) issue(i);
+
+  long long l = -1;
+  Grid g;
+  float inv = 0.0f;
+  uint32_t base = 0;
+  for (long long i = 0; i < mine; ++i) {
+    const Span s = span_of(p, first + i * step);
+    if (s.l != l) {  // the layer's grid, read when the layer changes
+      l = s.l;
+      g = grid_of(wl, fl, (int)l);
+      inv = recip_pow2i(fl[l]);
+      base = (uint32_t)l * p.stride - (uint32_t)(l * p.n_l);
+    }
+    const int st = (int)(i % STAGES);
+    T* slot = slots + (size_t)(i % SLOTS) * CHUNK;
+    // the element path: the head [g0, a) and the tail [b, g1)
+    const int head = (int)(s.a - s.g0), edge = head + (int)(s.g1 - s.b);
+    for (int k = tid; k < edge; k += NT) {
+      const long long e = k < head ? s.g0 + k : s.b + (k - head);
+      q[e] = value<T>(x[e], g, inv, base + (uint32_t)e, p.seed_mix);
+    }
+    // the bulk part, four elements a thread and step
+    sm90::mbar_wait(&full[st], (uint32_t)(i / STAGES) & 1u);
+    const float4* in = reinterpret_cast<const float4*>(ring + (size_t)st * CHUNK);
+    const int groups = (int)(s.b - s.a) / 4;
+    const uint32_t i0 = base + (uint32_t)s.a;
+    for (int k = tid; k < groups; k += NT) {
+      const float4 v = in[k];
+      const uint32_t e = i0 + 4u * (uint32_t)k;
+      const T w[4] = {value<T>(v.x, g, inv, e, p.seed_mix),
+                      value<T>(v.y, g, inv, e + 1u, p.seed_mix),
+                      value<T>(v.z, g, inv, e + 2u, p.seed_mix),
+                      value<T>(v.w, g, inv, e + 3u, p.seed_mix)};
+      store4(slot + 4 * k, w);
+    }
+    // this thread's reads of the stage and writes of the slot, before the
+    // async proxy refills the one and stores the other
+    sm90::fence_proxy_async();
+    // the store issued one chunk ago has read its slot, which the next
+    // chunk rewrites after the barrier
+    if (tid == 0) sm90::bulk_wait_read<0>();
+    __syncthreads();
+    if (tid == 0) {
+      if (s.b > s.a) {
+        sm90::bulk_store(q + s.a, slot, (uint32_t)(s.b - s.a) * sizeof(T));
+        sm90::bulk_commit();
+      }
+      if (i + STAGES < mine) issue(i + STAGES);
+    }
+  }
+  if (tid == 0) sm90::bulk_wait<0>();
+}
+
+template <typename T>
+cudaError_t launch(const float* x, T* q, const int* wl, const int* fl, int seed,
+                   int L, long long n_l, uint32_t stride, cudaStream_t st) {
+  if (L <= 0 || n_l <= 0) return cudaGetLastError();
+  Plan p;
+  p.n_l = n_l;
+  p.cpl = (n_l + CHUNK - 1) / CHUNK;
+  p.chunks = (long long)L * p.cpl;
+  p.stride = stride;
+  p.seed_mix = (uint32_t)seed * 0x9E3779B9u;
+  // elements whose x and q addresses are both 16-byte aligned: x's every
+  // fourth from ex, q's every period-th from eq
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x), qa = reinterpret_cast<uintptr_t>(q);
+  const int period = 16 / (int)sizeof(T);
+  const int ex = (int)((16 - xa % 16) % 16 / 4), eq = (int)((16 - qa % 16) % 16 / sizeof(T));
+  const bool bulk = xa % 4 == 0 && qa % sizeof(T) == 0 && eq % 4 == ex;
+  p.period = bulk ? period : 0;
+  p.phase = bulk ? eq : 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sr_grid_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes<T>());
+  if (err != cudaSuccess) return err;
+  const long long most = (long long)CTAS_PER_SM * sms;
+  const long long ctas = p.chunks < most ? p.chunks : most;
+  sr_grid_kernel<T><<<(unsigned)ctas, NT, smem_bytes<T>(), st>>>(x, q, wl, fl, p);
+  return cudaGetLastError();
+}
+
+}  // namespace grid
+
+namespace {
+
 // Grid values as f32 (out_dtype 0) or bf16 (out_dtype 1).
 cudaError_t launch_grid(const void* x, void* q, int out_dtype, const void* wl,
                         const void* fl, int seed, int L, long long n_l,
@@ -263,9 +476,10 @@ cudaError_t launch_grid(const void* x, void* q, int out_dtype, const void* wl,
   const int* flp = static_cast<const int*>(fl);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype == 1)
-    return launch(xp, static_cast<__nv_bfloat16*>(q), wlp, flp, seed, L, n_l,
-                  stride, st);
-  return launch(xp, static_cast<float*>(q), wlp, flp, seed, L, n_l, stride, st);
+    return grid::launch(xp, static_cast<__nv_bfloat16*>(q), wlp, flp, seed, L,
+                        n_l, stride, st);
+  return grid::launch(xp, static_cast<float*>(q), wlp, flp, seed, L, n_l, stride,
+                      st);
 }
 
 }  // namespace

@@ -30,7 +30,10 @@ Grid values in a float container (``controller.quantize_params``):
   (layer l at ⟨wl[l], fl[l]⟩, the same index stride as the int8 stack).
 
 They clip q to [−2^(WL−1), 2^(WL−1) − 1] and return q / 2^FL in f32 or
-bf16 (rounded to nearest even).
+bf16 (rounded to nearest even). Both launch one persistent kernel that
+walks equal chunks of x by bulk asynchronous copies; ``grid_plan``,
+``grid_chunk``, ``grid_bulk`` and ``grid_split`` below mirror its plan
+for the CPU tests.
 
 All four are bit for bit the reference's portable stream (its interpret
 mode); the TPU hardware PRNG has no counterpart. On an H100 they are bound
@@ -65,6 +68,50 @@ def uniform_from_index(seed, idx: torch.Tensor) -> torch.Tensor:
     (``repro/kernels/sr_quantize.py:113``)."""
     h = torch.as_tensor(idx).to(torch.int64).bitwise_and(ref._M32)
     return ref._uniform(seed, h)
+
+
+# The grid-value kernel's plan (``csrc/sr_quantize.cu``, namespace ``grid``):
+# elements a chunk, and CTAs an SM of its persistent grid.
+GRID_CHUNK = 8192
+GRID_CTAS_PER_SM = 1
+
+
+def grid_plan(L: int, n_l: int, sm_count: int) -> tuple[int, int, int]:
+    """(chunk, ctas, chunks a layer) of an (L, n_l) launch on a card of
+    ``sm_count`` SMs: each layer is cut into ⌈n_l / chunk⌉ chunks that never
+    cross it, and a persistent grid of ``ctas`` CTAs walks the L·⌈n_l /
+    chunk⌉ chunks, CTA b taking chunks b, b + ctas, ..."""
+    cpl = -(-n_l // GRID_CHUNK)
+    return GRID_CHUNK, min(L * cpl, GRID_CTAS_PER_SM * sm_count), cpl
+
+
+def grid_chunk(c: int, n_l: int, cpl: int) -> tuple[int, int, int]:
+    """(l, g0, g1): chunk c is elements [g0, g1) of the flat tensor, in
+    layer l."""
+    l = c // cpl
+    g0 = l * n_l + (c - l * cpl) * GRID_CHUNK
+    return l, g0, min(g0 + GRID_CHUNK, (l + 1) * n_l)
+
+
+def grid_bulk(x_addr: int, q_addr: int, out_size: int) -> tuple[int, int]:
+    """(period, phase): element g of the flat tensor has both its f32 x and
+    its ``out_size``-byte q at 16-byte aligned addresses when g ≡ phase
+    (mod period); period 0 when no element has (x and q cannot be aligned
+    together)."""
+    period = 16 // out_size
+    ex, eq = -x_addr % 16 // 4, -q_addr % 16 // out_size
+    if x_addr % 4 or q_addr % out_size or eq % 4 != ex:
+        return 0, 0
+    return period, eq
+
+
+def grid_split(g0: int, g1: int, period: int, phase: int) -> tuple[int, int]:
+    """(a, b): the chunk [g0, g1) goes by bulk copies over [a, b) and by
+    the kernel's element path over [g0, a) and [b, g1)."""
+    if not period:
+        return g1, g1
+    a = min(g0 + ((phase - g0) & (period - 1)), g1)
+    return a, a + ((g1 - a) & -period)
 
 
 def _lib():
