@@ -14,7 +14,7 @@ Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit; require compute capability 9.0;
   2. build: nvcc the CUDA sources of ``src/repro_torch/csrc`` (in parallel);
      ptxas must report no spill for the GEMV, the int8 tensor-core
-     kernel and the float SR grid-value kernel;
+     kernel, the float SR grid-value kernel and the EDF ladder;
   3. kernels, each against its plain version on the same inputs, with the
      times of the kernel, the plain version, one PyTorch call
      (``library_ms``, a yardstick only) and the bound: ``fxp_matmul`` at
@@ -40,7 +40,11 @@ Phases (any failure exits non-zero; nothing is caught):
      D = 32, 64, 96 and 128; f32, and bf16 at D = 72 and 256, on the SIMT
      kernels), their and SDPA's backward (pinned to the flash-attention
      backend) also timed by CUDA-graph replay; the SR
-     int8 words and the EDF ladder bit for bit; the float SR grid values (flat and stacked, f32
+     int8 words bit for bit; the EDF ladder bit for bit at the switch's
+     shapes, ragged and empty slices, a misaligned base, values near
+     ±3.3e38, a NaN layer and the pathological values, also timed by
+     CUDA-graph replay, repeated for equal bits, and one kernel event a
+     call under the profiler; the float SR grid values (flat and stacked, f32
      and bf16 out) bit for bit at every leaf shape, WL 2…32, FL −3…28,
      layers of a chunk's length ± 1, bf16 out with n_l % 8 != 0, x and q
      misaligned and 65535 layers, also timed by CUDA-graph replay;
@@ -68,7 +72,10 @@ Phases (any failure exits non-zero; nothing is caught):
      ``matmul_dx``, ``matmul_dw``, ``fxp_qmatmul``, ``matmul_qdx`` and
      ``fxp_matmul`` at M > 16 must have taken the tensor-core branch, and
      ``fxp_matmul`` at M <= 16, decode and the prefill's head, its GEMV);
-     8 profiled decode steps show one GEMV kernel a call and no memset;
+     8 profiled decode steps show no more GEMV kernels than calls, no
+     finish kernel and no memset (fewer kernel events than the exact
+     launch count are the profiler's loss: logged, with its launch calls
+     that have no device event);
   5. serving, card against CPU: the same model at depth 2, same weights,
      plain versions on the CPU against the kernels on the card;
   6. training main path: full llama3.2-3b, RTN words at FL 10, 3 steps of
@@ -81,14 +88,17 @@ Phases (any failure exits non-zero; nothing is caught):
      after steps 2 and 4 (lookback 2, so every tensor switches after step
      2): exact launch counts per step and per switch, the <WL,FL>
      histogram over the 198 tensor-layers before and after, the switch's
-     wall and device time by kernel, a profiled SR step;
+     wall and device time by kernel (one ladder kernel event a call, no
+     second ladder kernel), a profiled SR step (its SR kernel events
+     against the launch count);
   9. SR training, card against CPU at depth 2: the same state through
      ``precision_switch`` on both, and the SR words of every leaf with the
      same seeds;
  10. path A, the float containers: full llama3.2-3b in the registry's
      float32 container with SR, 4 steps through two switches (7 stacked +
      2 flat float-SR launches a step, no fxp kernel, a profiled step whose
-     dense layers are library GEMMs, as the reference's XLA dots), the
+     dense layers are library GEMMs, as the reference's XLA dots, and its
+     float SR kernel events against the launch count), the
      switch's wall time; 2 steps each of the bfloat16 and int8 containers
      and of quant.mode=off; ``Engine`` serving from the trained float32
      container; the peak memory of each;
@@ -246,6 +256,9 @@ DEFAULT_STEPS = 4
 # its backward (the kernel again at unit scale) at M = 2048.
 OPS_LEAF = "blocks/s0_mlp/wi_gate"
 OPS_PATH = {**ZERO, "sr_quantize": N_LAYERS, "kl_hist": 1, "int8_matmul": 2}
+# The profiled window's name, and the spin kernels launched ahead of it.
+WINDOW = "chip_smoke.window"
+SPINS = 64
 # PyTorch ops that would run a library GEMM: none may appear in a step.
 LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
                  "aten::matmul", "aten::linear", "aten::einsum"}
@@ -1576,56 +1589,93 @@ def edf_inputs(torch, w):
 def check_edf_ladder(torch, el, gen):
     """The EDF-ladder kernel against its plain version, counts bit for bit:
     at (28, 65536) and (1, 65536), the subsample of a switch of
-    llama3.2-3b, with per-layer live bins in [50, 150]; at ragged sizes;
-    on the pathological values (a bin that is NaN counted in no row).
-    Times: kernel, plain version, bound (each input read once, the counts
-    written once; ~166 f32 operations per element at the CUDA-core
+    llama3.2-3b, with per-layer live bins in [50, 150]; at ragged sizes
+    (n of 1, 5, CLUSTER - 1, 65541: every slice split, empty slices, slices
+    streamed twice), from a base one element off a 16-byte boundary, near
+    ±3.3e38 (FL -127, clamped), with a NaN layer, and on the pathological
+    values (a bin that is NaN counted in no row). Repeated calls give equal
+    bits; three calls under the profiler are three kernel events and
+    nothing else (no memset, copy or second kernel). Times: kernel launched
+    and by graph replay, plain version, bound (each input read once, the
+    counts written once; ~166 f32 operations per element at the CUDA-core
     rate)."""
     from repro_torch.core import pushdown
     dev = "cuda"
     kw = dict(wl_ladder=pushdown.WL_LADDER, r_upr=150)
     T = len(pushdown.WL_LADDER)
-    rows = []
-    for L, n in ((N_LAYERS, EDF_SAMPLE), (1, EDF_SAMPLE), (3, 65541),
-                 (2, 1), (4, 127)):
-        w = torch.randn(L, n, generator=gen, device=dev) * 0.02
-        fls = edf_inputs(torch, w)
-        r = torch.randint(50, 151, (L,), generator=gen, device=dev,
-                          dtype=torch.int32)
+
+    def same(w, fls, r, what):
         got = el.edf_ladder_hists(w, fls, r, **kw)
         want = el.plain(w, fls, r, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"edf_ladder ({L}, {n}): counts differ by "
+            raise AssertionError(f"edf_ladder {what}: counts differ by "
                                  f"{(got - want).abs().max().item()}")
-        if not bool((got.sum(dim=2) == n).all()):
+        return got
+
+    rows = []
+    cases = [(N_LAYERS, EDF_SAMPLE, 0.02), (1, EDF_SAMPLE, 0.02),
+             (3, 65541, 0.02), (2, 1, 0.02), (4, 127, 0.02), (3, 5, 0.02),
+             (2, el.CLUSTER - 1, 0.02), (2, 4099, 1e38)]
+    for L, n, scale in cases:
+        w = torch.randn(L, n, generator=gen, device=dev) * scale
+        w = w.clamp(-3.3e38, 3.3e38)
+        fls = edf_inputs(torch, w)
+        r = torch.randint(50, 151, (L,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        got = same(w, fls, r, f"({L}, {n})")
+        if scale < 1 and not bool((got.sum(dim=2) == n).all()):
             raise AssertionError(f"edf_ladder ({L}, {n}): rows do not sum to n")
-        if n == EDF_SAMPLE:
-            row = {"shape": [L, n], "max_abs_err": 0.0,
-                   "ms": cuda_time_ms([lambda: el.edf_ladder_hists(
-                       w, fls, r, **kw)], 20),
-                   "plain_ms": cuda_time_ms([lambda: el.plain(
-                       w, fls, r, **kw)], 5),
-                   "library_ms": None}
-            nbytes = 4.0 * (L * n + L * T + L + 2 * L + T) + \
-                4.0 * L * (1 + T) * 150
-            row["bound_ms"], row["bound_by"] = max(
-                (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                (166.0 * L * n / F32_OPS * 1e3, "operations"))
-            rows.append(row)
-            log(f"[kernels] edf_ladder_hists ({L}, {n}): bit-equal, "
-                f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
-                f"bound_ms={row['bound_ms']:.4g}")
+        if n != EDF_SAMPLE:
+            continue
+        call = [lambda: el.edf_ladder_hists(w, fls, r, **kw)]
+        row = {"shape": [L, n], "max_abs_err": 0.0,
+               "ms": cuda_time_ms(call, 20), "device_ms": graph_time_ms(call, 20),
+               "plain_ms": cuda_time_ms([lambda: el.plain(w, fls, r, **kw)], 5),
+               "library_ms": None}
+        nbytes = 4.0 * (L * n + L * T + L + 2 * L + T) + \
+            4.0 * L * (1 + T) * 150
+        row["bound_ms"], row["bound_by"] = max(
+            (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (166.0 * L * n / F32_OPS * 1e3, "operations"))
+        if L == N_LAYERS:
+            row["repeats_bit_equal"] = bit_stable(torch, call[0], 20,
+                                                  "edf_ladder_hists")
+            before = el.edf_ladder_hists.launches
+            prof = device_breakdown(torch, lambda: [c() for c in call * 3])
+            if el.edf_ladder_hists.launches - before != 3:
+                raise AssertionError("edf_ladder: profiled calls not counted")
+            row["profiled_events"] = trace_count(prof, "edf_ladder", 3,
+                                                 "three ladder calls")
+            if prof["device_events"] != row["profiled_events"]:
+                raise AssertionError(f"edf_ladder: three calls ran "
+                                     f"{prof['counts']} (one kernel a call)")
+        rows.append(row)
+        log(f"[kernels] edf_ladder_hists ({L}, {n}): bit-equal, "
+            f"ms={row['ms']:.4g}, device_ms={row['device_ms']:.4g}, "
+            f"plain_ms={row['plain_ms']:.4g}, bound_ms={row['bound_ms']:.4g}")
+    # a base one element off a 16-byte boundary: every layer's bulk part
+    # starts elsewhere
+    base = torch.randn(3 * 65541 + 1, generator=gen, device=dev) * 0.02
+    w = base[1:].view(3, 65541)
+    r = torch.tensor([150, 64, 101], dtype=torch.int32, device=dev)
+    same(w, edf_inputs(torch, w), r, "(3, 65541) off 4 bytes")
+    # a layer with a NaN counts nothing, the other its counts
+    w = torch.randn(2, 4096, generator=gen, device=dev) * 0.02
+    w[1, 1234] = float("nan")
+    got = same(w, edf_inputs(torch, w[:1]).expand(2, T), r[:2], "NaN layer")
+    if bool(got[1].any()) or not bool((got[0].sum(dim=1) == 4096).all()):
+        raise AssertionError("edf_ladder: the NaN layer")
     for case in pathological(torch):
         w = case.to(dev).reshape(1, -1)
         fls = edf_inputs(torch, w)
         for rr in (50, 150):
-            r = torch.tensor([rr], dtype=torch.int32, device=dev)
-            if not torch.equal(el.edf_ladder_hists(w, fls, r, **kw),
-                               el.plain(w, fls, r, **kw)):
-                raise AssertionError("edf_ladder on pathological values")
-    log("[kernels] edf_ladder_hists ragged sizes and pathological values: "
-        "bit-equal")
+            same(w, fls, torch.tensor([rr], dtype=torch.int32, device=dev),
+                 "on pathological values")
+    log("[kernels] edf_ladder_hists ragged sizes, misaligned base, extremes, "
+        "NaN layer and pathological values: bit-equal; "
+        f"repeats bit-equal: {rows[0]['repeats_bit_equal']}, one kernel "
+        f"event a call ({rows[0]['profiled_events']} of 3)")
     return rows
 
 
@@ -1726,12 +1776,11 @@ def main_path(torch, fm, fa):
            "sample": [int(t) for t in out[0][:16]],
            "profile": profile_steps(torch, eng, prompts)}
     dec = res["profile"]["decode_8_steps"]
-    if (dec["gemv_launches"], dec["gemv_finish_launches"], dec["memsets"]) != (
-            8 * per_fwd, 0, 0):
+    if dec["gemv_finish_launches"] or dec["memsets"]:
         raise AssertionError(
-            f"profiled decode: {dec['gemv_launches']} GEMV kernels for "
-            f"{8 * per_fwd} calls, {dec['gemv_finish_launches']} finish "
-            f"kernels and {dec['memsets']} memsets (want one kernel a call)")
+            f"profiled decode: {dec['gemv_finish_launches']} finish kernels "
+            f"and {dec['memsets']} memsets (want one kernel a call)")
+    trace_count(dec, "fxp_matmul_gemv", 8 * per_fwd, "profiled decode")
     for name, r in (("cold", res["cold"]), ("warm", warm)):
         log(f"[main] {name}: prefill {r['prefill_ms']:.2f} ms, decode "
             f"{r['decode_ms_per_step']:.2f} ms/step, {r['tokens_per_s']:.1f} "
@@ -1762,25 +1811,42 @@ def device_breakdown(torch, fn):
     """Run ``fn`` under torch.profiler: device kernel time by kernel (ours
     grouped by name), and the device's busy share of the window's wall
     time (the profiler's own host cost lengthens the window, so the share
-    is a lower bound)."""
-    from torch.profiler import ProfilerActivity, profile
+    is a lower bound). The profiler kept no record of the first kernels
+    it saw, 0 to 42 a window on the H100 (the launches left without a
+    device event were each window's first: the embedding's gather of a
+    prefill or decode, the quantize at the start of a step, all 9 float SR
+    kernels of a float32 step), so spin kernels go first and take that
+    loss; the breakdown leaves them out."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        for _ in range(SPINS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.01)
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     groups, counts, n = {}, {}, 0
+    lost = profiler_lost(prof)
+    if lost and lost["n"]:
+        log(f"[trace] the profiler recorded no device event for {lost['n']} "
+            f"launch calls of this window (issued by {', '.join(lost['ops'])})")
     for e in prof.events():
-        if not str(e.device_type).endswith("CUDA"):
+        # the spin kernels and the window's own range on the device's
+        # timeline are not the window's work
+        if (not str(e.device_type).endswith("CUDA") or "spin_kernel" in e.name
+                or e.name == WINDOW):
             continue
         n += 1
         name = e.name
         for key in ("fxp_qmatmul", "matmul_qdx", "fxp_matmul_gemv",
                     "fxp_matmul_finish", "fxp_matmul", "flash_fwd",
                     "matmul_dx", "matmul_dw", "flash_dq", "flash_dkv",
-                    "sr_kernel", "edf_ladder", "nvjet", "gemm", "Memset",
-                    "Memcpy"):
+                    "sr_grid_kernel", "sr_kernel", "edf_ladder", "nvjet",
+                    "gemm", "Memset", "Memcpy"):
             if key in name:
                 name = key
                 break
@@ -1794,9 +1860,61 @@ def device_breakdown(torch, fn):
     return {"wall_ms": wall_ms, "device_events": n, "busy_ms": busy,
             "busy_share": busy / wall_ms if n else None, "groups_ms": top,
             "groups_n": {k: counts[k] for k in top}, "library_gemm_ops": gemms,
+            "counts": counts, "lost_launches": lost,
             "gemv_launches": counts.get("fxp_matmul_gemv", 0),
             "memsets": counts.get("Memset", 0),
             "gemv_finish_launches": counts.get("fxp_matmul_finish", 0)}
+
+
+def profiler_lost(prof):
+    """The kernel launch calls of the profiled window (the
+    ``cudaLaunchKernel*`` and ``cuLaunchKernel*`` records inside
+    ``WINDOW``) whose correlation id
+    has no device event: kernels that ran but that the profiler did not
+    record. Returns their count and, for up to 8 of them, the innermost
+    host op that issued each (by time, on its thread; "?" for a launch
+    from outside any op, as the port's wrappers make); None where this
+    torch's profiler does not expose the correlation ids."""
+    try:
+        calls, seen, ops, window = {}, set(), [], (0, -1)
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if str(e.device_type()).endswith("CUDA"):
+                seen.add(e.correlation_id())
+            elif name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                calls[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
+            elif name == WINDOW:
+                window = (e.start_ns(), e.end_ns())
+            elif not name.startswith(("cuda", "cu")):
+                ops.append((e.start_ns(), e.end_ns(), e.start_thread_id(), name))
+    except (AttributeError, RuntimeError):
+        return None
+    lost = sorted(v for c, v in calls.items()
+                  if c not in seen and window[0] <= v[0] <= window[1])
+    by = []
+    for t, tid in lost[:8]:
+        inner = [o for o in ops if o[2] == tid and o[0] <= t <= o[1]]
+        by.append(min(inner, key=lambda o: o[1] - o[0])[3] if inner else "?")
+    return {"n": len(lost), "ops": by}
+
+
+def trace_count(prof, key, counted, what):
+    """The trace's events of kernel group ``key`` against the wrapper's
+    exact launch count: an extra event fails (a second kernel a call); fewer
+    are launches the profiler did not record, logged with the trace's own
+    count of launch calls left without a device event. Returns the events."""
+    seen = prof["counts"].get(key, 0)
+    if seen > counted:
+        raise AssertionError(f"{what}: {seen} {key} events for {counted} "
+                             "launches")
+    if seen < counted:
+        lost = prof["lost_launches"]
+        log(f"[trace] {what}: {seen} {key} events for {counted} counted "
+            "launches; the profiler recorded no device event for "
+            + (f"{lost['n']} of the trace's launch calls (issued by "
+               f"{', '.join(lost['ops'])})" if lost else "some launches "
+               "(correlation ids not exposed)"))
+    return seen
 
 
 def profile_steps(torch, eng, prompts):
@@ -2211,11 +2329,25 @@ def sr_train_path(torch):
         one_switch()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    ladder = wrappers()["edf_ladder_hists"]
+    calls = ladder.launches
     sw_prof = device_breakdown(torch, one_switch)
+    calls = ladder.launches - calls
+    if calls != PER_SWITCH["edf_ladder_hists"]:
+        raise AssertionError(f"profiled switch: {calls} ladder calls")
+    # one kernel a ladder call: its own events, no conversion kernel
+    sw_prof["edf_ladder_events"] = trace_count(sw_prof, "edf_ladder", calls,
+                                               "profiled switch")
+    if any("to_f32" in k or "edf" in k for k in sw_prof["counts"]
+           if k != "edf_ladder"):
+        raise AssertionError(f"profiled switch: a second ladder kernel in "
+                             f"{sorted(sw_prof['counts'])}")
     log(f"[sr] switch alone: wall {walls[0]:.1f} / {walls[1]:.1f} ms; "
         f"profiled wall {sw_prof['wall_ms']:.1f} ms, device busy "
-        f"{sw_prof['busy_ms']:.2f} ms; by kernel: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in sw_prof["groups_ms"].items()))
+        f"{sw_prof['busy_ms']:.2f} ms, {sw_prof['edf_ladder_events']} ladder "
+        f"kernels for {calls} calls, {sw_prof['memsets']} memsets; by "
+        "kernel: " + ", ".join(f"{k} {v:.2f}"
+                               for k, v in sw_prof["groups_ms"].items()))
 
     step_fn = train_loop.make_train_step(cfg)
     batch = train_loop.make_batch(cfg, SR_STEPS, device="cuda")
@@ -2228,6 +2360,8 @@ def sr_train_path(torch):
     if prof["library_gemm_ops"]:
         raise AssertionError(f"library GEMMs in the SR step: "
                              f"{prof['library_gemm_ops']}")
+    prof["sr_events"] = trace_count(prof, "sr_kernel", N_STACKED + N_FLAT,
+                                    "profiled SR step")
     if not math.isfinite(float(box["metrics"]["loss"])):
         raise AssertionError("profiled SR step: loss not finite")
     log(f"[profile] SR train step: wall {prof['wall_ms']:.1f} ms, device busy "
@@ -2429,9 +2563,13 @@ def float_train_path(torch, fm, fa):
     state, walls = switch_alone(torch, cfg, state)
     log(f"[float32] switch alone: wall {walls[0]:.1f} / {walls[1]:.1f} ms")
     state, prof = profiled_step(torch, cfg, state, FLOAT_STEPS, True)
+    prof["sr_grid_events"] = trace_count(prof, "sr_grid_kernel",
+                                         N_STACKED + N_FLAT,
+                                         "profiled float32 step")
     log(f"[profile] float32 train step: wall {prof['wall_ms']:.1f} ms, device "
-        f"busy {prof['busy_ms']:.1f} ms (share {prof['busy_share']:.3f}); "
-        f"library GEMMs {prof['library_gemm_ops']}; by kernel: "
+        f"busy {prof['busy_ms']:.1f} ms (share {prof['busy_share']:.3f}), "
+        f"{prof['sr_grid_events']} float SR kernels, library GEMMs "
+        f"{prof['library_gemm_ops']}; by kernel: "
         + ", ".join(f"{k} {v:.1f}" for k, v in prof["groups_ms"].items()))
     res = {"float32": {"steps": steps, "launches": launches, "peak_gib": peak,
                        "wlfl_before": before, "wlfl_after": after,
@@ -2918,7 +3056,8 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
     spill_free(reports, {"fxp_matmul": "fxp_matmul_gemv",
                          "int8_matmul": "int8_matmul_tc",
-                         "sr_quantize": "sr_grid_kernel"})
+                         "sr_quantize": "sr_grid_kernel",
+                         "edf_ladder": "edf_ladder_kernel"})
 
     marks = {"build": time.perf_counter() - t_start}
 
@@ -3168,7 +3307,7 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         entry("sr_quantize_fused_int8", "sr_quantize.cu", "sr_quantize.py:188",
               0.0, summed(flat_by_shape, flat_calls)),
         entry("edf_ladder_hists", "edf_ladder.cu", "edf_ladder.py:41", 0.0,
-              summed(edf_by_shape, edf_calls)),
+              summed(edf_by_shape, edf_calls, device_keys)),
         entry("sr_quantize_fused_stacked", "sr_quantize.cu",
               "sr_quantize.py:282", 0.0, summed(gs_by, gs_calls, device_keys)),
         entry("sr_quantize_fused", "sr_quantize.cu", "sr_quantize.py:174", 0.0,

@@ -118,10 +118,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float pow2i(int e) {
-  e = min(max(e, -126), 127);
-  return __int_as_float((e + 127) << 23);
-}
+using sm90::pow2i;
 
 // The <8, fl> word of a master element with flat index idx (as a float).
 struct Quant {

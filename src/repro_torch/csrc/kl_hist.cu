@@ -25,8 +25,7 @@
 // atomics, so the counts do not depend on the order; one copy per warp
 // keeps warps apart on the few bins that hold most of a bell-shaped
 // tensor); at the end each block adds its counters into an int32 table in
-// device memory, and a second small kernel converts the table to f32
-// (edf_ladder.cu's layout).
+// device memory, and a second small kernel converts the table to f32.
 
 #include <cuda_runtime.h>
 #include <math.h>

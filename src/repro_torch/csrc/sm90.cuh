@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
 // flash_attention.cu, fxp_qmatmul.cu, fxp_matmul_bwd.cu, fxp_matmul.cu and
-// int8_matmul.cu, and by the float SR kernel of sr_quantize.cu, written as
-// raw PTX:
+// int8_matmul.cu, by the float SR kernel of sr_quantize.cu and by the EDF
+// ladder of edf_ladder.cu, written as raw PTX:
 //  * mbarriers: init, arrive, arrive with an expected transaction count,
 //    parity wait; cp.async copies of 16 bytes;
 //  * 1-D bulk copies (cp.async.bulk, no tensor map): global to shared
 //    memory completing on an mbarrier, shared to global memory in bulk
 //    groups, and the waits for those groups;
-//  * clusters: rank, peer shared-memory addresses (mapa), loads, bulk copies
+//  * clusters: rank, peer shared-memory addresses (mapa), f32 and s32 loads,
+//    bulk copies
 //    and barrier arrivals into a peer CTA, cluster-scope waits and syncs;
 //    named barriers; setmaxnreg;
 //  * TMA: 2-D and 4-D tile loads (cp.async.bulk.tensor) that complete on an
@@ -24,7 +25,8 @@
 //    and the m64n256k32 s8 product with s32 accumulators, both operands
 //    K-major (int8_matmul.cu);
 //  * the dynamic shared memory from a 1024-byte boundary, carved by
-//    pointer offsets (align1024).
+//    pointer offsets (align1024);
+//  * exact powers of two and their reciprocals (pow2i, recip_pow2i).
 //
 // Layout convention (the 128-byte swizzle, CU_TENSOR_MAP_SWIZZLE_128B on
 // the TMA side, layout type 1 in a descriptor): a tile is stored as
@@ -61,6 +63,24 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 template <typename T>
 __device__ __forceinline__ T* align1024(uint8_t* raw) {
   return reinterpret_cast<T*>(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023));
+}
+
+// ---------------------------------------------------------------------------
+// Exact powers of two: 2^e from the exponent bits, e clamped to [-126, 127]
+// (never exp2f, which is off an ulp at some e), and its exact reciprocal
+// 2^-e (2^-127, at e = 127, is the subnormal 0x00400000). For an
+// integer-valued q (or NaN, or +-inf), q / pow2i(e) and q * recip_pow2i(e)
+// are the same real rounded once, so their bits agree as long as nothing
+// flushes subnormals (no --use_fast_math).
+
+__device__ __forceinline__ float pow2i(int e) {
+  e = min(max(e, -126), 127);
+  return __int_as_float((e + 127) << 23);
+}
+
+__device__ __forceinline__ float recip_pow2i(int e) {
+  e = min(max(e, -126), 127);
+  return __int_as_float(e == 127 ? 0x00400000 : (127 - e) << 23);
 }
 
 // ---------------------------------------------------------------------------
@@ -186,6 +206,14 @@ __device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
 __device__ __forceinline__ float ld_peer_f32(const float* p, uint32_t rank) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(peer_addr(p, rank))
+               : "memory");
+  return v;
+}
+
+// An int32 of a peer CTA's shared memory: the value at `p` in CTA `rank`.
+__device__ __forceinline__ int ld_peer_s32(const int* p, uint32_t rank) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(peer_addr(p, rank))
                : "memory");
   return v;
 }

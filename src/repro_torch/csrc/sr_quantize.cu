@@ -72,10 +72,7 @@ namespace {
 constexpr int NT = 256;
 constexpr unsigned LANES = 512;     // the TPU kernels' padded row width
 
-__device__ __forceinline__ float pow2i(int e) {
-  e = min(max(e, -126), 127);
-  return __int_as_float((e + 127) << 23);
-}
+using sm90::pow2i;
 
 __device__ __forceinline__ float uniform(uint32_t idx, uint32_t seed_mix) {
   uint32_t h = idx + seed_mix;
@@ -321,12 +318,7 @@ __device__ __forceinline__ Span span_of(const Plan& p, long long c) {
   return s;
 }
 
-// 2^-e for the clamped e of pow2i: the exact reciprocal of pow2i(e)
-// (2^-127 is the subnormal 0x00400000).
-__device__ __forceinline__ float recip_pow2i(int e) {
-  e = min(max(e, -126), 127);
-  return __int_as_float(e == 127 ? 0x00400000 : (127 - e) << 23);
-}
+using sm90::recip_pow2i;
 
 template <typename T>
 __device__ __forceinline__ T out_of(float v);
