@@ -4,9 +4,10 @@ each against its plain version, serve llama3.2-3b through the ``Engine``,
 train it with AdaPT-SGD through ``train_loop.train`` (round-to-nearest
 words, stochastically rounded words through a precision switch, the float
 containers, the quantize prologue, the registry's default quantizer with
-the reference's jax.random noise), drive the three kernels only
-``kernels/ops`` reaches, and compare the card with the CPU at depth 2 for
-each.
+the reference's jax.random noise, remat and microbatch accumulation, the
+registry's own config), drive the three kernels only ``kernels/ops``
+reaches, save and resume a run, and compare the card with the CPU at
+depth 2 for each.
 
     python3 chip_smoke.py
 
@@ -64,7 +65,8 @@ Phases (any failure exits non-zero; nothing is caught):
      row-major and column-major, its scale gradients within 1e-5;
      ``kl_hist`` bit for bit on that leaf
      against its SR copy at 256 and 150 bins and on the pathological
-     values;
+     values; the SR int8 words, ``sr_quantize`` and ``kl_hist`` also
+     timed by CUDA-graph replay (the SR int8 words over three graphs);
   4. serving main path: llama3.2-3b at full config (28 layers, random TNVS
      weights from a seed, int8 words at FL 10), ``Engine.generate`` on 4
      prompts of 128 tokens, 32 new tokens, greedy; launch counts per forward
@@ -82,7 +84,8 @@ Phases (any failure exits non-zero; nothing is caught):
      4 x 512 tokens (no precision switch), per-step ms, tokens/s, loss,
      grad_norm and exact launch counts, peak memory; one more step under
      the profiler: device busy share, time by kernel, and no library GEMM;
-  7. training, card against CPU: one step at depth 2, batch 2 x 64;
+  7. training, card against CPU: one step at depth 2, batch 2 x 64, with
+     activation quantization off (on: phase 16);
   8. SR training main path: full llama3.2-3b with the registry's
      stochastic rounding, 4 steps of 4 x 512 tokens with a precision switch
      after steps 2 and 4 (lookback 2, so every tensor switches after step
@@ -109,7 +112,8 @@ Phases (any failure exits non-zero; nothing is caught):
      fxp_qmatmul, matmul_qdx and matmul_dw launches a step), a profiled
      step with no library GEMM;
  13. path B, card against CPU at depth 2: the prologue words of every
-     dense leaf (through the regularizer's view) bit-equal, one step;
+     dense leaf (through the regularizer's view) bit-equal (path B's
+     step at depth 2 is phase 16's, with remat and accumulation);
  14. the registry's default quantizer: full llama3.2-3b under the
      QuantConfig defaults (float32 container, SR, quant.use_pallas=false:
      cuBLAS dense layers, plain attention, the plain EDF ladder, the SR
@@ -126,7 +130,29 @@ Phases (any failure exits non-zero; nothing is caught):
  15. phase 14's configuration, card against CPU at depth 2: the quantized
      copy each step read bit-equal, one step within the slice-2 bounds
      (the CPU taking the plain attention's AV product in the card's bf16),
-     the switch identical.
+     the switch identical;
+ 16. remat and microbatch accumulation on the packed path (full
+     llama3.2-3b, SR words at FL 10): one step of 4 x 512 from the same
+     state and batch under remat none, full and selective, exact launches
+     (the layers' forward kernels twice under full and selective), params,
+     "grad_sum", loss and grad_norm bit-equal across the three, the peak
+     memory of each (full's below none's); then 8 x 512 in 8 microbatches
+     of 1 x 512 under full remat: exact launches per step (8 x the
+     layers' forward kernels twice and the head's once, 8 backwards, the
+     SR words once), the first step's loss and params within 5e-3 of one
+     batch of the same rows, two more steps through a switch, step ms,
+     tokens/s, peak memory; then card against CPU at depth 2, batch 8 x 64,
+     remat full and 4 microbatches, packed and through the prologue, one
+     step within phase 7's bounds;
+ 17. the registry's config: ``get_config("llama3.2-3b")`` with only the
+     batch (8) and the sequence (512) cut (remat full, 8 microbatches in
+     an f32 accumulator, the QuantConfig defaults, no kernel launched), 2
+     steps, step ms from the loop's watchdog, peak memory;
+ 18. checkpoints: the reduced llama3.2-3b, packed with SR under
+     ``quant.use_pallas``: 2 steps, an async save, 2 more; restored into a
+     fresh state on the card, the same 2 steps bit-equal to the
+     uninterrupted run; ``launch.train --resume --metrics-dir`` from it and
+     ``launch.serve --checkpoint-dir``.
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -167,7 +193,7 @@ TRAIN_M = TRAIN_B * TRAIN_S
 OVERRIDES = ["quant.container_dtype=int8_packed", "quant.use_pallas=true",
              "quant.init_fl=10"]
 # Training with round-to-nearest words, no remat and no gradient
-# accumulation (not ported), 4 sequences of 512 tokens.
+# accumulation (phase 16 drives both), 4 sequences of 512 tokens.
 TRAIN_OVERRIDES = OVERRIDES + [
     "quant.stochastic_rounding=false", "train.remat=none",
     "train.accum_steps=1", f"train.global_batch={TRAIN_B}",
@@ -256,6 +282,49 @@ DEFAULT_STEPS = 4
 # its backward (the kernel again at unit scale) at M = 2048.
 OPS_LEAF = "blocks/s0_mlp/wi_gate"
 OPS_PATH = {**ZERO, "sr_quantize": N_LAYERS, "kl_hist": 1, "int8_matmul": 2}
+# Phase 16: remat and microbatch accumulation on the packed path with SR
+# words. (a) one step of 4 x 512 under each remat mode; under full and
+# selective remat every layer's forward kernels run again in the backward
+# (the head is outside the checkpointed body). (b) 8 x 512 in 8
+# microbatches of 1 x 512 (M = 512: the tensor cores) under full remat:
+# per microbatch the layers' forward kernels twice and the head's once,
+# one backward; the SR words once per step.
+REMAT_OVERRIDES = OVERRIDES + [
+    "train.accum_steps=1", f"train.global_batch={TRAIN_B}",
+    f"train.seq_len={TRAIN_S}", "train.log_every=1"]
+LAYER_DENSE = 7 * N_LAYERS
+REMAT_STEP = {**SR_PER_STEP, "fxp_matmul": 2 * LAYER_DENSE + 1,
+              "flash_attention": 2 * N_LAYERS}
+ACCUM_B, ACCUM = 8, 8
+ACCUM_OVERRIDES = OVERRIDES + [
+    "train.remat=full", f"train.accum_steps={ACCUM}",
+    f"train.global_batch={ACCUM_B}", f"train.seq_len={TRAIN_S}",
+    "train.log_every=1", "train.adapt_interval=2", "quant.lb_lwr=2"]
+ACCUM_STEPS = 3                        # the first alone, then two through train
+ACCUM_PER_STEP = {
+    **ZERO, "fxp_matmul": ACCUM * (2 * LAYER_DENSE + 1),
+    "flash_attention": ACCUM * 2 * N_LAYERS,
+    "matmul_dx": ACCUM * DENSE_CALLS, "matmul_dw": ACCUM * DENSE_CALLS,
+    "flash_attention_dq": ACCUM * N_LAYERS,
+    "flash_attention_dkv": ACCUM * N_LAYERS,
+    "sr_quantize_fused_stacked_int8": N_STACKED,
+    "sr_quantize_fused_int8": N_FLAT}
+# accum_steps=8 against 1 on the same rows: the reference's own bound
+# (tests/test_train.py::test_accumulation_matches_full_batch)
+ACCUM_ABS = 5e-3
+# Phase 17: the registry's llama3.2-3b config with only the batch and the
+# sequence cut (remat full, 8-way accumulation in f32, the QuantConfig
+# defaults: no hand-written kernel).
+REGISTRY_CUTS = [f"train.global_batch={ACCUM_B}", f"train.seq_len={TRAIN_S}"]
+REGISTRY_STEPS = 2
+# Phase 18: checkpoints of the reduced llama3.2-3b on the packed path.
+CKPT_OVERRIDES = ["quant.container_dtype=int8_packed", "quant.use_pallas=true",
+                  "quant.init_fl=8", "train.global_batch=4",
+                  "train.seq_len=64", "train.adapt_interval=2",
+                  "quant.lb_lwr=2", "train.log_every=1"]
+# CUDA graphs a device time of the SR int8 kernels takes the median of: the
+# flat kernel's launched time scattered by a third between runs.
+GRAPH_RUNS = 3
 # The profiled window's name, and the spin kernels launched ahead of it.
 WINDOW = "chip_smoke.window"
 SPINS = 64
@@ -900,9 +969,11 @@ def check_sr_quantize(torch, sq, gen):
     head flat, and one layer of each blocks/ leaf flat, as the prologue's
     regularizer draws it), and at ragged shapes: n not a multiple of 512 or of 4 (the
     scalar path), one layer equal to the flat kernel, FL −3…28, negative
-    and large seeds. Times: kernel, plain version, bound (4 bytes read and
-    1 written per element; the ~20 integer and float operations per
-    element at the CUDA-core rate take less)."""
+    and large seeds. Times: kernel (launched, and by CUDA-graph replay,
+    ``device_ms``: the median of ``GRAPH_RUNS`` graphs, each replayed
+    twice, all kept in ``device_ms_runs``), plain version, bound (4 bytes
+    read and 1 written per element; the ~20 integer and float operations
+    per element at the CUDA-core rate take less)."""
     dev = "cuda"
     rows = {"sr_quantize_fused_stacked_int8": [],
             "sr_quantize_fused_int8": []}
@@ -918,8 +989,12 @@ def check_sr_quantize(torch, sq, gen):
             bad = int((got != want).sum())
             raise AssertionError(f"{name} {shape}: {bad} words differ")
         n = x.numel()
+        runs = [graph_time_ms([lambda: kern(x, seed, fl)], 5)
+                for _ in range(GRAPH_RUNS)]
         row = {"shape": list(shape), "max_abs_err": 0.0,
                "ms": cuda_time_ms([lambda: kern(x, seed, fl)], 5),
+               "device_ms": sorted(runs)[len(runs) // 2],
+               "device_ms_runs": runs,
                "plain_ms": cuda_time_ms([lambda: plain(x, seed, fl)], 2),
                "library_ms": None}
         row["bound_ms"], row["bound_by"] = max(
@@ -927,6 +1002,8 @@ def check_sr_quantize(torch, sq, gen):
             (20.0 * n / F32_OPS * 1e3, "operations"))
         rows[name].append(row)
         log(f"[kernels] {name} {list(shape)}: bit-equal, ms={row['ms']:.4g}, "
+            f"device_ms={row['device_ms']:.4g} (graph runs "
+            f"{', '.join(f'{r:.4g}' for r in runs)}), "
             f"plain_ms={row['plain_ms']:.4g}, bound_ms={row['bound_ms']:.4g}")
         del got, want
 
@@ -1357,7 +1434,8 @@ def check_ops_kernels(torch, gen):
     the two named; ``int8_matmul`` and both also by CUDA-graph replay;
     two ``torch.histc`` calls over [lo, hi],
     timed only, since histc bins by its own formula; none for the SR
-    values) and the bound."""
+    values), the kernels of ``sr_quantize`` and ``kl_hist`` also by
+    CUDA-graph replay (``device_ms``), and the bound."""
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import kl_hist as kh
     from repro_torch.kernels import ops
@@ -1386,6 +1464,8 @@ def check_ops_kernels(torch, gen):
         row = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
                "max_abs_err": 0.0,
                "ms": cuda_time_ms([lambda: sq.sr_quantize(x, u, wlt, flt)], 5),
+               "device_ms": graph_time_ms(
+                   [lambda: sq.sr_quantize(x, u, wlt, flt)], 5),
                "plain_ms": cuda_time_ms([lambda: sq.plain_given(
                    x, u, wlt, flt)], 2),
                "library_ms": None}
@@ -1394,8 +1474,8 @@ def check_ops_kernels(torch, gen):
             (12.0 * n / F32_OPS * 1e3, "operations"))
         rows["sr_quantize"].append(row)
         log(f"[kernels] sr_quantize {row['shape']} {row['dtype']}: bit-equal, "
-            f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
-            f"bound_ms={row['bound_ms']:.4g}")
+            f"ms={row['ms']:.4g}, device_ms={row['device_ms']:.4g}, "
+            f"plain_ms={row['plain_ms']:.4g}, bound_ms={row['bound_ms']:.4g}")
         return got
 
     x = torch.randn(N_LAYERS, D_MODEL, D_FF, generator=gen, device=dev) * 0.05
@@ -1426,6 +1506,7 @@ def check_ops_kernels(torch, gen):
         n = x.numel()
         row = {"shape": list(x.shape), "bins": nb, "max_abs_err": 0.0,
                "ms": cuda_time_ms([lambda: kh.kl_hist(x, q, nb)], 5),
+               "device_ms": graph_time_ms([lambda: kh.kl_hist(x, q, nb)], 5),
                "plain_ms": cuda_time_ms([lambda: kh.plain(x, q, nb)], 2),
                "library_ms": cuda_time_ms([lambda: (
                    torch.histc(x, nb, lo, hi), torch.histc(q, nb, lo, hi))], 5),
@@ -1435,7 +1516,8 @@ def check_ops_kernels(torch, gen):
             (12.0 * n / F32_OPS * 1e3, "operations"))
         rows["kl_hist"].append(row)
         log(f"[kernels] kl_hist {row['shape']} {nb} bins: bit-equal, "
-            f"ms={row['ms']:.4g}, plain_ms={row['plain_ms']:.4g}, "
+            f"ms={row['ms']:.4g}, device_ms={row['device_ms']:.4g}, "
+            f"plain_ms={row['plain_ms']:.4g}, "
             f"histc x2 {row['library_ms']:.4g}, bound_ms={row['bound_ms']:.4g}")
     del x, q
     torch.cuda.empty_cache()
@@ -2164,24 +2246,24 @@ def flat_paths(tree, prefix=""):
 
 
 def train_card_vs_cpu(torch):
-    """One train step at depth 2, full width, batch 2 x 64: the same state
-    (drawn on the card, copied to the CPU) and batch, kernels on the card
-    and plain versions on the CPU; once as configured and once with
-    activation quantization off. Both sides round after every op and only
-    sum in other orders, so loss is held to rtol 2e-3, grad_norm to 2e-2
-    and every leaf's update to 2e-2 normwise, the CPU tests' bounds for a
-    first step from the same params. One exception, with activation
-    quantization on only: the int8 activation words turn a one-ulp flip
-    before the last slot's quantization into a whole quantization step,
-    which the final norm and the head see first and directly, so those
-    two leaves are held to 5e-2."""
+    """One train step at depth 2, full width, batch 2 x 64, with activation
+    quantization off: the same state (drawn on the card, copied to the
+    CPU) and batch, kernels on the card and plain versions on the CPU.
+    Both sides round after every op and only sum in other orders, so loss
+    is held to rtol 2e-3, grad_norm to 2e-2 and every leaf's update to
+    2e-2 normwise, the CPU tests' bounds for a first step from the same
+    params. The step with activation quantization on is phase 16's (4
+    microbatches of 2 x 64 under full remat: the same kernels at the same
+    M = 128), where the int8 activation words turn a one-ulp flip before
+    the last slot's quantization into a whole quantization step, which
+    the final norm and the head see first and directly, so those two
+    leaves are held to 5e-2."""
     from repro_torch.config import load_config
     from repro_torch.train import train_loop
 
     res = {}
-    for name, extra, loose in (("act_quant_on", [], ("final_norm", "head")),
-                               ("act_quant_off",
-                                ["quant.quantize_activations=false"], ())):
+    for name, extra, loose in (("act_quant_off",
+                                ["quant.quantize_activations=false"], ()),):
         cfg = load_config("llama3.2-3b", overrides=TRAIN_OVERRIDES + [
             "model.num_layers=2", "train.global_batch=2", "train.seq_len=64"]
             + extra)
@@ -2449,6 +2531,7 @@ def run_steps(torch, tag, cfg, state, steps, per_step, per_switch=None):
     after a switch step), finite loss and grad_norm. Returns (state,
     per-step records, launches, peak GiB)."""
     per_switch = PER_SWITCH if per_switch is None else per_switch
+    tokens = cfg.train.global_batch * cfg.train.seq_len
     from repro_torch.train import train_loop
     ws = wrappers()
     marks = []
@@ -2483,10 +2566,10 @@ def run_steps(torch, tag, cfg, state, steps, per_step, per_switch=None):
                 and h["grad_norm"] > 0):
             raise AssertionError(f"{tag} step {h['step']}: {h}")
         out.append({"step": h["step"], "ms": h["dt"] * 1e3, "switch": switch,
-                    "tokens_per_s": TRAIN_B * TRAIN_S / h["dt"],
+                    "tokens_per_s": tokens / h["dt"],
                     "loss": h["loss"], "grad_norm": h["grad_norm"]})
         log(f"[{tag}] step {h['step']}{' + switch' if switch else ''}: "
-            f"{h['dt'] * 1e3:.1f} ms, {TRAIN_B * TRAIN_S / h['dt']:.0f} "
+            f"{h['dt'] * 1e3:.1f} ms, {tokens / h['dt']:.0f} "
             f"tokens/s, loss {h['loss']:.4f}, grad_norm {h['grad_norm']:.4f}")
     if int(state["step"]) != start + steps:
         raise AssertionError(f"{tag}: step counter {int(state['step'])}")
@@ -2665,8 +2748,9 @@ def prologue_train_path(torch):
             "wlfl_after": after, "profile": prof}
 
 
-def step_card_vs_cpu(torch, tag, overrides, seed, loose):
-    """One train step at depth 2, full width, batch 2 x 64, from the same
+def step_card_vs_cpu(torch, tag, overrides, seed, loose, batch=2):
+    """One train step at depth 2, full width, ``batch`` x 64 (2 x 64 by
+    default), from the same
     state (drawn on the card, copied to the CPU) and batch: loss within
     rtol 2e-3, grad_norm within 2e-2 and every leaf's update within 2e-2
     normwise (``loose`` leaves, which activation quantization makes see
@@ -2677,7 +2761,8 @@ def step_card_vs_cpu(torch, tag, overrides, seed, loose):
     from repro_torch.train import train_loop
 
     cfg = load_config("llama3.2-3b", overrides=overrides + [
-        "model.num_layers=2", "train.global_batch=2", "train.seq_len=64"])
+        "model.num_layers=2", f"train.global_batch={batch}",
+        "train.seq_len=64"])
     gpu = train_loop.init_state(cfg, seed, device="cuda")
     cpu = to_device(gpu, "cpu")
     before = to_device(gpu, "cpu")
@@ -2770,12 +2855,18 @@ def prologue_card_vs_cpu(torch):
     """Path B at depth 2: the prologue words of every dense layer-slice,
     drawn through the regularizer's view (the SR int8 kernel on the card,
     its plain version on the CPU), bit-equal from the same state and
-    seeds; one step within the slice-2 bounds."""
+    seeds. Path B's step, card against CPU, is phase 16's: 4 microbatches
+    of 2 x 64 under full remat run the same kernels at the same M = 128
+    as one step of 2 x 64 did here."""
+    from repro_torch.config import load_config
     from repro_torch.core import controller
     from repro_torch.core import fixed_point as fxp
-    gpu, before, cfg, r = step_card_vs_cpu(
-        torch, "prologue", PROLOGUE_OVERRIDES, SEED + 23,
-        ("final_norm", "head"))
+    from repro_torch.train import train_loop
+    cfg = load_config("llama3.2-3b", overrides=PROLOGUE_OVERRIDES + [
+        "model.num_layers=2", "train.global_batch=2", "train.seq_len=64"])
+    gpu = train_loop.init_state(cfg, SEED + 23, device="cuda")
+    before = to_device(gpu, "cpu")
+    r = {}
     seeds = controller.leaf_seeds(int(before["rng"]), 0,
                                   before["adapt"]["tensors"])
     cq = controller.quantize_params_packed(before["params"], before["adapt"],
@@ -2798,7 +2889,8 @@ def prologue_card_vs_cpu(torch):
     if leaves != 8:
         raise AssertionError(f"{leaves} prologue leaves, expected 8")
     r["views_bit_equal"] = leaves
-    log(f"[depth2] prologue: the views of {leaves} prologue leaves bit-equal")
+    log(f"[depth2] prologue: the views of {leaves} prologue leaves bit-equal "
+        "(the step: phase 16)")
     del gpu, before, cq, gq
     torch.cuda.empty_cache()
     return r
@@ -3017,6 +3109,302 @@ def default_card_vs_cpu(torch):
     return r
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-18: remat and accumulation, the registry's config, checkpoints
+
+
+def counted_step(torch, tag, cfg, state, batch, step, want, held=0):
+    """One ``train_step`` with every count set to 0 just before and read
+    just after: exact launches ``want``, each on the branch the earlier
+    phases require; host clock around the synchronised step, peak memory
+    less the ``held`` bytes the caller keeps on the card for a comparison.
+    Returns (state, metrics as floats, record)."""
+    from repro_torch.train import train_loop
+    ws = wrappers()
+    step_fn = train_loop.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ws)
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch, step=step)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in ws.items()}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    check_tensor_cores(tag, launches)
+    m = {k: float(v) for k, v in m.items()}
+    if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            and m["grad_norm"] > 0):
+        raise AssertionError(f"{tag}: {m}")
+    tokens = batch["tokens"].numel()
+    rec = {"ms": dt * 1e3, "tokens_per_s": tokens / dt, **m,
+           "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+           "launches": launches}
+    log(f"[{tag}] {dt * 1e3:.1f} ms, {tokens / dt:.0f} tokens/s, loss "
+        f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, peak "
+        f"{rec['peak_gib']:.2f} GiB")
+    return state, m, rec
+
+
+def step_outputs(state):
+    """What a step writes: the master params and the controller's
+    "grad_sum", by path."""
+    out = {f"params/{p}": t for p, t in flat_paths(state["params"]).items()}
+    for path, ts in state["adapt"]["tensors"].items():
+        out[f"grad_sum/{path}"] = ts["grad_sum"]
+    return out
+
+
+def remat_accum_path(torch):
+    """Phase 16 on llama3.2-3b at full width and depth, int8_packed words
+    with SR under ``quant.use_pallas``, FL 10. (a) One step of 4 x 512 from
+    the same state and batch under remat none, full and selective: exact
+    launches (the layers' forward kernels twice under full and selective),
+    the updated params, "grad_sum", loss and grad_norm bit-equal across
+    the three, the peak memory of each, full's below none's. (b) 8 x 512
+    in 8 microbatches of 1 x 512 under full remat: the first step alone,
+    its loss and params within 5e-3 of one step of the same rows with
+    accum_steps=1 (remat full), then two more through ``train_loop.train``
+    with a switch after step 2, exact launches per step and switch, step
+    ms, tokens/s, peak memory."""
+    from repro_torch.config import load_config
+    from repro_torch.train import train_loop
+
+    from repro_torch.models import transformer
+
+    # the first checkpointed call sets torch.utils.checkpoint up (imports,
+    # about 4 s on the card's host); it is no step's time
+    x = torch.ones(8, 8, device="cuda", requires_grad=True)
+    for remat in ("full", "selective"):
+        torch.autograd.grad(transformer._remat(lambda t: t @ t, remat)(x).sum(),
+                            x)
+    res = {"modes": {}}
+    base = load_config("llama3.2-3b", overrides=REMAT_OVERRIDES)
+    assert base.quant.stochastic_rounding and base.quant.use_pallas
+    batch = train_loop.make_batch(base, 0, device="cuda")
+    first, held = None, 0
+    for remat in ("none", "full", "selective"):
+        cfg = load_config("llama3.2-3b",
+                          overrides=REMAT_OVERRIDES + [f"train.remat={remat}"])
+        state = train_loop.init_state(cfg, SEED + 41, device="cuda")
+        state, m, rec = counted_step(
+            torch, f"remat {remat}", cfg, state, batch, 0,
+            SR_PER_STEP if remat == "none" else REMAT_STEP, held)
+        out = step_outputs(state)
+        if first is None:
+            first = {"m": m, "out": {k: t.clone() for k, t in out.items()}}
+            held = sum(t.numel() * t.element_size()
+                       for t in first["out"].values())
+        else:
+            if m != first["m"]:
+                raise AssertionError(f"remat {remat}: metrics {m} != remat "
+                                     f"none's {first['m']}")
+            for path, t in out.items():
+                if not torch.equal(t, first["out"][path]):
+                    raise AssertionError(f"remat {remat}: {path} differs "
+                                         "from remat none's")
+        res["modes"][remat] = rec
+        del state, out
+        torch.cuda.empty_cache()
+    del first
+    peaks = {k: r["peak_gib"] for k, r in res["modes"].items()}
+    if not peaks["full"] < peaks["none"]:
+        raise AssertionError(f"remat full's peak is not below none's: {peaks}")
+    log(f"[remat] none, full and selective: params, grad_sum, loss and "
+        f"grad_norm bit-equal; peaks {peaks} GiB")
+
+    # (b) accumulation: the same rows in one batch, then in 8 microbatches
+    one = load_config("llama3.2-3b",
+                      overrides=ACCUM_OVERRIDES + ["train.accum_steps=1"])
+    cfg = load_config("llama3.2-3b", overrides=ACCUM_OVERRIDES)
+    batch = train_loop.make_batch(cfg, 0, device="cuda")
+    state = train_loop.init_state(one, SEED + 43, device="cuda")
+    state, m1, rec1 = counted_step(torch, "accum 1", one, state, batch, 0,
+                                   REMAT_STEP)
+    want = {k: t.clone() for k, t in flat_paths(state["params"]).items()}
+    held = sum(t.numel() * t.element_size() for t in want.values())
+    del state
+    torch.cuda.empty_cache()
+    state = train_loop.init_state(cfg, SEED + 43, device="cuda")
+    state, m8, rec8 = counted_step(torch, "accum 8", cfg, state, batch, 0,
+                                   ACCUM_PER_STEP, held)
+    loss_diff = abs(m8["loss"] - m1["loss"])
+    got = flat_paths(state["params"])
+    param_diff = max(float((got[k] - w).abs().max()) for k, w in want.items())
+    if not (loss_diff < ACCUM_ABS and param_diff < ACCUM_ABS):
+        raise AssertionError(f"accum 8 vs 1: loss {loss_diff}, params "
+                             f"{param_diff} (bound {ACCUM_ABS})")
+    log(f"[accum] 8 microbatches vs one batch of 8 x {TRAIN_S}: loss diff "
+        f"{loss_diff:.3g}, max |param diff| {param_diff:.3g} (bound "
+        f"{ACCUM_ABS})")
+    del want, got
+    torch.cuda.empty_cache()
+    state, steps, launches, peak = run_steps(
+        torch, "accum", cfg, state, ACCUM_STEPS - 1, ACCUM_PER_STEP)
+    res.update(accum_1=rec1, accum_8_first=rec8, accum_8_steps=steps,
+               accum_8_launches=launches, accum_8_peak_gib=peak,
+               accum_loss_diff=loss_diff, accum_param_diff=param_diff)
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def remat_accum_card_vs_cpu(torch):
+    """Phase 16 (c): one step at depth 2, batch 8 x 64, remat full and
+    accum_steps=4 (microbatches of 2 x 64), on the card and on the CPU from
+    the same state, on the packed path and through the quantize prologue
+    (which stands for phase 13's step), within phase 7's bounds."""
+    out = {}
+    extra = ["train.remat=full", "train.accum_steps=4"]
+    for tag, ov, seed in (("packed", OVERRIDES, SEED + 45),
+                          ("prologue", OVERRIDES + ["quant.dense_prologue=true"],
+                           SEED + 47)):
+        gpu, _, _, r = step_card_vs_cpu(torch, f"remat+accum {tag}", ov + extra,
+                                        seed, ("final_norm", "head"), batch=8)
+        out[tag] = r
+        del gpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def registry_path(torch):
+    """Phase 17: ``get_config("llama3.2-3b")`` with only the batch (8) and
+    the sequence (512) cut: remat full, 8 microbatches of 1 x 512 summed in
+    an f32 accumulator, the QuantConfig defaults (float32 container, SR
+    from the jax.random stream, no hand-written kernel), 2 steps through
+    ``train_loop.train``; the step times from its watchdog and the loss
+    from its heartbeat (the config logs every 10th step), no kernel
+    launched, finite params, the peak memory."""
+    from repro_torch.config import apply_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.train import train_loop
+    from repro_torch.train.fault_tolerance import Heartbeat, StepWatchdog
+
+    cfg = apply_overrides(get_config("llama3.2-3b"), REGISTRY_CUTS)
+    t, q = cfg.train, cfg.quant
+    assert (t.remat, t.accum_steps, t.accum_dtype, q.container_dtype,
+            q.stochastic_rounding, q.use_pallas) == (
+        "full", 8, "float32", "float32", True, False), (t, q)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[registry] init: {time.perf_counter() - t0:.1f} s, {held:.2f} GiB "
+        "held")
+    ws = wrappers()
+    watchdog, beats = StepWatchdog(), []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ws)
+    state, _ = train_loop.train(cfg, steps=REGISTRY_STEPS, state=state,
+                                watchdog=watchdog, device="cuda",
+                                heartbeat=Heartbeat(0.0, beats.append),
+                                log=lambda line: log(f"[registry] {line}"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: w.launches for k, w in ws.items()}
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches under the defaults: {launches}")
+    losses = [float(b.rsplit("loss=", 1)[1]) for b in beats]
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in flat_paths(state["params"]).values())
+    if len(losses) != REGISTRY_STEPS or not all(map(math.isfinite, losses)) \
+            or not finite or int(state["step"]) != REGISTRY_STEPS:
+        raise AssertionError(f"registry config: losses {losses}, params "
+                             f"finite {finite}, step {int(state['step'])}")
+    tokens = t.global_batch * t.seq_len
+    steps = [{"step": i + 1, "ms": dt * 1e3, "tokens_per_s": tokens / dt,
+              "loss": loss} for i, (dt, loss) in enumerate(zip(watchdog.times,
+                                                               losses))]
+    for r in steps:
+        log(f"[registry] step {r['step']}: {r['ms']:.1f} ms, "
+            f"{r['tokens_per_s']:.0f} tokens/s, loss {r['loss']:.4f}")
+    log(f"[registry] peak device memory {peak:.2f} GiB ({held:.2f} GiB held "
+        "by the state), no kernel launched")
+    del state
+    torch.cuda.empty_cache()
+    return {"steps": steps, "peak_gib": peak, "state_gib": held,
+            "accum_dtype": t.accum_dtype, "launches": launches}
+
+
+def checkpoint_path(torch):
+    """Phase 18 on ``get_smoke_config("llama3.2-3b")``, int8_packed words
+    with SR under ``quant.use_pallas``: 2 steps, an async save, 2 more (a
+    switch after each second step); the checkpoint restored into a fresh
+    ``init_state`` on the card and the same 2 steps again: params, adapt
+    state, opt state and step bit-equal to the uninterrupted run. Then
+    ``launch.train --resume`` from that checkpoint to step 6, writing both
+    JSONL files, and ``launch.serve --checkpoint-dir`` serving from it."""
+    import shutil
+    from repro_torch.config import apply_overrides
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train import train_loop
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.metrics import read_jsonl
+
+    work = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt, mdir = str(work / "ckpt"), str(work / "metrics")
+    cfg = apply_overrides(get_smoke_config("llama3.2-3b"), CKPT_OVERRIDES)
+    ws = wrappers()
+    reset_counts(ws)
+
+    def run(state, steps):
+        return train_loop.train(cfg, steps=steps, state=state, device="cuda",
+                                log=lambda line: None)[0]
+
+    state = run(train_loop.init_state(cfg, device="cuda"), 2)
+    mgr = CheckpointManager(ckpt, async_save=True)
+    mgr.save(state, step=2)
+    state = run(state, 2)
+    mgr.wait()
+    launches = {k: w.launches for k, w in ws.items()}
+    for name in ("fxp_matmul", "matmul_dx", "matmul_dw", "flash_attention",
+                 "flash_attention_dq", "flash_attention_dkv",
+                 "sr_quantize_fused_stacked_int8", "sr_quantize_fused_int8",
+                 "edf_ladder_hists"):
+        if not launches[name]:
+            raise AssertionError(f"checkpoint run: no {name} launch")
+    resumed = run(mgr.restore(train_loop.init_state(cfg, SEED + 99,
+                                                    device="cuda")), 2)
+    a, b = flat_paths(resumed), flat_paths(state)
+    if a.keys() != b.keys():
+        raise AssertionError("resumed state's leaves differ")
+    for path, t in b.items():
+        if a[path].dtype != t.dtype or a[path].device != t.device \
+                or not torch.equal(a[path], t):
+            raise AssertionError(f"resumed run: {path} differs from the "
+                                 "uninterrupted run")
+    wlfl = wlfl_histogram(state)
+    log(f"[checkpoint] 2 steps, async save at step 2, restore into a fresh "
+        f"state, 2 steps: {len(b)} leaves bit-equal to the uninterrupted run "
+        f"(<WL,FL> {wlfl}); launches {launches}")
+    meta = mgr.restore_meta()
+    mgr.save(state, step=4)
+    mgr.wait()
+    argv = ["--arch", "llama3.2-3b", "--smoke"] + sum(
+        (["--override", o] for o in CKPT_OVERRIDES), [])
+    if train_launcher.main(argv + ["--steps", "2", "--checkpoint-dir", ckpt,
+                                   "--resume", "--metrics-dir", mdir]) != 0:
+        raise AssertionError("launch.train --resume failed")
+    steps = read_jsonl(str(work / "metrics" / "llama3.2-3b.metrics.jsonl"))
+    switches = read_jsonl(str(work / "metrics" / "llama3.2-3b.switches.jsonl"))
+    if [r["step"] for r in steps if r["kind"] == "step"] != [5, 6] \
+            or [r["step"] for r in switches] != [6] \
+            or CheckpointManager(ckpt).latest_step() != 6:
+        raise AssertionError(f"launch.train --resume: {steps} {switches}")
+    if serve_launcher.main(["--arch", "llama3.2-3b", "--smoke",
+                            "--checkpoint-dir", ckpt, "--max-new", "4"]
+                           + argv[3:]) != 0:
+        raise AssertionError("launch.serve --checkpoint-dir failed")
+    shutil.rmtree(work, ignore_errors=True)
+    del state, resumed
+    torch.cuda.empty_cache()
+    return {"leaves_bit_equal": len(b), "meta": meta, "wlfl": wlfl,
+            "launches": launches, "launcher_steps": len(steps)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3127,13 +3515,30 @@ def main() -> int:
     default_depth2 = default_card_vs_cpu(torch)
     mark("15 default depth 2")
 
+    # 16. remat and accumulation on the packed path; 17. the registry's
+    # config; 18. checkpoints
+    remat_res = remat_accum_path(torch)
+    mark("16 remat accum")
+    remat_depth2 = remat_accum_card_vs_cpu(torch)
+    mark("16 remat accum depth 2")
+    registry_res = registry_path(torch)
+    mark("17 registry config")
+    ckpt_res = checkpoint_path(torch)
+    mark("18 checkpoint")
+
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
             prologue_res["launches"], default_res["launches"],
             default_res["ops_launches"]]
-    kernels = kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err,
-                            bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows,
-                            edf_rows, grid_rows, q_rows, q_err, ops_rows)
+    later = [*(r["launches"] for r in remat_res["modes"].values()),
+             remat_res["accum_1"]["launches"],
+             remat_res["accum_8_first"]["launches"],
+             remat_res["accum_8_launches"], registry_res["launches"],
+             ckpt_res["launches"]]
+    kernels = kernel_record(runs, later, fxp_rows, fxp_err, flash_rows,
+                            flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err,
+                            sr_rows, edf_rows, grid_rows, q_rows, q_err,
+                            ops_rows)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -3148,6 +3553,8 @@ def main() -> int:
         "float_depth2": float_depth2, "prologue_train": prologue_res,
         "prologue_depth2": prologue_depth2, "ops_kernels": ops_rows,
         "default_train": default_res, "default_depth2": default_depth2,
+        "remat_accum": remat_res, "remat_accum_depth2": remat_depth2,
+        "registry": registry_res, "checkpoint": ckpt_res,
         "kernels": kernels, "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3158,11 +3565,14 @@ def main() -> int:
     return 0
 
 
-def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
-                  bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows, grid_rows,
-                  q_rows, q_err, ops_rows):
+def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
+                  bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows,
+                  grid_rows, q_rows, q_err, ops_rows):
     """One entry per kernel. ``launches`` sums the counts of the main
-    paths' runs (``runs``). Every time sums the kernel's launches in those
+    paths' runs of phases 4-14 (``runs``); ``launches_16_18`` those of the
+    counted runs of phases 16-18 (``later``: remat, accumulation at
+    M = 512, the registry's config, the checkpoint run), whose shapes
+    the times below do not cover. Every time sums the kernel's launches in those
     runs from the per-shape times of phase 3: serving (the prefill's 196
     layer calls at M = 512 and its head call at M = 4, then 31 decode steps
     of 197 calls at M = 4; 28 flash launches), the 3 RTN and the 4 SR
@@ -3237,6 +3647,7 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
     flash_calls = {"prefill": 2 * N_LAYERS,
                    "train": N_LAYERS * (steps + float_steps)}
     launches = {k: sum(run.get(k, 0) for run in runs) for k in KERNELS}
+    launches_later = {k: sum(run.get(k, 0) for run in later) for k in KERNELS}
     # SR int8: 4 SR steps, 2 int8-container steps; path B's embedding
     int8_steps = SR_STEPS + OTHER_STEPS
     stacked_by_shape = {tuple(r["shape"]): r
@@ -3276,7 +3687,9 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": f"src/repro/kernels/{replaces}",
-                "launches": launches[name], "max_abs_err": err, **times}
+                "launches": launches[name],
+                "launches_16_18": launches_later[name], "max_abs_err": err,
+                **times}
 
     return [
         entry("fxp_matmul", "fxp_matmul.cu", "fxp_matmul.py:84", fxp_err,
@@ -3303,9 +3716,9 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
                "library_covers": "see flash_attention_dq"}),
         entry("sr_quantize_fused_stacked_int8", "sr_quantize.cu",
               "sr_quantize.py:299", 0.0,
-              summed(stacked_by_shape, stacked_calls)),
+              summed(stacked_by_shape, stacked_calls, ("device_ms",))),
         entry("sr_quantize_fused_int8", "sr_quantize.cu", "sr_quantize.py:188",
-              0.0, summed(flat_by_shape, flat_calls)),
+              0.0, summed(flat_by_shape, flat_calls, ("device_ms",))),
         entry("edf_ladder_hists", "edf_ladder.cu", "edf_ladder.py:41", 0.0,
               summed(edf_by_shape, edf_calls, device_keys)),
         entry("sr_quantize_fused_stacked", "sr_quantize.cu",
@@ -3321,7 +3734,7 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
               summed(by_shape(q_rows["matmul_qdx"]), prologue_calls,
                      device_keys)),
         entry("sr_quantize", "sr_quantize.cu", "sr_quantize.py:66", 0.0,
-              summed(given_by, given_calls)),
+              summed(given_by, given_calls, ("device_ms",))),
         entry("int8_matmul", "int8_matmul.cu", "fxp_matmul.py:145", 0.0,
               {**summed(by_shape(ops_rows["int8_matmul"]), i8_calls,
                         device_keys + ("library_ms_row_major",
@@ -3331,7 +3744,7 @@ def kernel_record(runs, fxp_rows, fxp_err, flash_rows, flash_err, bwd_rows,
                "library_covers": by_shape(ops_rows["int8_matmul"])[
                    (TRAIN_M, D_MODEL, D_FF)]["library_covers"]}),
         entry("kl_hist", "kl_hist.cu", "kl_hist.py:27", 0.0,
-              {**summed(kl_by, kl_calls),
+              {**summed(kl_by, kl_calls, ("device_ms",)),
                "library_covers": "two torch.histc calls (their own bin "
                                  "formula)"}),
     ]

@@ -11,8 +11,10 @@ container is served from f32 grid values (dense layers as library
 products). Serving always materializes the words: ``quant.dense_prologue``
 is turned off.
 
-Runs on ``cuda`` unless ``--device cpu``. ``--continuous`` (the
-overload-robust batcher) and ``--checkpoint-dir`` are not ported yet.
+``--checkpoint-dir`` serves the latest complete checkpoint there (the
+reference's format: either package's), restored into a fresh
+``train_loop.init_state``. Runs on ``cuda`` unless ``--device cpu``.
+``--continuous`` (the overload-robust batcher) is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,10 +24,10 @@ import time
 import torch
 
 from repro_torch.config import apply_overrides, load_config
-from repro_torch.core import controller
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
 from repro_torch.serve.engine import Engine
+from repro_torch.train import train_loop
+from repro_torch.train.checkpoint import CheckpointManager
 
 
 def main(argv=None):
@@ -45,10 +47,6 @@ def main(argv=None):
     if args.continuous:
         raise NotImplementedError("--continuous (the continuous batcher) is "
                                   "not yet ported (ROADMAP.md, Queue 1)")
-    if args.checkpoint_dir:
-        raise NotImplementedError("--checkpoint-dir is not yet ported: "
-                                  "checkpoints come with ROADMAP.md Queue 1 "
-                                  "item 2")
     if args.smoke:
         from repro_torch.configs import get_smoke_config
         cfg = apply_overrides(get_smoke_config(args.arch), args.override)
@@ -56,11 +54,12 @@ def main(argv=None):
         cfg = load_config(args.arch, overrides=args.override)
     device = resolve_device(args.device)
 
-    params = transformer.init_params(cfg.train.seed, cfg.model, device=device)
-    adapt = (controller.init_adapt_state(params, cfg.quant)
-             if cfg.quant.mode != "off" else {"tensors": {}})
-    engine = Engine(cfg, params, adapt, device=device)
-    del params
+    state = train_loop.init_state(cfg, device=device)
+    if args.checkpoint_dir:
+        state = CheckpointManager(args.checkpoint_dir).restore(state)
+        print(f"[serve] restored step {int(state['step'])}")
+    engine = Engine(cfg, state["params"], state["adapt"], device=device)
+    del state
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     prompts = torch.randint(0, cfg.model.vocab_size, (args.batch, args.tokens),

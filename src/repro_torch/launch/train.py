@@ -1,22 +1,31 @@
-"""Training launcher of the port: fresh TNVS init from a seed, then AdaPT-SGD
-steps through ``train_loop.train``. Packed int8 words (the fxp kernels):
+"""Training launcher of the port: fresh TNVS init from a seed (or the
+latest checkpoint under ``--resume``), then AdaPT-SGD steps through
+``train_loop.train``. The registry's llama3.2-3b config (remat full, 8-way
+gradient accumulation, the QuantConfig defaults), cut to a batch that fits
+one card:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
-        --override quant.container_dtype=int8_packed \
-        --override quant.use_pallas=true \
-        --override quant.init_fl=10 --override train.remat=none \
-        --override train.accum_steps=1 --override train.global_batch=4 \
-        --override train.seq_len=512 --steps 3
+        --override train.global_batch=8 --override train.seq_len=512 \
+        --override quant.init_fl=10 --steps 2
 
-The registry's float32 container (grid values from the float SR kernels,
-dense layers as library products): the same command without the
-``quant.container_dtype`` override. The quantize prologue (the dense
-layers draw their words from the f32 master inside the matmul): add
-``--override quant.dense_prologue=true`` to the int8_packed command.
+Packed int8 words (the fxp kernels): add
+``--override quant.container_dtype=int8_packed --override
+quant.use_pallas=true``; the quantize prologue (the dense layers draw
+their words from the f32 master inside the matmul): add
+``--override quant.dense_prologue=true`` to those. Checkpoints and JSONL
+metrics:
 
-Runs on ``cuda`` unless ``--device cpu`` (``--arch tiny`` is the size for
-the CPU). ``--checkpoint-dir``, ``--resume`` and ``--metrics-dir`` are not
-ported yet.
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+        --smoke --steps 4 --checkpoint-dir /tmp/ckpt --resume \
+        --metrics-dir /tmp/metrics --override train.checkpoint_every=2
+
+``--resume`` continues from the latest complete checkpoint in
+``--checkpoint-dir`` (the reference's format: either package's). The run
+saves every ``train.checkpoint_every`` steps and once at the end; SIGTERM
+saves at the step it interrupts and stops (``PreemptionGuard``); a
+watchdog logs straggler steps and a heartbeat logs liveness. Runs on
+``cuda`` unless ``--device cpu`` (``--arch tiny`` is the size for the
+CPU).
 """
 from __future__ import annotations
 
@@ -25,9 +34,9 @@ import argparse
 from repro_torch.config import apply_overrides, load_config, with_shape
 from repro_torch.device import resolve_device
 from repro_torch.train import train_loop
-
-_QUEUE_1_CHECKPOINT = ("is not ported yet: checkpoints and metrics come with "
-                   "ROADMAP.md Queue 1 item 2")
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.fault_tolerance import (Heartbeat, PreemptionGuard,
+                                               StepWatchdog)
 
 
 def main(argv=None):
@@ -40,15 +49,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--metrics-dir", default="")
+    ap.add_argument("--metrics-dir", default="",
+                    help="write JSONL step/switch telemetry here")
     ap.add_argument("--override", action="append", default=[])
     args = ap.parse_args(argv)
 
-    for flag, given in (("--checkpoint-dir", args.checkpoint_dir),
-                        ("--resume", args.resume),
-                        ("--metrics-dir", args.metrics_dir)):
-        if given:
-            raise NotImplementedError(f"{flag} {_QUEUE_1_CHECKPOINT}")
     if args.smoke:
         from repro_torch.configs import get_smoke_config
         cfg = get_smoke_config(args.arch)
@@ -59,7 +64,40 @@ def main(argv=None):
         cfg = load_config(args.arch, args.shape, overrides=args.override)
     device = resolve_device(args.device)
 
-    _, history = train_loop.train(cfg, steps=args.steps, device=device)
+    state = None
+    mgr = None
+    if args.checkpoint_dir:
+        mgr = CheckpointManager(args.checkpoint_dir,
+                                keep=cfg.train.keep_checkpoints,
+                                async_save=cfg.train.async_checkpoint)
+        if args.resume and mgr.latest_step() is not None:
+            state = mgr.restore(train_loop.init_state(cfg, device=device))
+            print(f"[train] resumed from step {int(state['step'])}")
+
+    watchdog = StepWatchdog(factor=cfg.train.straggler_factor,
+                            on_straggler=lambda s, dt, med: print(
+                                f"[watchdog] straggler step {s}: "
+                                f"{dt:.2f}s vs median {med:.2f}s"))
+
+    metrics_logger = None
+    if args.metrics_dir:
+        from repro_torch.train.metrics import MetricsLogger
+        metrics_logger = MetricsLogger(args.metrics_dir,
+                                       run_name=args.arch.replace("/", "_"))
+
+    telemetry: list = []
+    with PreemptionGuard() as guard:
+        state, history = train_loop.train(
+            cfg, steps=args.steps, state=state, checkpoint_mgr=mgr,
+            watchdog=watchdog, telemetry=telemetry,
+            metrics_logger=metrics_logger, preemption_guard=guard,
+            heartbeat=Heartbeat(), device=device)
+    if metrics_logger is not None:
+        metrics_logger.log_event("finished", steps=int(state["step"]))
+        metrics_logger.close()
+    if mgr is not None:
+        mgr.save(state, step=int(state["step"]))
+        mgr.wait()
     if history:
         print(f"[train] done: step={history[-1]['step']} "
               f"loss={history[-1]['loss']:.4f} on {device}")

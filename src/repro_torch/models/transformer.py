@@ -20,6 +20,7 @@ NotImplementedError: they come with later slices of the port.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -181,6 +182,45 @@ def _maybe_qact(x, act_wl, name):
     return common.quantize_act(x, act_wl[name], True)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective remat policy: keep the outputs of ``aten.mm``, the
+    products without batch dimensions (the dense layers of
+    ``common._PlainDense``), and recompute every other op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, remat: str):
+    """``body`` checkpointed as ``remat`` names: "none" runs it as it is;
+    "full" saves only its inputs and recomputes it in the backward
+    (``jax.checkpoint(body)``); "selective" also saves the outputs of the
+    dense products without batch dimensions
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).
+
+    Both are ``torch.utils.checkpoint`` without reentrancy, so the step's
+    ``torch.autograd.grad`` reaches through them. The hand-written kernels
+    are ctypes calls inside autograd Functions, which the dispatcher does
+    not see: under "selective" they are recomputed, as the reference's
+    policy names ``dot_general`` and never a ``pallas_call``; the plain
+    attention's products have batch dimensions (``aten.bmm``) and are
+    recomputed too. The recompute repeats the forward bit for bit: the
+    kernels and their plain versions are deterministic, the quantize
+    prologue hashes the element index, activation quantization rounds to
+    nearest; nothing in the body draws from torch's generators, so their
+    state is not saved."""
+    if remat == "none":
+        return body
+    if remat not in ("full", "selective"):
+        raise ValueError(f"remat={remat!r}: one of none, full, selective")
+    from torch.utils import checkpoint as ckpt
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "selective":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, body, **kw)
+
+
 def forward(params: Dict[str, Any], cfg: ModelConfig, *,
             tokens: torch.Tensor, act_wl: Dict[str, torch.Tensor] | None = None,
             use_pallas: bool = False, remat: str = "none") -> torch.Tensor:
@@ -188,12 +228,11 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
 
     ``act_wl`` ({slot key: (num_periods,) int WL}, ``act_wl_from_state``)
     quantizes the residual stream at the end of each slot at that layer's
-    word length. ``remat`` (activation checkpointing) other than "none"
-    raises: it comes with a later slice."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} (activation checkpointing) is not ported yet "
-            "(ROADMAP.md, Queue 1); use train.remat=none")
+    word length. ``remat`` ("none" | "full" | "selective", ``_remat``)
+    checkpoints each layer's body, from unpacking its slice of the params
+    to its activation quantization, so no unpacked weight is saved; the
+    embedding, the final norm and the head stay outside, as in the
+    reference's per-period scan."""
     plan, _ = _ported_plan(cfg)
     top = _top(params, use_pallas)
     x = _embed(top, tokens, cfg)
@@ -202,7 +241,8 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
     causal = not cfg.is_encoder
     rows = (unbind_layers(params["blocks"], act_wl) if act_wl
             else [(b, None) for (b,) in unbind_layers(params["blocks"])])
-    for pslice, awl in rows:
+
+    def layer(x, pslice, awl):
         pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
             x, _ = attention.attend_full(
@@ -212,6 +252,11 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
                 x = mlp.apply(pslice[ffn_key(i, slot)], x, cfg,
                               use_pallas=use_pallas)
             x = _maybe_qact(x, awl, slot_key(i, slot))
+        return x
+
+    layer = _remat(layer, remat)
+    for pslice, awl in rows:
+        x = layer(x, pslice, awl)
     x = common.rms_norm(x, top["final_norm"], cfg.norm_eps)
     return _head_logits(top, x, cfg, use_pallas)
 

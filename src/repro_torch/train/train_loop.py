@@ -36,13 +36,18 @@ Each ``train_step``:
        and the optimizer update of the master (in place). ``quant.mode=off``
        skips the regularizer, accumulate and normalization.
 
+With ``train.accum_steps`` a > 1, steps 2 and 3 run once per microbatch
+of B/a rows on the one quantized copy of the step, and their gradients
+are summed in ``train.accum_dtype`` and scaled by 1/a before step 4
+(``_accumulate``). ``train.remat`` checkpoints each layer's body
+(``transformer._remat``).
+
 Every ``adapt_interval`` steps the precision switch (alg. 2: PushDown
 through the EDF-ladder kernel under ``quant.use_pallas``, then PushUp and
 the adaptation of strategy, lookback and resolution) moves each tensor
 whose window is full to its new ⟨WL,FL⟩ (never with ``quant.mode=off``).
 
-What is not ported raises, by name: gradient accumulation
-(``train.accum_steps > 1``), QSGD pod compression, remat, and the CNN
+What is not ported raises, by name: QSGD pod compression and the CNN
 family.
 """
 from __future__ import annotations
@@ -61,15 +66,10 @@ from repro_torch.train import optimizer as opt_lib
 
 
 def _check_ported(cfg: Config) -> None:
-    q, t = cfg.quant, cfg.train
     if cfg.model.family == "cnn":
         raise NotImplementedError("the CNN family comes with the CNN slice of "
                                   "the port (ROADMAP.md, Queue 1)")
-    if t.accum_steps > 1:
-        raise NotImplementedError(
-            f"train.accum_steps={t.accum_steps} (microbatch accumulation, "
-            "_microbatch) is not ported yet (ROADMAP.md, Queue 1); use 1")
-    if t.qsgd_pod_compression:
+    if cfg.train.qsgd_pod_compression:
         raise NotImplementedError("train.qsgd_pod_compression comes with the "
                                   "multi-GPU slice (ROADMAP.md, Queue 1)")
 
@@ -141,6 +141,60 @@ def _quantized_copy(cfg: Config, params, adapt, seeds, key):
                                       key=key)
 
 
+def _microbatch(batch: Dict[str, torch.Tensor], accum: int) -> list:
+    """The ``accum`` microbatches of ``batch``: microbatch i holds rows
+    [i·B/a, (i+1)·B/a), the reshape (a, B/a, ...) of the reference's
+    ``_microbatch`` (views, no copies)."""
+    out = [{} for _ in range(accum)]
+    for k, v in batch.items():
+        if v.shape[0] % accum:
+            raise ValueError(f"train.accum_steps={accum} does not divide the "
+                             f"batch of {v.shape[0]} rows ({k!r})")
+        for mb, part in zip(out, v.reshape((accum, v.shape[0] // accum)
+                                           + tuple(v.shape[1:]))):
+            mb[k] = part
+    return out
+
+
+def _accum_dtype(tcfg) -> torch.dtype:
+    return torch.bfloat16 if tcfg.accum_dtype == "bfloat16" else torch.float32
+
+
+def _accumulate(cfg: Config, loss_fn, receivers, batch):
+    """The reference's microbatch scan (``train_loop.py:176-190``): the
+    full loss and its gradients with respect to ``receivers`` per
+    microbatch, in microbatch order; the gradients summed into zeros of
+    the receivers' shapes in ``train.accum_dtype``, the loss and task in
+    f32; then each times 1/a, the gradients cast to f32. In the reference
+    1/a is a weakly typed Python float, so a bf16 accumulator is
+    multiplied by 1/a rounded to bf16 first (1/3 → 0.333984375); torch
+    would multiply by the f32 value and round once, so the factor is a
+    tensor of the accumulator's dtype. Each microbatch's graph is freed by
+    its own ``autograd.grad``. Returns (grads, full, task)."""
+    accum = cfg.train.accum_steps
+    dtype = _accum_dtype(cfg.train)
+    leaves = list(receivers.values())
+    acc = [torch.zeros(t.shape, dtype=dtype, device=t.device) for t in leaves]
+    full_sum = task_sum = torch.zeros((), dtype=torch.float32,
+                                      device=leaves[0].device)
+    for mb in _microbatch(batch, accum):
+        full, task = loss_fn(mb)
+        flat = torch.autograd.grad(full, leaves, materialize_grads=True)
+        for a, g in zip(acc, flat):
+            a.add_(g.to(dtype))
+        del flat
+        full_sum = full_sum + full.detach()
+        task_sum = task_sum + task.detach()
+    inv = torch.tensor(1.0 / accum, dtype=dtype)
+    grads = []
+    while acc:      # a bf16 sum is freed as its f32 copy is made
+        a = acc.pop(0)
+        grads.append(a.mul_(inv) if dtype == torch.float32
+                     else (a * inv).to(torch.float32))
+    inv32 = torch.tensor(1.0 / accum, dtype=torch.float32)
+    return grads, full_sum * inv32, task_sum * inv32
+
+
 def make_train_step(cfg: Config) -> Callable:
     """``train_step(state, batch, step=None) -> (state, metrics)``. The
     step updates the master params, the optimizer's moments and the
@@ -148,7 +202,9 @@ def make_train_step(cfg: Config) -> Callable:
     new scalars. ``step`` is the host's index of this step (the value of
     ``state["step"]``), from which the SR seeds of the fused kernels and the
     step key of the jax.random noise are derived; when it is not given,
-    ``state["step"]`` is read once."""
+    ``state["step"]`` is read once. Under ``train.accum_steps`` > 1 the
+    batch is taken in microbatches (``_accumulate``); the quantized copy is
+    made once per step, before them."""
     _check_ported(cfg)
     qcfg, ocfg = cfg.quant, cfg.optimizer
     adaptive = qcfg.mode != "off"
@@ -166,19 +222,26 @@ def make_train_step(cfg: Config) -> Callable:
         qparams = _quantized_copy(cfg, params, adapt, seeds, key)
         act_wl = (transformer.act_wl_from_state(adapt)
                   if adaptive and qcfg.quantize_activations else None)
+
+        def loss_fn(mb):
+            """(full loss, task loss) of the quantized copy on ``mb``."""
+            task = _task_loss(cfg, qparams, mb, act_wl)
+            if not adaptive:
+                return task, task
+            # the regularizer reads packed and prologue leaves through
+            # their value views; its gradients add onto the same receivers
+            return sparsity.adapt_loss(
+                task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
+                penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl), task
+
         receivers = controller.grad_receivers(qparams)
         try:
-            task = _task_loss(cfg, qparams, batch, act_wl)
-            full = task
-            if adaptive:
-                # the regularizer reads packed and prologue leaves through
-                # their value views; its gradients add onto the same
-                # receivers
-                full = sparsity.adapt_loss(
-                    task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
-                    penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl)
-            flat = torch.autograd.grad(full, list(receivers.values()),
-                                       materialize_grads=True)
+            if cfg.train.accum_steps > 1:
+                flat, full, task = _accumulate(cfg, loss_fn, receivers, batch)
+            else:
+                full, task = loss_fn(batch)
+                flat = torch.autograd.grad(full, list(receivers.values()),
+                                           materialize_grads=True)
         finally:
             # a receiver may be a master param: no graph outlives the step
             for t in receivers.values():
@@ -230,19 +293,35 @@ def make_batch(cfg: Config, step: int, *, device=None) -> Dict[str, torch.Tensor
 
 def train(cfg: Config, *, steps: Optional[int] = None,
           state: Optional[Dict[str, Any]] = None,
-          log: Callable[[str], None] = print, device=None
-          ) -> Tuple[Dict[str, Any], list]:
+          checkpoint_mgr=None, watchdog=None,
+          log: Callable[[str], None] = print,
+          telemetry: Optional[list] = None,
+          metrics_logger=None, preemption_guard=None, heartbeat=None,
+          device=None) -> Tuple[Dict[str, Any], list]:
     """Run the loop on ``device`` (default ``cuda``); returns (state,
     history). The precision switch is called after every
     ``adapt_interval``-th step (``quant.lb_lwr`` when 0), as in the
-    reference, and never with ``quant.mode=off``."""
+    reference, and never with ``quant.mode=off``.
+
+    After each step, in the reference's order (``train_loop.py:299-345``):
+    after a switch, ``controller.snapshot`` into ``telemetry`` (a list)
+    and ``metrics_logger.log_switch``; ``watchdog.observe`` (a
+    ``fault_tolerance.StepWatchdog``); the log line and
+    ``metrics_logger.log_step`` (a ``metrics.MetricsLogger``) every
+    ``log_every`` steps; ``checkpoint_mgr.save`` (a
+    ``checkpoint.CheckpointManager``) every ``checkpoint_every`` steps;
+    ``heartbeat.beat``; and, once ``preemption_guard.requested`` (a
+    ``fault_tolerance.PreemptionGuard`` has seen SIGTERM), a final save,
+    its wait, and an early return."""
     steps = steps if steps is not None else cfg.train.steps
     dev = resolve_device(device)
     if state is None:
         state = init_state(cfg, device=dev)
     step_fn = make_train_step(cfg)
-    switch_fn = make_precision_switch(cfg)
+    switch_fn = (make_precision_switch(cfg) if cfg.quant.mode != "off"
+                 else None)
     interval = cfg.train.adapt_interval or cfg.quant.lb_lwr
+    every = cfg.train.checkpoint_every
 
     history = []
     start_step = int(state["step"])
@@ -250,14 +329,35 @@ def train(cfg: Config, *, steps: Optional[int] = None,
         t0 = time.perf_counter()
         batch = make_batch(cfg, i, device=dev)
         state, metrics = step_fn(state, batch, step=i)
-        if cfg.quant.mode != "off" and (i + 1) % interval == 0:
+        if switch_fn is not None and (i + 1) % interval == 0:
             state = switch_fn(state)
+            if telemetry is not None or metrics_logger is not None:
+                snap = controller.snapshot(state["adapt"])
+                if telemetry is not None:
+                    telemetry.append(snap)
+                if metrics_logger is not None:
+                    metrics_logger.log_switch(i + 1, snap)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
+        if watchdog is not None:
+            watchdog.observe(i, dt)
         if (i + 1) % max(cfg.train.log_every, 1) == 0:
             m = {k: float(v) for k, v in metrics.items()}
             history.append({"step": i + 1, **m, "dt": dt})
+            if metrics_logger is not None:
+                metrics_logger.log_step(i + 1, m, dt=dt)
             log(f"step {i + 1:5d} loss={m['loss']:.4f} lr={m['lr']:.4g} "
                 f"grad_norm={m['grad_norm']:.4f} ({dt * 1e3:.0f} ms)")
+        if checkpoint_mgr is not None and every and (i + 1) % every == 0:
+            checkpoint_mgr.save(state, step=i + 1)
+        if heartbeat is not None:
+            heartbeat.beat(i + 1, extra=f"loss={float(metrics['loss']):.4f}")
+        if preemption_guard is not None and preemption_guard.requested:
+            log(f"[preempt] SIGTERM at step {i + 1}: saving final "
+                "checkpoint and exiting")
+            if checkpoint_mgr is not None:
+                checkpoint_mgr.save(state, step=i + 1)
+                checkpoint_mgr.wait()
+            break
     return state, history

@@ -36,9 +36,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.sr_quantize, repro_torch.kernels.edf_ladder, "
             "repro_torch.kernels.fxp_matmul, repro_torch.kernels.ops, "
             "repro_torch.kernels.int8_matmul, repro_torch.kernels.kl_hist, "
-            "repro_torch.core.threefry\n"
+            "repro_torch.core.threefry, repro_torch.train.checkpoint, "
+            "repro_torch.train.metrics, repro_torch.train.fault_tolerance\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('repro', 'jax', 'jaxlib') or m.startswith('jax'))\n"
+            "('repro', 'jax', 'jaxlib', 'msgpack') or m.startswith('jax'))\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     r = subprocess.run([sys.executable, "-c", code], env=env,

@@ -2,7 +2,8 @@
 step (``dequant_packed``'s gradient rule, activation quantization, the
 regularizer, the optimizers, ``controller.accumulate``) and three whole
 train steps, against the JAX reference on the same params, state and
-batches; and the raises of what is not ported yet.
+batches; the launcher with its checkpoint and metrics flags; and the raise
+of what is not ported yet.
 
 The reference runs its Pallas kernels in interpret mode on the CPU; the
 port runs the kernels' plain versions there.
@@ -423,19 +424,38 @@ def test_synthetic_lm_batch_is_stride_induction():
 
 
 # ---------------------------------------------------------------------------
-# What is not ported raises
+# The launcher and the step options
 
 
-def test_launcher_trains_tiny_on_the_cpu(capsys):
+def test_launcher_trains_tiny_on_the_cpu(capsys, tmp_path):
+    """Two steps, then ``--checkpoint-dir``, ``--resume`` and
+    ``--metrics-dir``: the resumed run starts from the final checkpoint of
+    the first, goes on to step 4, writes both JSONL files, and
+    ``launch.serve --checkpoint-dir`` serves from its checkpoint."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.train.metrics import read_jsonl
+    ov = sum((["--override", o] for o in OVERRIDES + [
+        "quant.use_pallas=true", "train.log_every=1"]), [])
     assert train_launcher.main(
-        ["--arch", "tiny", "--steps", "2", "--device", "cpu"] + sum(
-            (["--override", o] for o in OVERRIDES + [
-                "quant.use_pallas=true", "train.log_every=1"]), [])) == 0
+        ["--arch", "tiny", "--steps", "2", "--device", "cpu"] + ov) == 0
     out = capsys.readouterr().out
     assert "step     2 loss=" in out and "[train] done: step=2" in out
-    for flag in (["--checkpoint-dir", "x"], ["--resume"], ["--metrics-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            train_launcher.main(["--arch", "tiny", "--device", "cpu"] + flag)
+    ckpt, mdir = str(tmp_path / "ckpt"), str(tmp_path / "metrics")
+    flags = ["--checkpoint-dir", ckpt, "--resume", "--metrics-dir", mdir]
+    for done in (2, 4):
+        assert train_launcher.main(["--arch", "tiny", "--steps", "2",
+                                    "--device", "cpu"] + flags + ov) == 0
+        out = capsys.readouterr().out
+        assert f"[train] done: step={done}" in out
+        assert ("[train] resumed from step 2" in out) == (done == 4)
+    records = read_jsonl(str(tmp_path / "metrics" / "tiny.metrics.jsonl"))
+    assert [r["step"] for r in records if r["kind"] == "step"] == [1, 2, 3, 4]
+    assert [r["steps"] for r in records if r["kind"] == "finished"] == [2, 4]
+    assert (tmp_path / "metrics" / "tiny.switches.jsonl").exists()
+    assert serve_launcher.main(["--arch", "tiny", "--device", "cpu",
+                                "--checkpoint-dir", ckpt, "--max-new", "2",
+                                "--tokens", "3"] + ov) == 0
+    assert "[serve] restored step 4" in capsys.readouterr().out
 
 
 def test_train_raises_at_the_first_switch_step():
@@ -461,11 +481,21 @@ def test_train_raises_at_the_first_switch_step():
     ("train.qsgd_pod_compression=true", "qsgd"),
 ])
 def test_unported_step_options_raise(override, match):
+    """QSGD pod compression comes with the multi-GPU slice and raises; remat
+    and microbatch accumulation are ported and train a step
+    (tests/test_torch_remat_accum.py holds them against the reference)."""
     cfg = load_config("tiny", overrides=OVERRIDES + [override])
-    with pytest.raises(NotImplementedError, match=match):
-        state = train_loop.init_state(cfg, device="cpu")
-        step = train_loop.make_train_step(cfg)
-        step(state, train_loop.make_batch(cfg, 0, device="cpu"))
+    if match == "qsgd":
+        with pytest.raises(NotImplementedError, match=match):
+            state = train_loop.init_state(cfg, device="cpu")
+            step = train_loop.make_train_step(cfg)
+            step(state, train_loop.make_batch(cfg, 0, device="cpu"))
+        return
+    state = train_loop.init_state(cfg, device="cpu")
+    state, metrics = train_loop.make_train_step(cfg)(
+        state, train_loop.make_batch(cfg, 0, device="cpu"))
+    assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
+    assert float(metrics["grad_norm"]) > 0
 
 
 def test_float_containers_raise():
