@@ -6,8 +6,9 @@ words, stochastically rounded words through a precision switch, the float
 containers, the quantize prologue, the registry's default quantizer with
 the reference's jax.random noise, remat and microbatch accumulation, the
 registry's own config), drive the three kernels only ``kernels/ops``
-reaches, save and resume a run, and compare the card with the CPU at
-depth 2 for each.
+reaches, save and resume a run, compare the card with the CPU at depth 2
+for each, and train the paper's own models, AlexNet and ResNet20, on the
+synthetic CIFAR stream.
 
     python3 chip_smoke.py
 
@@ -152,7 +153,25 @@ Phases (any failure exits non-zero; nothing is caught):
      ``quant.use_pallas``: 2 steps, an async save, 2 more; restored into a
      fresh state on the card, the same 2 steps bit-equal to the
      uninterrupted run; ``launch.train --resume --metrics-dir`` from it and
-     ``launch.serve --checkpoint-dir``.
+     ``launch.serve --checkpoint-dir``;
+ 19. the CNN family: (a) ``get_config("alexnet")`` and
+     ``get_config("resnet20")`` at full width, batch 512, CIFAR10, the
+     QuantConfig defaults (no hand-written kernel), with only a switch
+     after every second step and a window of two, 4 steps: step ms,
+     images/s, peak memory, loss and accuracy; (b) the same under
+     ``quant.use_pallas`` and ResNet20 on CIFAR100: exactly one
+     ``sr_quantize_fused`` launch per quantized leaf a step (8 and 22) and
+     one ``edf_ladder_hists`` launch per tensor a switch, nothing else; the
+     <WL,FL> histogram before and after the first switch; held-out
+     accuracy (RTN words from ``quantize_for_serving``, the eval forward
+     on 8 batches from step 10000); the analytical perf model's summary
+     over the run's switches (``perf_model.summarize``, not a time on the
+     card); (c) both kernels bit for bit against their plain versions at
+     every full-width leaf shape (timed), one full-width step run twice
+     under the global cuDNN flags at torch's defaults and twice with them
+     off, all four bit-equal, and card against CPU at smoke width: the
+     quantized copy bit-equal, one step within the CPU tests' bounds, the
+     switch identical.
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -322,6 +341,25 @@ CKPT_OVERRIDES = ["quant.container_dtype=int8_packed", "quant.use_pallas=true",
                   "quant.init_fl=8", "train.global_batch=4",
                   "train.seq_len=64", "train.adapt_interval=2",
                   "quant.lb_lwr=2", "train.log_every=1"]
+# Phase 19: the CNN family, the paper's own models: the registry's configs
+# (full width, batch 512, CIFAR10, the QuantConfig defaults) with only a
+# switch after every second step and a window of two steps, so the first
+# switch closes every tensor's window ("train.log_every=1" only logs each
+# step), 4 steps, then a window of CNN_WINDOW steps with no switch, timed;
+# under quant.use_pallas the SR kernel of the container (float grid values,
+# or int8 words with quant.container_dtype=int8) once per quantized leaf a
+# step and the ladder once per tensor a switch.
+CNN_MODELS = ("alexnet", "resnet20")
+CNN_OVERRIDES = ["train.adapt_interval=2", "quant.lb_lwr=2",
+                 "train.log_every=1"]
+CNN_STEPS = 4
+CNN_WINDOW = 8
+CNN_LEAVES = {"alexnet": 8, "resnet20": 22}      # quantized leaves
+CNN_EVAL = 8                           # held-out batches, from step 10000
+# One smoke-width step, card against CPU: the CPU tests' bounds
+# (tests/test_torch_cnn_step.py)
+CNN_LOSS_RTOL, CNN_GRAD_NORM_RTOL = 1e-5, 1e-4
+CNN_UPDATE, CNN_STATS = 1e-3, 2e-5
 # CUDA graphs a device time of the SR int8 kernels takes the median of: the
 # flat kernel's launched time scattered by a third between runs.
 GRAPH_RUNS = 3
@@ -3405,6 +3443,448 @@ def checkpoint_path(torch):
             "launches": launches, "launcher_steps": len(steps)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the CNN family
+
+
+def cnn_config(name, extra=(), smoke=False):
+    """The registry's config (or its smoke config) of ``name`` with
+    ``CNN_OVERRIDES`` and ``extra``."""
+    from repro_torch.config import apply_overrides
+    from repro_torch.configs import get_config, get_smoke_config
+    base = get_smoke_config(name) if smoke else get_config(name)
+    return apply_overrides(base, CNN_OVERRIDES + list(extra))
+
+
+def cnn_perf_model(cfg, state, telemetry):
+    """``perf_model.summarize`` (the paper's analytical model, eq. 6–9, not
+    a time on the card) over the run's switch snapshots, each standing for
+    the ``adapt_interval`` steps it closes; ops^l is ``layer_madds`` times
+    the batch, as the reference's ``paper_tables`` takes it."""
+    import numpy as np
+    from repro_torch.core import perf_model
+    from repro_torch.models import cnn
+    interval = cfg.train.adapt_interval or cfg.quant.lb_lwr
+    tel = []
+    for snap in telemetry:
+        t = perf_model.StepTelemetry(
+            **{field: {k: float(np.mean(v[key])) for k, v in snap.items()}
+               for field, key in (("wl", "wl"), ("sp", "sp"), ("lb", "lb"),
+                                  ("r", "res"))})
+        tel.extend([t] * interval)
+    sizes = {p: t.numel() for p, t in flat_paths(state["params"]).items()}
+    ops = {k: perf_model.LayerOps(ops=v * cfg.train.global_batch,
+                                  params=float(sizes[k]))
+           for k, v in cnn.layer_madds(state["params"]).items()}
+    return perf_model.summarize(ops, tel, accs=1)
+
+
+def held_out_accuracy(torch, cfg, state):
+    """The reference's ``_eval_acc``: RTN grid values at the final <WL,FL>
+    (``quantize_for_serving``), the eval forward on ``CNN_EVAL`` batches
+    from step 10000 on, the mean accuracy."""
+    from repro_torch.models import cnn
+    from repro_torch.serve import engine
+    from repro_torch.train import train_loop
+    _, fwd = cnn.MODELS[cfg.model.name.replace("-smoke", "")]
+    params = engine.quantize_for_serving(state["params"], state["adapt"],
+                                         cfg.quant)
+    accs = []
+    with torch.no_grad():
+        for i in range(CNN_EVAL):
+            b = train_loop.make_batch(cfg, 10_000 + i, device="cuda")
+            logits, _ = fwd(params, state["stats"], b["images"], False)
+            accs.append(float(cnn.accuracy(logits, b["labels"])))
+    return sum(accs) / len(accs)
+
+
+def cnn_sr_kernel(cfg):
+    """The SR kernel a CNN step launches per quantized leaf under
+    ``quant.use_pallas``: int8 words in the int8 container, else float
+    grid values (``int8_packed`` is the float32 container for the CNN)."""
+    return ("sr_quantize_fused_int8" if cfg.quant.container_dtype == "int8"
+            else "sr_quantize_fused")
+
+
+def cnn_run(torch, tag, cfg):
+    """``CNN_STEPS`` steps of ``train_loop.train`` from a fresh state on the
+    card, then ``CNN_WINDOW`` more with no switch (the interval set past
+    them), every count set to 0 just before the first and read just after
+    the last: exact launches per step (under ``quant.use_pallas`` one
+    ``cnn_sr_kernel`` launch per quantized leaf, and one ladder launch per
+    tensor at a switch; otherwise none), finite loss, accuracy in [0, 1];
+    step ms (the switch in the steps that end in one; the window's median,
+    min and max), images/s, peak memory, the <WL,FL> histogram before and
+    after the first switch, held-out accuracy and the perf model's
+    summary."""
+    import statistics
+    from repro_torch.config import apply_overrides
+    from repro_torch.train import train_loop
+    leaves = CNN_LEAVES[cfg.model.name]
+    pallas = cfg.quant.use_pallas
+    per_step = {**ZERO, **({cnn_sr_kernel(cfg): leaves} if pallas else {})}
+    per_switch = {"edf_ladder_hists": leaves if pallas else 0}
+    ws = wrappers()
+    state = train_loop.init_state(cfg, device="cuda")
+    before = wlfl_histogram(state)
+    marks, telemetry = [], []
+
+    def log_step(line):
+        marks.append({k: w.launches for k, w in ws.items()})
+        log(f"[cnn] {tag} {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ws)
+    state, history = train_loop.train(cfg, steps=CNN_STEPS, state=state,
+                                      log=log_step, telemetry=telemetry,
+                                      device="cuda")
+    state, window = train_loop.train(
+        apply_overrides(cfg, [f"train.adapt_interval={10 ** 9}"]),
+        steps=CNN_WINDOW, state=state, log=log_step, device="cuda")
+    launches = {k: w.launches for k, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if (len(history) != CNN_STEPS or len(telemetry) != CNN_STEPS // 2
+            or len(window) != CNN_WINDOW):
+        raise AssertionError(f"{tag}: history {history} {window}")
+    images = cfg.train.global_batch
+    prev, steps = dict(ZERO), []
+    for h, mark in zip(history + window, marks):
+        per = {k: mark[k] - prev[k] for k in ws}
+        prev = mark
+        switch = h["step"] <= CNN_STEPS and h["step"] % 2 == 0
+        want = {**per_step, **(per_switch if switch else {})}
+        if per != want:
+            raise AssertionError(f"{tag} step {h['step']}: launches {per} "
+                                 f"!= {want}")
+        if not (math.isfinite(h["loss"]) and 0.0 <= h["acc"] <= 1.0
+                and h["grad_norm"] > 0):
+            raise AssertionError(f"{tag} step {h['step']}: {h}")
+        steps.append({"step": h["step"], "ms": h["dt"] * 1e3,
+                      "switch": switch, "images_per_s": images / h["dt"],
+                      "loss": h["loss"], "acc": h["acc"]})
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in flat_paths(state["params"]).values())
+    if not finite or int(state["step"]) != CNN_STEPS + CNN_WINDOW:
+        raise AssertionError(f"{tag}: params finite {finite}, step "
+                             f"{int(state['step'])}")
+    win = [r["ms"] for r in steps[CNN_STEPS:]]
+    rec = {"steps": steps, "peak_gib": peak, "launches": launches,
+           "window_ms": {"median": statistics.median(win), "min": min(win),
+                         "max": max(win)},
+           "wlfl_before": before,
+           "wlfl_after_switch": wlfl_histogram(
+               {"adapt": {"tensors": telemetry[0]}}),
+           "wlfl_end": wlfl_histogram(state)}
+    if pallas:
+        rec["leaf_shapes"] = leaf_shapes(cfg, state)
+        rec["held_out_acc"] = held_out_accuracy(torch, cfg, state)
+        rec["perf_model"] = cnn_perf_model(cfg, state, telemetry)
+    wm = rec["window_ms"]
+    log(f"[cnn] {tag}: {CNN_WINDOW} steps with no switch median "
+        f"{wm['median']:.2f} ms ({wm['min']:.2f}-{wm['max']:.2f}; "
+        f"{images / wm['median'] * 1e3:.0f} images/s at the median), steps "
+        f"2-{CNN_STEPS} " + ", ".join(f"{r['ms']:.1f}" for r in
+                                       steps[1:CNN_STEPS])
+        + f" ms, peak {peak:.2f} GiB, <WL,FL> {before} -> "
+        f"{rec['wlfl_after_switch']} -> {rec['wlfl_end']}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if pallas:
+        log(f"[cnn] {tag}: held-out accuracy {rec['held_out_acc']:.4f} "
+            f"({CNN_EVAL} batches from step 10000, RTN words at the final "
+            "<WL,FL>); the analytical perf model (paper eq. 6-9, not a "
+            f"time on the card): "
+            + ", ".join(f"{k} {v:.4g}" for k, v in rec["perf_model"].items()))
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def leaf_shapes(cfg, state):
+    """{kernel: {shape: leaves}}: each quantized leaf's shape (the SR launch
+    of a step, ``cnn_sr_kernel``) and its switch input's (the ladder launch of a
+    switch: the leaf whole up to ``edf_sample`` elements, else its strided
+    subsample of that many), as ``cnn_kernel_shapes`` keys them."""
+    params = flat_paths(state["params"])
+    sr = cnn_sr_kernel(cfg)
+    out = {sr: {}, "edf_ladder_hists": {}}
+    for path in state["adapt"]["tensors"]:
+        leaf = params[path]
+        for kernel, shape in (
+                (sr, list(leaf.shape)),
+                ("edf_ladder_hists",
+                 [1, min(leaf.numel(), cfg.quant.edf_sample)])):
+            out[kernel][str(shape)] = out[kernel].get(str(shape), 0) + 1
+    return out
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def cnn_kernel_shapes(torch, sq, el):
+    """``sr_quantize_fused``, ``sr_quantize_fused_int8`` and
+    ``edf_ladder_hists`` against their plain versions, bit for bit, at
+    every quantized leaf of both models at full width (CIFAR10 and, for
+    ResNet20's fc, CIFAR100): the grid values at <8,4> (the init) and
+    <6,9>, the int8 words at FL 4 and 9, the ladder on the switch's input
+    (the leaf whole up to ``edf_sample`` elements, else its strided
+    subsample) with the init's resolution; each timed (launched, and the
+    plain version), with its bound."""
+    from repro_torch.core import pushdown
+    from repro_torch.train import train_loop
+    rows = {"sr_quantize_fused": {}, "sr_quantize_fused_int8": {},
+            "edf_ladder_hists": {}}
+    kw = dict(wl_ladder=pushdown.WL_LADDER, r_upr=150)
+    T = len(pushdown.WL_LADDER)
+    for name, extra in (("alexnet", ()), ("resnet20", ()),
+                        ("resnet20", ("model.vocab_size=100",))):
+        cfg = cnn_config(name, ("quant.use_pallas=true",) + extra)
+        state = train_loop.init_state(cfg, SEED + 19, device="cuda")
+        for path, ts in state["adapt"]["tensors"].items():
+            leaf = flat_paths(state["params"])[path]
+            shape = str(list(leaf.shape))
+            if shape not in rows["sr_quantize_fused"]:
+                for w, f in ((8, 4), (6, 9)):
+                    wl = torch.tensor(w, dtype=torch.int32, device="cuda")
+                    fl = torch.tensor(f, dtype=torch.int32, device="cuda")
+                    got = sq.sr_quantize_fused(leaf, -4321, wl, fl)
+                    want = sq.plain_grid(leaf, -4321, wl, fl)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32)):
+                        raise AssertionError(f"sr_quantize_fused {shape} "
+                                             f"<{w},{f}> differs")
+                n = leaf.numel()
+                row = {"shape": list(leaf.shape), "max_abs_err": 0.0,
+                       "ms": cuda_time_ms([lambda: sq.sr_quantize_fused(
+                           leaf, 7, ts["wl"], ts["fl"])], 20),
+                       "plain_ms": cuda_time_ms([lambda: sq.plain_grid(
+                           leaf, 7, ts["wl"], ts["fl"])], 5),
+                       "library_ms": None}
+                row["bound_ms"], row["bound_by"] = max(
+                    (8.0 * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (22.0 * n / F32_OPS * 1e3, "operations"))
+                rows["sr_quantize_fused"][shape] = row
+                for f in (4, 9):
+                    fl = torch.tensor(f, dtype=torch.int32, device="cuda")
+                    got = sq.sr_quantize_fused_int8(leaf, -4321, fl)
+                    want = sq.plain(leaf, -4321, fl)
+                    torch.cuda.synchronize()
+                    if got.dtype != torch.int8 or not torch.equal(got, want):
+                        raise AssertionError(f"sr_quantize_fused_int8 {shape} "
+                                             f"FL {f} differs")
+                row = {"shape": list(leaf.shape), "max_abs_err": 0.0,
+                       "ms": cuda_time_ms([lambda: sq.sr_quantize_fused_int8(
+                           leaf, 7, ts["fl"])], 20),
+                       "plain_ms": cuda_time_ms([lambda: sq.plain(
+                           leaf, 7, ts["fl"])], 5),
+                       "library_ms": None}
+                row["bound_ms"], row["bound_by"] = max(
+                    (5.0 * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (20.0 * n / F32_OPS * 1e3, "operations"))
+                rows["sr_quantize_fused_int8"][shape] = row
+            flat = pushdown.subsample(leaf.reshape(1, -1), cfg.quant.edf_sample
+                                      ).contiguous()
+            key = str(list(flat.shape))
+            if key in rows["edf_ladder_hists"]:
+                continue
+            fls = edf_inputs(torch, flat)
+            r = ts["res"].reshape(1)
+            got = el.edf_ladder_hists(flat, fls, r, **kw)
+            if not torch.equal(got, el.plain(flat, fls, r, **kw)):
+                raise AssertionError(f"edf_ladder_hists {key} differs")
+            n = flat.numel()
+            row = {"shape": list(flat.shape), "max_abs_err": 0.0,
+                   "ms": cuda_time_ms([lambda: el.edf_ladder_hists(
+                       flat, fls, r, **kw)], 20),
+                   "plain_ms": cuda_time_ms([lambda: el.plain(
+                       flat, fls, r, **kw)], 5),
+                   "library_ms": None}
+            nbytes = 4.0 * (n + T + 3) + 4.0 * (1 + T) * 150
+            row["bound_ms"], row["bound_by"] = max(
+                (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (166.0 * n / F32_OPS * 1e3, "operations"))
+            rows["edf_ladder_hists"][key] = row
+        del state
+    log(f"[cnn] float SR grid values and int8 words at "
+        f"{len(rows['sr_quantize_fused'])} and the ladder at "
+        f"{len(rows['edf_ladder_hists'])} full-width leaf shapes: bit-equal "
+        "to the plain versions")
+    return rows
+
+
+def cnn_determinism(torch, name):
+    """One full-width step (batch 512, ``quant.use_pallas``) twice from the
+    same state and batch, once with the global cuDNN flags at torch's
+    defaults (TF32 on, nondeterministic algorithms allowed) and once with
+    both off: the four runs bit-equal (params, stats, metrics), so the
+    flags ``cnn.conv`` enters govern its forward and backward."""
+    from repro_torch.train import train_loop
+    cfg = cnn_config(name, ("quant.use_pallas=true",))
+    state0 = train_loop.init_state(cfg, SEED + 24, device="cuda")
+    batch = train_loop.make_batch(cfg, 0, device="cuda")
+    step = train_loop.make_train_step(cfg)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    outs = []
+    try:
+        for flags in ((True, False), (False, False)):
+            torch.backends.cudnn.allow_tf32, \
+                torch.backends.cudnn.deterministic = flags
+            for _ in range(2):
+                s, m = step(clone_tree(state0), batch, step=0)
+                outs.append((flags, {**flat_paths(
+                    {"params": s["params"], "stats": s["stats"]}),
+                    **{f"metrics/{k}": v for k, v in m.items()}}))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cudnn.deterministic = saved
+    ref = outs[0][1]
+    for flags, out in outs[1:]:
+        for path, t in ref.items():
+            if not torch.equal(out[path], t):
+                raise AssertionError(f"{name} step with global cuDNN flags "
+                                     f"{flags}: {path} differs")
+    log(f"[cnn] {name}: 4 full-width steps from one state (global "
+        "allow_tf32/deterministic (True, False) twice, (False, False) "
+        f"twice) bit-equal over {len(ref)} leaves and metrics")
+    return len(ref)
+
+
+def cnn_card_vs_cpu(torch, name):
+    """At smoke width under ``quant.use_pallas``: the quantized copy of the
+    same state and seeds bit-equal (kernel against plain version); one
+    step within the CPU tests' bounds (tests/test_torch_cnn_step.py);
+    then, after a second step on the card, the same state through
+    ``precision_switch`` on the card and on the CPU: identical."""
+    from repro_torch.core import controller
+    from repro_torch.train import train_loop
+    cfg = cnn_config(name, ("quant.use_pallas=true",), smoke=True)
+    gpu = train_loop.init_state(cfg, SEED + 23, device="cuda")
+    before = to_device(gpu, "cpu")
+    cpu = to_device(gpu, "cpu")
+    seeds = controller.leaf_seeds(int(before["rng"]), 0,
+                                  before["adapt"]["tensors"])
+    cq = controller.quantize_params(before["params"], before["adapt"],
+                                    cfg.quant, seeds)
+    gq = controller.quantize_params(to_device(before["params"], "cuda"),
+                                    to_device(before["adapt"], "cuda"),
+                                    cfg.quant, seeds)
+    gflat = flat_paths(gq)
+    for path, c in flat_paths(cq).items():
+        if gflat[path].dtype != c.dtype or not torch.equal(gflat[path].cpu(),
+                                                           c):
+            raise AssertionError(f"{name} smoke: quantized copy {path} differs")
+    batch = train_loop.make_batch(cfg, 0, device="cpu")
+    step = train_loop.make_train_step(cfg)
+    cpu, cm = step(cpu, batch, step=0)
+    gpu, gm = step(gpu, {k: v.cuda() for k, v in batch.items()}, step=0)
+    r = {k: {"cpu": float(cm[k]), "card": float(gm[k])}
+         for k in ("loss", "full_loss", "grad_norm", "acc", "lr")}
+    for k, rtol in (("loss", CNN_LOSS_RTOL), ("full_loss", CNN_LOSS_RTOL),
+                    ("grad_norm", CNN_GRAD_NORM_RTOL), ("acc", 0.0),
+                    ("lr", 0.0)):
+        c, g = r[k]["cpu"], r[k]["card"]
+        if not abs(c - g) <= rtol * abs(c):
+            raise AssertionError(f"{name} smoke step {k}: cpu {c} card {g}")
+    p0 = flat_paths(before["params"])
+    gp = flat_paths(gpu["params"])
+    worst = 0.0
+    for path, c in flat_paths(cpu["params"]).items():
+        dc, dg = c - p0[path], gp[path].cpu() - p0[path]
+        rel = float(torch.linalg.vector_norm(dg - dc)
+                    / torch.linalg.vector_norm(dc))
+        if not rel <= CNN_UPDATE:
+            raise AssertionError(f"{name} smoke step: {path} update off by "
+                                 f"{rel} normwise")
+        worst = max(worst, rel)
+    gs = flat_paths(gpu["stats"])
+    for path, c in flat_paths(cpu["stats"]).items():
+        err = float((gs[path].cpu() - c).abs().max())
+        if not err <= CNN_STATS * float(c.abs().max()):
+            raise AssertionError(f"{name} smoke step: stats {path} off by {err}")
+    leaves = len(gflat)
+    gpu, _ = step(gpu, train_loop.make_batch(cfg, 1, device="cuda"), step=1)
+    cpu = to_device(gpu, "cpu")
+    c_out = controller.precision_switch(cpu["adapt"], cpu["params"], cfg.quant)
+    g_out = controller.precision_switch(gpu["adapt"], gpu["params"], cfg.quant)
+    for path, cts in c_out["tensors"].items():
+        for k in ("wl", "fl", "lb", "res", "count", "sp", "norm_sum",
+                  "grad_sum"):
+            if not torch.equal(g_out["tensors"][path][k].cpu(), cts[k]):
+                raise AssertionError(f"{name} smoke switch {path} {k}")
+    if int(g_out["strategy"]) != int(c_out["strategy"]):
+        raise AssertionError(f"{name} smoke switch strategy")
+    r.update(leaves_bit_equal=leaves, worst_update=worst,
+             wlfl=wlfl_histogram({"adapt": c_out}))
+    log(f"[cnn] {name} smoke, card vs CPU: quantized copy of {leaves} leaves "
+        f"bit-equal; step loss {r['loss']}, acc {r['acc']}, worst leaf "
+        f"update {worst:.3g} normwise (bound {CNN_UPDATE}); precision_switch "
+        f"identical ({r['wlfl']})")
+    return r
+
+
+def lookback_card_vs_cpu(torch):
+    """The switch's mean lookback (``controller._avg_lookback``: f32 fused
+    multiply-adds taken in f64, rounded to odd) on the card against the
+    CPU, bit for bit: 64 states of 7 leaves stacked over 28 layers and of
+    22 single lookbacks beside 3 stacked leaves, random lookbacks 2-100."""
+    from repro_torch.core import controller
+    gen = torch.Generator().manual_seed(SEED + 25)
+    for i in range(64):
+        shapes = [(28,)] * 7 if i % 2 else [()] * 22 + [(28,)] * 3
+        lbs = {f"t{j:02d}": torch.randint(2, 101, shp, generator=gen,
+                                          dtype=torch.int32)
+               for j, shp in enumerate(shapes)}
+        out = []
+        for dev in ("cpu", "cuda"):
+            out.append(controller._avg_lookback({
+                "tensors": {k: {"lb": v.to(dev)} for k, v in lbs.items()},
+                "loss_hist": torch.zeros(4, device=dev)}).cpu())
+        if not torch.equal(out[0].view(torch.int32), out[1].view(torch.int32)):
+            raise AssertionError(f"_avg_lookback state {i}: card {out[1]} "
+                                 f"cpu {out[0]}")
+    log("[cnn] the switch's mean lookback: card = CPU on 64 states")
+
+
+def cnn_path(torch, sq, el):
+    """Phase 19: (a) the registry's AlexNet and ResNet20 at full width under
+    the QuantConfig defaults (no hand-written kernel); (b) the same under
+    ``quant.use_pallas``, with the float32 and with the int8 container, and
+    ResNet20 on CIFAR100, with exact launches,
+    held-out accuracy and the perf model; (c) each kernel at every
+    full-width leaf shape, the full-width step's determinism under the
+    global cuDNN flags, card against CPU at smoke width, and the switch's
+    mean lookback card against CPU."""
+    runs = {}
+    for name in CNN_MODELS:
+        runs[f"{name}_defaults"] = cnn_run(torch, f"{name} defaults",
+                                           cnn_config(name))
+    for tag, name, extra in (("alexnet_pallas", "alexnet", ()),
+                             ("resnet20_pallas", "resnet20", ()),
+                             ("alexnet_pallas_int8", "alexnet",
+                              ("quant.container_dtype=int8",)),
+                             ("resnet20_pallas_int8", "resnet20",
+                              ("quant.container_dtype=int8",)),
+                             ("resnet20_cifar100_pallas", "resnet20",
+                              ("model.vocab_size=100",))):
+        runs[tag] = cnn_run(torch, tag.replace("_", " "), cnn_config(
+            name, ("quant.use_pallas=true",) + extra))
+    shapes = cnn_kernel_shapes(torch, sq, el)
+    determinism = {name: cnn_determinism(torch, name) for name in CNN_MODELS}
+    depth = {name: cnn_card_vs_cpu(torch, name) for name in CNN_MODELS}
+    lookback_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in KERNELS}
+    return {"runs": runs, "kernel_shapes": shapes,
+            "determinism_leaves": determinism, "card_vs_cpu": depth,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3526,6 +4006,10 @@ def main() -> int:
     ckpt_res = checkpoint_path(torch)
     mark("18 checkpoint")
 
+    # 19. the CNN family: AlexNet and ResNet20
+    cnn_res = cnn_path(torch, sq, el)
+    mark("19 cnn")
+
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
             prologue_res["launches"], default_res["launches"],
@@ -3538,7 +4022,8 @@ def main() -> int:
     kernels = kernel_record(runs, later, fxp_rows, fxp_err, flash_rows,
                             flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err,
                             sr_rows, edf_rows, grid_rows, q_rows, q_err,
-                            ops_rows)
+                            ops_rows, cnn_res)
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -3554,7 +4039,7 @@ def main() -> int:
         "prologue_depth2": prologue_depth2, "ops_kernels": ops_rows,
         "default_train": default_res, "default_depth2": default_depth2,
         "remat_accum": remat_res, "remat_accum_depth2": remat_depth2,
-        "registry": registry_res, "checkpoint": ckpt_res,
+        "registry": registry_res, "checkpoint": ckpt_res, "cnn": cnn_res,
         "kernels": kernels, "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3567,7 +4052,7 @@ def main() -> int:
 
 def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                   bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows,
-                  grid_rows, q_rows, q_err, ops_rows):
+                  grid_rows, q_rows, q_err, ops_rows, cnn_res):
     """One entry per kernel. ``launches`` sums the counts of the main
     paths' runs of phases 4-14 (``runs``); ``launches_16_18`` those of the
     counted runs of phases 16-18 (``later``: remat, accumulation at
@@ -3593,7 +4078,12 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     also sums its two bf16 branches apart (``tensor_cores``: M > 16, the
     prefill's layers and training; ``gemv``: M <= 16, decode and the
     prefill's head), and ``matmul_dw`` takes path B's calls at the f32-out
-    times of ``check_matmul_bwd``."""
+    times of ``check_matmul_bwd``. ``launches_19`` counts the counted runs
+    of phase 19 (the CNN family); ``sr_quantize_fused``,
+    ``sr_quantize_fused_int8`` and ``edf_ladder_hists``, the only kernels
+    it launches, add ``cnn_19``:
+    their times summed over those launches from the per-shape times of
+    ``cnn_kernel_shapes``."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     device_keys = ("device_ms", "library_device_ms")
 
@@ -3683,13 +4173,34 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     kl_calls = {(N_LAYERS, D_MODEL, D_FF): OPS_PATH["kl_hist"]}
     i8_calls = {(TRAIN_M, D_MODEL, D_FF): OPS_PATH["int8_matmul"]}
 
+    # phase 19: per run, each quantized leaf's shape once a step (the float
+    # SR grid values) and its switch input's once a switch (the ladder)
+    cnn_calls = {"sr_quantize_fused": {}, "sr_quantize_fused_int8": {},
+                 "edf_ladder_hists": {}}
+    for run in cnn_res["runs"].values():
+        for kernel, per in (("sr_quantize_fused", CNN_STEPS + CNN_WINDOW),
+                            ("sr_quantize_fused_int8", CNN_STEPS + CNN_WINDOW),
+                            ("edf_ladder_hists", CNN_STEPS // 2)):
+            for shape, c in run.get("leaf_shapes", {}).get(kernel, {}).items():
+                cnn_calls[kernel][shape] = cnn_calls[kernel].get(shape, 0) \
+                    + c * per
+    cnn_19 = {k: {"launches": sum(c.values()),
+                  **summed(cnn_res["kernel_shapes"][k], c)}
+              for k, c in cnn_calls.items()}
+    for k, rec in cnn_19.items():
+        if rec["launches"] != cnn_res["launches"][k]:
+            raise AssertionError(f"phase 19 {k}: {rec['launches']} launches "
+                                 f"timed, {cnn_res['launches'][k]} counted")
+
     def entry(name, source, replaces, err, times):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": launches[name],
-                "launches_16_18": launches_later[name], "max_abs_err": err,
-                **times}
+                "launches_16_18": launches_later[name],
+                "launches_19": cnn_res["launches"][name], "max_abs_err": err,
+                **times, **({"cnn_19": cnn_19[name]} if name in cnn_19
+                            else {})}
 
     return [
         entry("fxp_matmul", "fxp_matmul.cu", "fxp_matmul.py:84", fxp_err,

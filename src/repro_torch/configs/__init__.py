@@ -13,6 +13,8 @@ from repro_torch.config import Config
 # arch id -> module name
 _MODULES = {
     "llama3.2-3b": "llama3_2_3b",
+    "alexnet": "alexnet",
+    "resnet20": "resnet20",
     "tiny": "tiny",
 }
 
@@ -28,8 +30,6 @@ _LATER = {
     "mamba2-780m": "the SSM/hybrid slice",
     "llama-3.2-vision-11b": "the VLM slice",
     "hubert-xlarge": "the audio-encoder slice",
-    "alexnet": "the CNN slice",
-    "resnet20": "the CNN slice",
 }
 
 
@@ -43,7 +43,8 @@ def _load(arch: str):
 
 
 # Production-mesh training defaults for the LM family, as in the reference
-# registry (full-scan remat + 8-way gradient accumulation).
+# registry (full-scan remat + 8-way gradient accumulation); the CNN family
+# keeps its config's own.
 _LM_TRAIN = {"remat": "full", "accum_steps": 8}
 
 

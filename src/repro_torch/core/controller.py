@@ -451,10 +451,28 @@ def accumulate(state: Dict[str, Any], grads, loss: torch.Tensor
 
 
 def _avg_lookback(state: Dict[str, Any]) -> torch.Tensor:
-    lbs = [torch.mean(ts["lb"].to(torch.float32))
-           for ts in state["tensors"].values()]
-    return (torch.mean(torch.stack(lbs)) if lbs
-            else torch.tensor(0.0, device=state["loss_hist"].device))
+    """The mean over the tensors of each tensor's mean lookback, with the
+    bits of the reference's jit on XLA's CPU backend: it goes into a ceil,
+    where one ulp can move the loss window by a step. Each tensor's mean is
+    its exact sum times f32(1/n) (``fixed_point.exact_mean``); the tensors
+    go in sorted path order (the pytree's); the backend contracts the outer
+    sum into fused multiply-adds (a product by 1 is no product), the first
+    product into the second term and each later one into the running sum,
+    and multiplies that by f32(1/t)."""
+    parts = [(torch.sum(ts["lb"].to(torch.float32)),
+              fxp.recip_f32(ts["lb"].numel()))
+             for _, ts in sorted(state["tensors"].items())]
+    if not parts:
+        return torch.tensor(0.0, device=state["loss_hist"].device)
+    (s0, c0), rest = parts[0], parts[1:]
+    if not rest:
+        return s0 * c0
+    (s1, c1) = rest[0]
+    total = (fxp.fma_f32(s0, torch.tensor(c0), s1 * c1) if c0 != 1.0
+             else fxp.fma_f32(s1, torch.tensor(c1), s0))
+    for s, c in rest[1:]:
+        total = fxp.fma_f32(s, torch.tensor(c), total)
+    return total * fxp.recip_f32(len(parts))
 
 
 def _loss_stats(state: Dict[str, Any], lb_avg: torch.Tensor):
@@ -506,7 +524,7 @@ def _switch_tensor(ts: Dict[str, torch.Tensor], w: torch.Tensor,
                                       r_lwr=qcfg.r_lwr, r_upr=qcfg.r_upr)
     # sparsity of the subsample quantized at the new precision
     qw = fxp.quantize(flat, wl_new.reshape(L, 1), fl_new.reshape(L, 1))
-    sp_new = torch.mean((torch.abs(qw) > 0.0).to(torch.float32), dim=1)
+    sp_new = fxp.sparsity(qw, axes=1)
     should = ts["count"] >= ts["lb"]
 
     def pick(new, old):

@@ -220,7 +220,48 @@ def unpack_tree(tree, keep_dense: bool = False, _prefix: str = ""):
     return tree
 
 
+def exact_mean(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """The f32 mean of values whose f32 sum is exact (a 0/1 mask, small
+    integers), as XLA takes ``jnp.mean`` on the CPU: the sum times the f32
+    reciprocal f32(1) / f32(n). ``torch.mean`` divides by n instead, and for
+    some (sum, n) the two round to neighbouring floats (1151 of 1152 gives
+    0.99913192 against XLA's 0.99913198), so this never divides. ``dim`` is one
+    dim or a tuple of dims (all dims when None)."""
+    x = x.to(torch.float32)
+    dims = tuple(range(x.ndim)) if dim is None else (
+        (dim,) if isinstance(dim, int) else tuple(dim))
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    inv = recip_f32(n)
+    return torch.sum(x, dim=dims) * inv if dims else x * inv
+
+
+def recip_f32(n: int) -> float:
+    """f32(1) / f32(n), as a Python float (an f32 value, so a product with
+    an f32 tensor is taken at that value)."""
+    return (torch.tensor(1.0) / torch.tensor(float(n))).item()
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """a·b + c of f32 values rounded once to f32, as a fused multiply-add
+    gives it. In f64 the product is exact (24 + 24 bits); the sum is taken
+    rounded to odd (the nearest sum, moved one ulp toward the exact value
+    when it was inexact and its last bit even), and rounding that to f32 is
+    the correct rounding, since f64 has more than 24 + 2 bits."""
+    a, b, c = (t.to(torch.float64) for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)       # s + err == p + c exactly
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
+    return s.to(torch.float32)
+
+
 def sparsity(w: torch.Tensor, axes=None, eps: float = 0.0) -> torch.Tensor:
-    """Fraction of non-zero elements (paper's sp^l); |w| <= eps counts as 0."""
-    nz = (torch.abs(w) > eps).to(torch.float32)
-    return torch.mean(nz) if axes is None else torch.mean(nz, dim=axes)
+    """Fraction of non-zero elements (paper's sp^l); |w| <= eps counts as 0.
+    The mean of the 0/1 mask is the reference's bits (``exact_mean``)."""
+    return exact_mean((torch.abs(w) > eps).to(torch.float32), axes)

@@ -1,5 +1,5 @@
 """AdaPT-SGD training loop of the port (paper alg. 1; counterpart of
-``repro/train/train_loop.py``), dense LM family.
+``repro/train/train_loop.py``), dense LM and CNN families.
 
 Each ``train_step``:
     1. L̂ = Quantize(L, Q)            — the quantized copy of the f32 master
@@ -27,7 +27,12 @@ Each ``train_step``:
        layers through the fxp kernels on packed words and prologue leaves,
        as library products on a float container's grid values),
        activations quantized per slot; the loss with the elastic net and
-       the WL penalty;
+       the WL penalty. The CNN family (AlexNet, ResNet20: ``models/cnn``)
+       takes the reference's exceptions: ``int8_packed`` gives the float32
+       grid values, activations are not quantized, ``train.remat`` is
+       ignored; its forward returns new batch-norm stats and the batch's
+       accuracy, which the step returns as ``state["stats"]`` and
+       ``metrics["acc"]``;
     3. the backward (dq/dkv and, on packed and prologue leaves, dx/dw
        kernels), the gradients taken with respect to the quantized copy's
        leaves: a packed leaf's "wref", a prologue leaf's master, a float
@@ -39,16 +44,16 @@ Each ``train_step``:
 With ``train.accum_steps`` a > 1, steps 2 and 3 run once per microbatch
 of B/a rows on the one quantized copy of the step, and their gradients
 are summed in ``train.accum_dtype`` and scaled by 1/a before step 4
-(``_accumulate``). ``train.remat`` checkpoints each layer's body
-(``transformer._remat``).
+(``_accumulate``); the new stats and the accuracy are the last
+microbatch's, each microbatch reading the step's input stats.
+``train.remat`` checkpoints each layer's body (``transformer._remat``).
 
 Every ``adapt_interval`` steps the precision switch (alg. 2: PushDown
 through the EDF-ladder kernel under ``quant.use_pallas``, then PushUp and
 the adaptation of strategy, lookback and resolution) moves each tensor
 whose window is full to its new ⟨WL,FL⟩ (never with ``quant.mode=off``).
 
-What is not ported raises, by name: QSGD pod compression and the CNN
-family.
+What is not ported raises, by name: QSGD pod compression.
 """
 from __future__ import annotations
 
@@ -61,14 +66,11 @@ from repro_torch.config import Config
 from repro_torch.core import controller, sparsity
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import cnn, transformer
 from repro_torch.train import optimizer as opt_lib
 
 
 def _check_ported(cfg: Config) -> None:
-    if cfg.model.family == "cnn":
-        raise NotImplementedError("the CNN family comes with the CNN slice of "
-                                  "the port (ROADMAP.md, Queue 1)")
     if cfg.train.qsgd_pod_compression:
         raise NotImplementedError("train.qsgd_pod_compression comes with the "
                                   "multi-GPU slice (ROADMAP.md, Queue 1)")
@@ -81,17 +83,27 @@ def _check_ported(cfg: Config) -> None:
 def init_state(cfg: Config, seed: Optional[int] = None, *, device=None
                ) -> Dict[str, Any]:
     """Fresh TNVS params from ``seed`` (default ``cfg.train.seed``), the
-    controller state, the optimizer state, step 0. On ``device`` (default
-    ``cuda``; raises without it unless ``"cpu"``)."""
+    batch-norm stats of the CNN family (width 0.25 for a "-smoke" model
+    name, else 1.0; ``model.vocab_size`` classes), the controller state,
+    the optimizer state, step 0. On ``device`` (default ``cuda``; raises
+    without it unless ``"cpu"``)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     seed = cfg.train.seed if seed is None else int(seed)
-    params = transformer.init_params(seed, cfg.model, device=dev)
+    m = cfg.model
+    if m.family == "cnn":
+        init_fn, _ = cnn.MODELS[m.name.replace("-smoke", "")]
+        width = 0.25 if m.name.endswith("smoke") else 1.0
+        params, stats = init_fn(seed, num_classes=m.vocab_size, width=width,
+                                device=dev)
+    else:
+        params = transformer.init_params(seed, m, device=dev)
+        stats = {}
     adapt = (controller.init_adapt_state(params, cfg.quant)
              if cfg.quant.mode != "off" else {"tensors": {}})
     return {
         "params": params,
-        "stats": {},
+        "stats": stats,
         "opt": opt_lib.init_opt_state(params, cfg.optimizer),
         "adapt": adapt,
         "step": torch.tensor(0, dtype=torch.int32, device=dev),
@@ -109,6 +121,17 @@ def _task_loss(cfg: Config, qparams, batch, act_wl=None) -> torch.Tensor:
                                  act_wl=act_wl, use_pallas=cfg.quant.use_pallas,
                                  remat=cfg.train.remat)
     return transformer.lm_loss(logits, batch["tokens"], shift=True)
+
+
+def _cnn_task_loss(cfg: Config, qparams, stats, batch):
+    """(cross-entropy of the quantized copy on ``batch``, differentiable;
+    {"stats": the new batch-norm stats, "acc": the batch's accuracy}), the
+    reference's CNN branch of ``_task_loss`` (``train_loop.py:67-76``)."""
+    _, fwd = cnn.MODELS[cfg.model.name.replace("-smoke", "")]
+    logits, new_stats = fwd(qparams, stats, batch["images"], True)
+    loss = cnn.ce_loss(logits, batch["labels"])
+    return loss, {"stats": new_stats,
+                  "acc": cnn.accuracy(logits.detach(), batch["labels"])}
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +152,12 @@ _CONTAINERS = {"bfloat16": torch.bfloat16, "int8": torch.int8}
 
 def _quantized_copy(cfg: Config, params, adapt, seeds, key):
     """The quantized copy the forward reads: the master itself under
-    ``quant.mode=off``."""
+    ``quant.mode=off``; for the CNN family ``int8_packed`` is the float32
+    container, as in the reference (``train_loop.py:135-149``)."""
     qcfg = cfg.quant
     if qcfg.mode == "off":
         return params
-    if qcfg.container_dtype == "int8_packed":
+    if qcfg.container_dtype == "int8_packed" and cfg.model.family != "cnn":
         return controller.quantize_params_packed(params, adapt, qcfg, seeds,
                                                  key=key)
     dtype = _CONTAINERS.get(qcfg.container_dtype, torch.float32)
@@ -221,11 +245,21 @@ def make_train_step(cfg: Config) -> Callable:
             key = controller.step_key(int(state["rng"]), i)
         qparams = _quantized_copy(cfg, params, adapt, seeds, key)
         act_wl = (transformer.act_wl_from_state(adapt)
-                  if adaptive and qcfg.quantize_activations else None)
+                  if adaptive and qcfg.quantize_activations
+                  and cfg.model.family != "cnn" else None)
+
+        aux: Dict[str, Any] = {}
 
         def loss_fn(mb):
-            """(full loss, task loss) of the quantized copy on ``mb``."""
-            task = _task_loss(cfg, qparams, mb, act_wl)
+            """(full loss, task loss) of the quantized copy on ``mb``; a
+            CNN's new stats and accuracy go to ``aux``, so that after the
+            microbatches it holds the last one's, as the reference's
+            ``auxes[-1]``, each microbatch having read the step's stats."""
+            if cfg.model.family == "cnn":
+                task, mb_aux = _cnn_task_loss(cfg, qparams, state["stats"], mb)
+                aux.update(mb_aux)
+            else:
+                task = _task_loss(cfg, qparams, mb, act_wl)
             if not adaptive:
                 return task, task
             # the regularizer reads packed and prologue leaves through
@@ -260,8 +294,11 @@ def make_train_step(cfg: Config) -> Callable:
             params, opt = opt_lib.apply_updates(params, grads, opt, ocfg)
             metrics = {"loss": task, "full_loss": full, "lr": opt["lr"],
                        "grad_norm": opt_lib.global_norm(grads)}
-        new_state = {**state, "params": params, "opt": opt, "adapt": adapt,
-                     "step": state["step"] + 1}
+            if "acc" in aux:
+                metrics["acc"] = aux["acc"]
+        new_state = {**state, "params": params,
+                     "stats": aux.get("stats", state["stats"]), "opt": opt,
+                     "adapt": adapt, "step": state["step"] + 1}
         return new_state, metrics
 
     return train_step
@@ -286,8 +323,9 @@ def make_precision_switch(cfg: Config) -> Callable:
 
 def make_batch(cfg: Config, step: int, *, device=None) -> Dict[str, torch.Tensor]:
     if cfg.model.family == "cnn":
-        raise NotImplementedError("CIFAR batches come with the CNN slice of "
-                                  "the port (ROADMAP.md, Queue 1)")
+        return synthetic.cifar_batch(cfg.model.vocab_size,
+                                     cfg.train.global_batch, step,
+                                     cfg.train.seed, device=device)
     return synthetic.lm_batch(cfg, step, device=device)
 
 
@@ -348,7 +386,8 @@ def train(cfg: Config, *, steps: Optional[int] = None,
             if metrics_logger is not None:
                 metrics_logger.log_step(i + 1, m, dt=dt)
             log(f"step {i + 1:5d} loss={m['loss']:.4f} lr={m['lr']:.4g} "
-                f"grad_norm={m['grad_norm']:.4f} ({dt * 1e3:.0f} ms)")
+                + (f"acc={m['acc']:.3f} " if "acc" in m else "")
+                + f"grad_norm={m['grad_norm']:.4f} ({dt * 1e3:.0f} ms)")
         if checkpoint_mgr is not None and every and (i + 1) % every == 0:
             checkpoint_mgr.save(state, step=i + 1)
         if heartbeat is not None:
