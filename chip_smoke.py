@@ -7,8 +7,10 @@ containers, the quantize prologue, the registry's default quantizer with
 the reference's jax.random noise, remat and microbatch accumulation, the
 registry's own config), drive the three kernels only ``kernels/ops``
 reaches, save and resume a run, compare the card with the CPU at depth 2
-for each, and train the paper's own models, AlexNet and ResNet20, on the
-synthetic CIFAR stream.
+for each, train the paper's own models, AlexNet and ResNet20, on the
+synthetic CIFAR stream, serve a burst through the continuous batcher on a
+captured decode, and serve (and for smollm-360m train) the dense family's
+granite-8b and smollm-360m.
 
     python3 chip_smoke.py
 
@@ -171,7 +173,36 @@ Phases (any failure exits non-zero; nothing is caught):
      under the global cuDNN flags at torch's defaults and twice with them
      off, all four bit-equal, and card against CPU at smoke width: the
      quantized copy bit-equal, one step within the CPU tests' bounds, the
-     switch identical.
+     switch identical;
+ 20. the continuous batcher (``serve/scheduler.py``) on the phase-4 model:
+     4 slots, a context of 256, cfg.serve's policy (levels 8/6/4), a
+     queue of 12; the decode of the slot pool one CUDA graph per level,
+     captured at construction (a warm-up decode and three captures: the
+     GEMV's exact launches, nothing else); a burst of 16 requests (prompts
+     of 8-96 tokens, 8-24 new, EOS ids, one over the context, three past
+     the queue) drains with every step timed, the WL down to 4 and back
+     one level at a time, every rid one terminal status, ``decode_captures``
+     3 at the end; 8 replays mid-burst bit-equal to the eager decode of the
+     same state (logits and caches); the same burst again: the same WL
+     trace and outputs; a request alone and among 3 others: the same
+     output; the seeded faults of ``test_serve_robustness.py``'s whole
+     contract; a journal, ``evict_all`` and ``recover`` draining all;
+     ``launch.serve --continuous``; 16 replays timed by CUDA events and 8
+     under the profiler (GEMV events against the graph's calls); then card
+     against CPU at depth 2 (logits within 2^-5 of the largest, greedy
+     tokens equal past the margin);
+ 21. the dense family: every shape smollm-360m and granite-8b bring to a
+     kernel against its plain version, as phase 3 (``fxp_matmul`` at M = 4,
+     512 and, for smollm, 2048 at K = 960, 4096 and 14336 and the heads of
+     49152, the GEMV repeated for equal bits; ``matmul_dx``/``_dw``,
+     the flash forward at D = 64 and 128 and its backward at D = 64, the SR
+     int8 words at 32 layers, the EDF ladder at (32, 65536)); smollm-360m
+     at full width: ``Engine`` on 4 x 128 prompts, 32 new tokens, with exact
+     launches, the batcher's burst, 3 packed SR steps of 4 x 512 through a
+     switch with exact launches, ``get_config("smollm-360m")`` with only
+     batch 8 and sequence 512 cut, 2 steps; granite-8b at full width,
+     serving only: ``Engine``, then the batcher with its three levels, the
+     peak memory.
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -366,6 +397,20 @@ GRAPH_RUNS = 3
 # The profiled window's name, and the spin kernels launched ahead of it.
 WINDOW = "chip_smoke.window"
 SPINS = 64
+# Phase 20: the continuous batcher on the phase-4 model (int8 words at FL
+# 10 under quant.use_pallas): 4 slots, a context of 256, cfg.serve's policy
+# (levels 8/6/4, pressure at a queue of 8, drained at 1, patience 2), a
+# queue of 12, a burst of 16 requests (one over the context, three past the
+# queue), so the WL walks down to 4 and back one level at a time.
+CB_SLOTS, CB_CONTEXT, CB_QUEUE, CB_BURST = 4, 256, 12, 16
+CB_LEVELS = (8, 6, 4)
+CB_CHECKED = 8                         # replays bit-equal to the eager decode
+CB_TIMED = 16                          # replays timed by CUDA events, each
+CB_DEPTH2_NEW = 4                      # new tokens a request, card vs CPU
+# Phase 21: the dense family's other two configs at full width.
+SMOLLM, GRANITE = "smollm-360m", "granite-8b"
+FAMILY = (SMOLLM, GRANITE)
+SMOLLM_SR_STEPS = 3                    # a switch after the second
 # PyTorch ops that would run a library GEMM: none may appear in a step.
 LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
                  "aten::matmul", "aten::linear", "aten::einsum"}
@@ -1829,6 +1874,64 @@ def instrument(eng, torch, fm, fa, record):
     eng._decode = wrap(eng._decode, "decode")
 
 
+def engine_run(torch, fm, fa, eng, prompts, tag, packed=True):
+    """Phase 4's serving check, shared by every ``Engine`` run:
+    ``generate`` on ``prompts`` (``NEW`` new tokens, greedy) with every
+    count set to 0 just before and read just after. Each prefill and
+    decode call's launches are exact: with the packed container the
+    prefill's dense layers on the tensor cores, its head and every decode
+    call on the GEMV; one flash launch a layer in the prefill; with a
+    float container the flash launches alone. Tokens in range, logits
+    finite and not constant; then the same run warm. Returns (record,
+    tokens, logits) of the first run."""
+    m = eng.cfg.model
+    L = m.num_layers
+    per_fwd = 7 * L + 1 if packed else 0
+    record = []
+    instrument(eng, torch, fm, fa, record)
+    ws = wrappers()
+    reset_counts(ws)
+    t0 = time.perf_counter()
+    out, logits = eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in ws.items() if w.launches}
+    gemv = 1 + per_fwd * (NEW - 1) if packed else 0
+    check_tensor_cores(tag, launches, gemv=gemv)
+    want = {"flash_attention": L,
+            **({"fxp_matmul": per_fwd * NEW} if packed else {})}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    per_call = {"prefill": (per_fwd, L, max(per_fwd - 1, 0), int(packed)),
+                "decode": (per_fwd, 0, 0, per_fwd)}
+    if record[0]["kind"] != "prefill" or len(record) != NEW:
+        raise AssertionError(f"{tag}: unexpected step record {record}")
+    for r in record:
+        if (r["fxp"], r["flash"], r["fxp_tc"], r["fxp_gemv"]) != \
+                per_call[r["kind"]]:
+            raise AssertionError(f"{tag} {r['kind']}: launches {r} != "
+                                 f"{per_call[r['kind']]}")
+    if out.shape != (prompts.shape[0], NEW) or int(out.min()) < 0 or \
+            int(out.max()) >= m.vocab_size:
+        raise AssertionError(f"{tag}: tokens out of range: {out}")
+    if not bool(torch.isfinite(logits).all()) or float(logits.std()) == 0.0:
+        raise AssertionError(f"{tag}: logits not finite or constant")
+    cold = step_times(record)
+    record.clear()
+    t0 = time.perf_counter()
+    eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    warm = step_times(record, total_s=time.perf_counter() - t0)
+    for name, r in (("cold", cold), ("warm", warm)):
+        log(f"[{tag}] {name}: prefill {r['prefill_ms']:.2f} ms, decode "
+            f"{r['decode_ms_per_step']:.2f} ms/step, "
+            f"{r['decode_tokens_per_s']:.1f} tok/s decode")
+    return ({"cold": {**cold, "total_s": total_s,
+                      "tokens_per_s": BATCH * NEW / total_s},
+             "warm": warm, "launches": launches,
+             "sample": [int(t) for t in out[0][:16]]}, out, logits)
+
+
 def main_path(torch, fm, fa):
     from repro_torch.config import load_config
     from repro_torch.core import controller
@@ -1851,60 +1954,24 @@ def main_path(torch, fm, fa):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prompts = torch.randint(0, m.vocab_size, (BATCH, PROMPT), generator=gen,
                             device="cuda")
-    record = []
-    instrument(eng, torch, fm, fa, record)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts({"fxp_matmul": fm.fxp_matmul,
-                  "flash_attention": fa.flash_attention})
-    t0 = time.perf_counter()
-    out, logits = eng.generate(prompts, NEW)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    launches = {"fxp_matmul": fm.fxp_matmul.launches,
-                "flash_attention": fa.flash_attention.launches}
+    # the same run twice (cold, then warm: every PyTorch kernel loaded),
+    # then a profiled prefill and 8 profiled decode steps for the breakdown
+    res, _, logits = engine_run(torch, fm, fa, eng, prompts, "main")
+    launches = res["launches"]
     per_fwd = 7 * N_LAYERS + 1
-    # the prefill's dense layers (M = 512) take the tensor cores, its head
-    # (the last position of each prompt, M = 4) and every decode call the
-    # GEMV
-    check_tensor_cores("main", launches, gemv=1 + per_fwd * (NEW - 1))
-    if record[0]["kind"] != "prefill" or len(record) != NEW:
-        raise AssertionError(f"unexpected step record {record}")
-    for r in record:
-        want = ((per_fwd, N_LAYERS, per_fwd - 1, 1) if r["kind"] == "prefill"
-                else (per_fwd, 0, 0, per_fwd))
-        if (r["fxp"], r["flash"], r["fxp_tc"], r["fxp_gemv"]) != want:
-            raise AssertionError(f"{r['kind']}: launches {r} != {want}")
-    if launches != {"fxp_matmul": per_fwd * NEW, "flash_attention": N_LAYERS}:
-        raise AssertionError(f"main-path launches {launches}")
-    if out.shape != (BATCH, NEW) or int(out.min()) < 0 or int(out.max()) >= VOCAB:
-        raise AssertionError(f"tokens out of range: {out}")
-    if not bool(torch.isfinite(logits).all()) or float(logits.std()) == 0.0:
-        raise AssertionError("logits not finite or constant")
-    cold = step_times(record)
-    # The same run again, warm (every PyTorch kernel loaded), then a
-    # profiled prefill and 8 profiled decode steps for the breakdown.
-    record.clear()
-    t0 = time.perf_counter()
-    eng.generate(prompts, NEW)
-    torch.cuda.synchronize()
-    warm = step_times(record, total_s=time.perf_counter() - t0)
-    res = {"cold": {**cold, "total_s": total_s,
-                    "tokens_per_s": BATCH * NEW / total_s},
-           "warm": warm,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches, "logits_std": float(logits.std()),
-           "sample": [int(t) for t in out[0][:16]],
-           "profile": profile_steps(torch, eng, prompts)}
+    res.update({"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "logits_std": float(logits.std()),
+                "profile": profile_steps(torch, eng, prompts)})
     dec = res["profile"]["decode_8_steps"]
     if dec["gemv_finish_launches"] or dec["memsets"]:
         raise AssertionError(
             f"profiled decode: {dec['gemv_finish_launches']} finish kernels "
             f"and {dec['memsets']} memsets (want one kernel a call)")
     trace_count(dec, "fxp_matmul_gemv", 8 * per_fwd, "profiled decode")
-    for name, r in (("cold", res["cold"]), ("warm", warm)):
-        log(f"[main] {name}: prefill {r['prefill_ms']:.2f} ms, decode "
-            f"{r['decode_ms_per_step']:.2f} ms/step, {r['tokens_per_s']:.1f} "
-            f"tok/s end to end, {r['decode_tokens_per_s']:.1f} tok/s decode")
+    for name in ("cold", "warm"):
+        r = res[name]
+        log(f"[main] {name}: {r['tokens_per_s']:.1f} tok/s end to end")
     log(f"[main] peak {res['peak_gib']:.2f} GiB, launches {launches}")
     for kind, prof in res["profile"].items():
         log(f"[profile] {kind}: wall {prof['wall_ms']:.2f} ms, device busy "
@@ -2664,7 +2731,7 @@ def float_train_path(torch, fm, fa):
     ``Engine`` serving from the trained float32 container (batch 4,
     prompt 128, 32 new tokens)."""
     from repro_torch.config import load_config
-    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.engine import Engine, serving_adapt_state
     from repro_torch.train import train_loop
 
     cfg = load_config("llama3.2-3b", overrides=FLOAT_OVERRIDES)
@@ -2697,10 +2764,8 @@ def float_train_path(torch, fm, fa):
                        "switch_wall_ms": walls, "profile": prof}}
 
     # serving from the trained float32 container
-    params, adapt = state["params"], state["adapt"]
+    params, adapt = state["params"], serving_adapt_state(state["adapt"])
     del state
-    for ts in adapt["tensors"].values():
-        ts.pop("grad_sum")
     torch.cuda.empty_cache()
     eng = Engine(load_config("llama3.2-3b", overrides=FLOAT_OVERRIDES),
                  params, adapt, device="cuda")
@@ -2709,38 +2774,13 @@ def float_train_path(torch, fm, fa):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     prompts = torch.randint(0, VOCAB, (BATCH, PROMPT), generator=gen,
                             device="cuda")
-    record = []
-    instrument(eng, torch, fm, fa, record)
     torch.cuda.reset_peak_memory_stats()
-    ws = wrappers()
-    reset_counts(ws)
-    t0 = time.perf_counter()
-    out, logits = eng.generate(prompts, NEW)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    serve_launches = {k: w.launches for k, w in ws.items()}
-    if serve_launches != {**ZERO, "flash_attention": N_LAYERS}:
-        raise AssertionError(f"float32 serving launches {serve_launches}")
-    check_tensor_cores("float32 serving", serve_launches)
-    if out.shape != (BATCH, NEW) or int(out.min()) < 0 or int(out.max()) >= VOCAB:
-        raise AssertionError(f"float32 serving tokens out of range: {out}")
-    if not bool(torch.isfinite(logits).all()) or float(logits.std()) == 0.0:
-        raise AssertionError("float32 serving logits not finite or constant")
-    cold = step_times(record)
-    record.clear()
-    t0 = time.perf_counter()
-    eng.generate(prompts, NEW)
-    torch.cuda.synchronize()
-    warm = step_times(record, total_s=time.perf_counter() - t0)
-    res["serve_float32"] = {"cold": {**cold, "total_s": total_s}, "warm": warm,
-                            "launches": serve_launches,
-                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                            "sample": [int(t) for t in out[0][:16]]}
-    log(f"[float32] Engine: prefill {warm['prefill_ms']:.2f} ms warm "
-        f"({cold['prefill_ms']:.2f} cold), decode "
-        f"{warm['decode_ms_per_step']:.2f} ms/step warm, peak "
-        f"{res['serve_float32']['peak_gib']:.2f} GiB")
-    del eng, logits
+    serve, _, _ = engine_run(torch, fm, fa, eng, prompts, "float32 serving",
+                             packed=False)
+    res["serve_float32"] = {
+        **serve, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[float32] Engine: peak {res['serve_float32']['peak_gib']:.2f} GiB")
+    del eng
     torch.cuda.empty_cache()
 
     for name, (extra, per_step) in OTHER_CONTAINERS.items():
@@ -3306,10 +3346,10 @@ def remat_accum_card_vs_cpu(torch):
     return out
 
 
-def registry_path(torch):
-    """Phase 17: ``get_config("llama3.2-3b")`` with only the batch (8) and
-    the sequence (512) cut: remat full, 8 microbatches of 1 x 512 summed in
-    an f32 accumulator, the QuantConfig defaults (float32 container, SR
+def registry_path(torch, arch="llama3.2-3b"):
+    """Phase 17 (and 21 for smollm-360m): ``get_config(arch)`` with only
+    the batch (8) and the sequence (512) cut: remat full, 8 microbatches of
+    1 x 512 summed in an f32 accumulator, the QuantConfig defaults (float32 container, SR
     from the jax.random stream, no hand-written kernel), 2 steps through
     ``train_loop.train``; the step times from its watchdog and the loss
     from its heartbeat (the config logs every 10th step), no kernel
@@ -3319,7 +3359,8 @@ def registry_path(torch):
     from repro_torch.train import train_loop
     from repro_torch.train.fault_tolerance import Heartbeat, StepWatchdog
 
-    cfg = apply_overrides(get_config("llama3.2-3b"), REGISTRY_CUTS)
+    cfg = apply_overrides(get_config(arch), REGISTRY_CUTS)
+    tag = "registry" if arch == "llama3.2-3b" else f"registry {arch}"
     t, q = cfg.train, cfg.quant
     assert (t.remat, t.accum_steps, t.accum_dtype, q.container_dtype,
             q.stochastic_rounding, q.use_pallas) == (
@@ -3328,7 +3369,7 @@ def registry_path(torch):
     state = train_loop.init_state(cfg, device="cuda")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() / 2**30
-    log(f"[registry] init: {time.perf_counter() - t0:.1f} s, {held:.2f} GiB "
+    log(f"[{tag}] init: {time.perf_counter() - t0:.1f} s, {held:.2f} GiB "
         "held")
     ws = wrappers()
     watchdog, beats = StepWatchdog(), []
@@ -3337,7 +3378,7 @@ def registry_path(torch):
     state, _ = train_loop.train(cfg, steps=REGISTRY_STEPS, state=state,
                                 watchdog=watchdog, device="cuda",
                                 heartbeat=Heartbeat(0.0, beats.append),
-                                log=lambda line: log(f"[registry] {line}"))
+                                log=lambda line: log(f"[{tag}] {line}"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: w.launches for k, w in ws.items()}
     if any(launches.values()):
@@ -3354,9 +3395,9 @@ def registry_path(torch):
               "loss": loss} for i, (dt, loss) in enumerate(zip(watchdog.times,
                                                                losses))]
     for r in steps:
-        log(f"[registry] step {r['step']}: {r['ms']:.1f} ms, "
+        log(f"[{tag}] step {r['step']}: {r['ms']:.1f} ms, "
             f"{r['tokens_per_s']:.0f} tokens/s, loss {r['loss']:.4f}")
-    log(f"[registry] peak device memory {peak:.2f} GiB ({held:.2f} GiB held "
+    log(f"[{tag}] peak device memory {peak:.2f} GiB ({held:.2f} GiB held "
         "by the state), no kernel launched")
     del state
     torch.cuda.empty_cache()
@@ -3885,6 +3926,809 @@ def cnn_path(torch, sq, el):
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the continuous batcher
+
+
+def burst(cb, vocab, seed, n=CB_BURST, plen=(8, 97), new=(8, 25), long_at=5):
+    """``n`` requests submitted at once: prompts of ``plen`` tokens, ``new``
+    new tokens, every third with an EOS id (its prompt's first token), the
+    request at ``long_at`` with a prompt of the whole context (rejected).
+    Returns the requests."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    reqs = []
+    for i in range(n):
+        length = (cb.max_context if i == long_at
+                  else int(torch.randint(*plen, (1,), generator=gen)))
+        prompt = torch.randint(0, vocab, (length,), generator=gen).tolist()
+        budget = int(torch.randint(*new, (1,), generator=gen))
+        reqs.append(cb.submit(prompt, max_new_tokens=budget,
+                              eos_id=prompt[0] if i % 3 == 0 else None))
+    return reqs
+
+
+def new_batcher(torch, cfg, params, state, tag, **kw):
+    """A ``ContinuousBatcher`` on the card with every count set to 0 just
+    before its construction and read just after, each call of its decode
+    (``_decode_into``) read apart as launched (the warm-up decode) or
+    recorded into a graph (a stream under capture: no kernel runs). One
+    warm-up decode and one capture per level, each ``fxp_matmul`` call of
+    the decode (the dense layers and the head) on the GEMV, nothing else;
+    ``decode_captures`` equal to the levels. Returns (batcher, record):
+    ``launches_at_construction`` holds the launches alone."""
+    from repro_torch.serve.scheduler import ContinuousBatcher
+    ws = wrappers()
+    split = {"launched": {}, "recorded": {}}
+    inner = ContinuousBatcher._decode_into
+
+    def counted(self, qparams):
+        n0 = {k: (w.launches, w.gemv_launches if k == "fxp_matmul" else 0)
+              for k, w in ws.items()}
+        inner(self, qparams)
+        into = split["recorded" if torch.cuda.is_current_stream_capturing()
+                     else "launched"]
+        for k, w in ws.items():
+            now = (w.launches, w.gemv_launches if k == "fxp_matmul" else 0)
+            for key, a, b in zip((k, k + "_gemv"), n0[k], now):
+                if b - a:
+                    into[key] = into.get(key, 0) + b - a
+
+    reset_counts(ws)
+    ContinuousBatcher._decode_into = counted
+    try:
+        t0 = time.perf_counter()
+        cb = ContinuousBatcher(cfg, params, state, slots=CB_SLOTS,
+                               max_context=kw.pop("max_context", CB_CONTEXT),
+                               device="cuda", **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        ContinuousBatcher._decode_into = inner
+    levels = len(cb._graphs)
+    per_fwd = 7 * cfg.model.num_layers + 1
+    total = {k: w.launches for k, w in ws.items() if w.launches}
+    want = {"fxp_matmul": per_fwd, "fxp_matmul_gemv": per_fwd}
+    if split["launched"] != want or \
+            split["recorded"] != {k: levels * v for k, v in want.items()} or \
+            total != {"fxp_matmul": (levels + 1) * per_fwd} or \
+            cb.decode_captures != levels or \
+            levels != max(len(cb.qparam_levels), 1):
+        raise AssertionError(f"{tag}: construction {split}, counts {total} "
+                             f"(want {want} launched and {levels} times "
+                             f"that recorded), {cb.decode_captures} captures "
+                             f"of {levels} graphs")
+    log(f"[{tag}] batcher: {levels} levels quantized and captured in "
+        f"{build_s:.2f} s: {per_fwd} GEMV launches (the warm-up decode), "
+        f"{levels * per_fwd} GEMV calls recorded into the graphs")
+    return cb, {"build_s": build_s, "captures": cb.decode_captures,
+                "launches_at_construction": {
+                    "fxp_matmul": split["launched"]["fxp_matmul"]},
+                "recorded_at_capture": {
+                    "fxp_matmul": split["recorded"]["fxp_matmul"]}}
+
+
+def timed_drain(cb, max_steps=4000, at=None):
+    """``step`` until the queue and the slots are empty; the host ms of
+    every step that decoded (each ends in the step's copy to the host, so
+    it is synchronised). ``at`` = (step, fn) calls ``fn`` before that step.
+    Returns (finished requests, ms per decoding step, wall s)."""
+    done, ms = [], []
+    t0 = time.perf_counter()
+    for i in range(max_steps):
+        if at is not None and i == at[0]:
+            at[1]()
+        s0, n0 = time.perf_counter(), cb._step_i
+        done += cb.step()
+        if cb._step_i != n0:
+            ms.append((time.perf_counter() - s0) * 1e3)
+        if not cb.queue and all(s.free for s in cb.slots):
+            return done, ms, time.perf_counter() - t0
+    raise AssertionError(f"batcher not drained after {max_steps} steps")
+
+
+def replay_vs_eager(torch, cb, steps):
+    """``steps`` decodes of the batcher's state as it stands, cycling over
+    its levels: each level's graph replayed, then the state restored and
+    the same decode run eagerly (``_decode_into``); logits and caches must
+    be equal bit for bit. The state is restored after."""
+    def snap():
+        return {k: {n: c[n].clone() for n in c} for k, c in cb.caches.items()}
+
+    def restore(s):
+        for k, c in cb.caches.items():
+            for n in c:
+                c[n].copy_(s[k][n])
+
+    start, inputs = snap(), cb._inputs.clone()
+    trees = cb._trees()
+    for i in range(steps):
+        wl = list(trees)[i % len(trees)]
+        cb._inputs[1].copy_(inputs[1] + i)
+        before = snap()
+        cb._graphs[wl].replay()
+        logits, after = cb._logits.clone(), snap()
+        restore(before)
+        with torch.inference_mode():
+            cb._decode_into(trees[wl])
+        same = torch.equal(cb._logits, logits) and all(
+            torch.equal(c[n], after[k][n])
+            for k, c in cb.caches.items() for n in c)
+        if not same or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"replay {i} (WL {wl}) differs from the "
+                                 "eager decode")
+    restore(start)
+    cb._inputs.copy_(inputs)
+    torch.cuda.synchronize()
+    return steps
+
+
+def replay_times(torch, cb, per_fwd, tag):
+    """The active level's graph: ``CB_TIMED`` replays, each timed by CUDA
+    events (device ms a replay, their median), and 8 under the profiler,
+    whose GEMV kernel events are held against the graph's ``per_fwd`` calls
+    a replay."""
+    graph = cb._graphs[cb.active_wl]
+    graph.replay()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(CB_TIMED)]
+    for start, end in events:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in events)
+    prof = device_breakdown(torch, lambda: [graph.replay() for _ in range(8)])
+    if prof["gemv_finish_launches"] or prof["memsets"]:
+        raise AssertionError(f"{tag}: replays ran a GEMV finish kernel or a "
+                             "memset")
+    return {"replay_device_ms": times[CB_TIMED // 2],
+            "replay_device_ms_range": [times[0], times[-1]],
+            "profile_8_replays": prof,
+            "gemv_events_8_replays": trace_count(
+                prof, "fxp_matmul_gemv", 8 * per_fwd, f"{tag}: 8 replays")}
+
+
+def serve_burst(torch, cfg, params, state, tag, seed, check_replay=False,
+                **burst_kw):
+    """A batcher with ``cfg.serve``'s policy and ``CB_QUEUE``, a burst,
+    drained with every step timed: every rid reaches one terminal status
+    (the over-long prompt rejected), the WL never skips a level, the
+    captures unchanged at the end. Returns (record, batcher)."""
+    from repro_torch.serve.policy import PrecisionPolicy
+    from repro_torch.serve.scheduler import TERMINAL
+    cb, rec = new_batcher(torch, cfg, params, state, tag,
+                          max_queue=CB_QUEUE,
+                          policy=PrecisionPolicy.from_config(cfg.serve))
+    reqs = burst(cb, cfg.model.vocab_size, seed, **burst_kw)
+    at = (24, lambda: rec.update(
+        replays_bit_equal=replay_vs_eager(torch, cb, CB_CHECKED))
+        ) if check_replay else None
+    done, ms, wall = timed_drain(cb, at=at)
+    ladder = {wl: i for i, wl in enumerate(CB_LEVELS)}
+    if set(cb.terminal) != {r.rid for r in reqs} or \
+            any(r.status not in TERMINAL for r in reqs) or \
+            sum(cb.stats[s.value] for s in TERMINAL) != len(reqs) or \
+            any(abs(ladder[a] - ladder[b]) > 1
+                for a, b in zip(cb.wl_trace, cb.wl_trace[1:])) or \
+            cb.decode_captures != len(CB_LEVELS):
+        raise AssertionError(f"{tag}: {dict(cb.stats)}, trace "
+                             f"{cb.wl_trace}, {cb.decode_captures} captures")
+    tokens = sum(len(r.output) for r in done)
+    rec.update({
+        "requests": len(reqs), "stats": dict(cb.stats),
+        "statuses": {r.rid: [r.status.value, r.reason] for r in reqs},
+        "outputs": {r.rid: r.output for r in reqs}, "wl_trace": cb.wl_trace,
+        "decode_steps": len(ms), "step_ms_median": sorted(ms)[len(ms) // 2],
+        "step_ms_min": min(ms), "step_ms_max": max(ms), "wall_s": wall,
+        "tokens": tokens, "tokens_per_s": tokens / wall,
+        "captures_at_end": cb.decode_captures})
+    log(f"[{tag}] {len(reqs)} requests, {tokens} tokens in {wall:.2f} s "
+        f"({rec['tokens_per_s']:.1f} tok/s), {len(ms)} steps, step ms median "
+        f"{rec['step_ms_median']:.2f} ({rec['step_ms_min']:.2f}-"
+        f"{rec['step_ms_max']:.2f}); stats {dict(cb.stats)}; WL trace start "
+        f"{cb.wl_trace[0]} min {min(cb.wl_trace)} end {cb.wl_trace[-1]}; "
+        f"captures {cb.decode_captures}")
+    return rec, cb
+
+
+def batcher_isolation(torch, cfg, params, state):
+    """One batcher without a policy (one graph): a request alone (slot 0),
+    then the same request among 3 others (slot 3): the same output."""
+    cb, rec = new_batcher(torch, cfg, params, state, "batcher isolation")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    prompts = [torch.randint(0, cfg.model.vocab_size, (n,),
+                             generator=gen).tolist() for n in (40, 17, 63, 9)]
+    alone = cb.submit(prompts[0], max_new_tokens=16)
+    cb.run_until_drained()
+    others = [cb.submit(p, max_new_tokens=16) for p in prompts[1:]]
+    among = cb.submit(prompts[0], max_new_tokens=16)
+    cb.run_until_drained()
+    if among.output != alone.output or \
+            any(len(r.output) != 16 for r in others) or \
+            cb.decode_captures != 1:
+        raise AssertionError(f"alone {alone.output} != among 3 others "
+                             f"{among.output}")
+    log(f"[batcher] a request alone and among 3 others: the same "
+        f"{len(alone.output)} tokens")
+    return {**rec, "output": alone.output}
+
+
+def batcher_faults(torch, cfg, params, state):
+    """test_serve_robustness.py's whole contract at full width: 14
+    requests into a queue of 6 under seeded NaN rows and transient errors,
+    tight deadlines on an injected clock, a retry budget of 1; every rid
+    reaches exactly one terminal status, the stats add up, a second finish
+    raises."""
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.scheduler import TERMINAL, Status
+    fi = FaultInjector.seeded(3, steps=400, slots=CB_SLOTS, nan_rate=0.08,
+                              error_rate=0.05)
+    now = [0.0]
+
+    def clock():
+        now[0] += 0.01
+        return now[0]
+
+    cb, rec = new_batcher(torch, cfg, params, state, "batcher faults",
+                          max_queue=6, retry_budget=1, faults=fi, clock=clock)
+    reqs = [cb.submit([i + 1, i + 2], max_new_tokens=3,
+                      timeout=0.5 if i % 5 == 4 else None) for i in range(14)]
+    cb.run_until_drained(max_steps=400)
+    ok = [r for r in reqs if r.status is Status.OK]
+    if set(cb.terminal) != {r.rid for r in reqs} or \
+            any(cb.terminal[r.rid] is not r for r in reqs) or \
+            sum(cb.stats[s.value] for s in TERMINAL) != len(reqs) or \
+            cb.stats["submitted"] != len(reqs) or not ok or \
+            cb.decode_captures != 1:
+        raise AssertionError(f"batcher faults: {dict(cb.stats)}")
+    try:
+        cb._finish(ok[0], Status.FAILED, "again")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("batcher faults: a second terminal status")
+    log(f"[batcher] seeded faults: {len(fi.fired)} fired, stats "
+        f"{dict(cb.stats)}")
+    return {**rec, "stats": dict(cb.stats), "fired": len(fi.fired)}
+
+
+def batcher_recovery(torch, cfg, params, state):
+    """A journaled batcher takes 6 requests, steps 5 times and evicts all;
+    ``recover`` from its journal re-admits all 6 (their rids) and drains
+    them; the journal then holds nothing unfinished."""
+    from repro_torch.serve.journal import RequestJournal
+    from repro_torch.serve.scheduler import ContinuousBatcher
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    jp = str(out / "batcher_journal.jsonl")
+    Path(jp).unlink(missing_ok=True)
+    cb, rec = new_batcher(torch, cfg, params, state, "batcher journal",
+                          journal_path=jp)
+    reqs = [cb.submit([7 * i + 1, 7 * i + 2, 7 * i + 3], max_new_tokens=6)
+            for i in range(6)]
+    for _ in range(5):
+        cb.step()
+    evicted = cb.evict_all()
+    cb.journal.close()
+    del cb
+    torch.cuda.empty_cache()
+    cb = ContinuousBatcher.recover(cfg, params, state, journal_path=jp,
+                                   slots=CB_SLOTS, max_context=CB_CONTEXT,
+                                   device="cuda")
+    replayed = [r.rid for r in cb.queue]
+    done = cb.run_until_drained()
+    cb.journal.close()
+    if len(evicted) != 6 or replayed != [r.rid for r in reqs] or \
+            any(r.status.value != "ok" for r in done) or len(done) != 6 or \
+            RequestJournal.unfinished(jp) or cb.decode_captures != 1:
+        raise AssertionError(f"batcher recovery: evicted {len(evicted)}, "
+                             f"replayed {replayed}, {dict(cb.stats)}")
+    log(f"[batcher] journal: 6 evicted, {len(replayed)} replayed and drained")
+    return {**rec, "evicted": len(evicted), "replayed": replayed}
+
+
+def batcher_launcher(torch, arch="llama3.2-3b"):
+    """``launch.serve --continuous --arch arch`` at full width with the
+    phase-4 overrides, in this process: it exits 0, captures 3 graphs and
+    prints the reference's summary lines. The peak memory is read from
+    its start."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as serve_launcher
+    argv = ["--arch", arch, "--continuous"]
+    for o in OVERRIDES:
+        argv += ["--override", o]
+    buf = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_launcher.main(argv)
+    out = buf.getvalue()
+    log(out.rstrip())
+    if rc != 0 or "[serve] stats:" not in out or \
+            "3 decode graphs captured" not in out:
+        raise AssertionError(f"launch.serve --arch {arch} --continuous: "
+                             f"rc {rc}")
+    res = {"rc": rc, "s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "lines": out.splitlines()}
+    log(f"[{arch} launcher] {res['s']:.1f} s, peak {res['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    return res
+
+
+def batcher_path(torch, fm):
+    """Phase 20: the batcher on the phase-4 model."""
+    from repro_torch.config import load_config
+    from repro_torch.core import controller
+    from repro_torch.models import transformer
+    cfg = load_config("llama3.2-3b", overrides=OVERRIDES)
+    assert (cfg.serve.degrade_levels, cfg.serve.degrade_high_watermark,
+            cfg.serve.degrade_low_watermark, cfg.serve.degrade_patience) == (
+        CB_LEVELS, 8, 1, 2), cfg.serve
+    per_fwd = 7 * N_LAYERS + 1
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(SEED, cfg.model, device="cuda")
+    state = controller.init_adapt_state(params, cfg.quant)
+    first, cb = serve_burst(torch, cfg, params, state, "batcher", SEED + 5,
+                            check_replay=True)
+    first.update(replay_times(torch, cb, per_fwd, "batcher"))
+    del cb
+    torch.cuda.empty_cache()
+    second, cb = serve_burst(torch, cfg, params, state, "batcher again",
+                             SEED + 5)
+    del cb
+    torch.cuda.empty_cache()
+    if second["wl_trace"] != first["wl_trace"] or \
+            second["outputs"] != first["outputs"] or \
+            min(first["wl_trace"]) != min(CB_LEVELS) or \
+            first["wl_trace"][-1] != CB_LEVELS[0]:
+        raise AssertionError(f"batcher: WL traces {first['wl_trace']} / "
+                             f"{second['wl_trace']}")
+    res = {"burst": first, "again": {k: second[k] for k in (
+        "step_ms_median", "tokens_per_s", "wall_s", "captures",
+        "captures_at_end", "decode_steps", "launches_at_construction")},
+           "isolation": batcher_isolation(torch, cfg, params, state),
+           "faults": batcher_faults(torch, cfg, params, state),
+           "recovery": batcher_recovery(torch, cfg, params, state)}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, state
+    torch.cuda.empty_cache()
+    res["launcher"] = batcher_launcher(torch)
+    log(f"[batcher] replayed step {first['replay_device_ms']:.3f} ms on the "
+        f"device, {first['step_ms_median']:.2f} ms a step on the host clock "
+        f"(median of {first['decode_steps']}), {first['tokens_per_s']:.1f} "
+        f"tok/s, peak {res['peak_gib']:.2f} GiB; the same WL trace and "
+        f"outputs twice; {first['replays_bit_equal']} replays bit-equal to "
+        "the eager decode")
+    return res
+
+
+def batcher_card_vs_cpu(torch):
+    """The batcher at depth 2 (full width, the same weights), card against
+    CPU, 3 requests in 4 slots: every step's logits within 2^-5 of the
+    CPU's largest, greedy tokens equal where the CPU's top-1/top-2 margin
+    exceeds twice that (phase 5's rule); after a near tie the streams part
+    and the comparison stops."""
+    from repro_torch.config import load_config
+    from repro_torch.core import controller
+    from repro_torch.models import transformer
+    from repro_torch.serve.scheduler import ContinuousBatcher
+    cfg = load_config("llama3.2-3b", overrides=OVERRIDES + [
+        "model.num_layers=2"])
+    params = transformer.init_params(SEED, cfg.model, device="cuda")
+    runs = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else to_device(params, "cpu")
+        cb = ContinuousBatcher(cfg, p, controller.init_adapt_state(
+            p, cfg.quant), slots=CB_SLOTS, max_context=64, device=dev)
+        logits, inner = [], cb._read_back
+
+        def read_back(lg, inner=inner, logits=logits):
+            logits.append(lg.float().cpu().clone())
+            return inner(lg)
+
+        cb._read_back = read_back
+        gen = torch.Generator().manual_seed(SEED + 6)
+        reqs = [cb.submit(torch.randint(0, cfg.model.vocab_size, (6,),
+                                        generator=gen).tolist(),
+                          max_new_tokens=CB_DEPTH2_NEW) for _ in range(3)]
+        cb.run_until_drained()
+        runs[dev] = (logits, [r.output for r in reqs], cb.decode_captures)
+        del cb, p
+    cpu_s = time.perf_counter() - t0
+    worst, steps, parted = 0.0, 0, None
+    for step, (g, c) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        tol = 2.0 ** -5 * c.abs().max().item()
+        err = (g - c).abs().max().item()
+        worst = max(worst, err / tol)
+        if err > tol or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"batcher depth 2 step {step}: |card-cpu| "
+                                 f"{err} > {tol}")
+        top2 = torch.topk(c, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        same = g.argmax(-1) == c.argmax(-1)
+        if not bool(same[sure].all()):
+            raise AssertionError(f"batcher depth 2 step {step}: greedy "
+                                 "tokens differ past the margin")
+        steps += 1
+        if not bool(same.all()):
+            parted = step
+            break
+    if parted is None and runs["cuda"][1] != runs["cpu"][1]:
+        raise AssertionError("batcher depth 2: outputs differ with no tie")
+    if runs["cuda"][2] != 1 or runs["cpu"][2] != 0:
+        raise AssertionError(f"batcher depth 2: captures {runs['cuda'][2]}, "
+                             f"{runs['cpu'][2]}")
+    log(f"[batcher depth2] card vs CPU: worst |err|/tol {worst:.3f} over "
+        f"{steps} steps, outputs {'equal' if parted is None else 'parted after a near tie at step %d' % parted}")
+    return {"worst_err_over_tol": worst, "steps_compared": steps,
+            "parted_at": parted, "outputs": runs["cuda"][1],
+            "cpu_outputs": runs["cpu"][1], "s": cpu_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the dense family
+
+
+def family_shapes(m):
+    """(K, N): calls per layer of each dense layer of ``m`` (h·dh = d in
+    both configs), and its head's (K, N)."""
+    d, kv = m.d_model, m.num_kv_heads * m.resolved_head_dim
+    assert m.num_heads * m.resolved_head_dim == d, m
+    return {(d, d): 2, (d, kv): 2, (d, m.d_ff): 2, (m.d_ff, d): 1}, (
+        d, m.vocab_size)
+
+
+def check_family_shapes(torch, fm, fa, sq, el, gen):
+    """Phase 3's checks at every shape the two configs bring that no
+    earlier phase gave its kernel: ``fxp_matmul`` at each dense layer and
+    the head of smollm-360m (K = 960, N = 320, 960, 2560, 49152) and
+    granite-8b (K = 4096 and 14336, N = 1024, 4096, 14336, 49152) at M = 4
+    (decode and the batcher: the GEMV, repeated for equal bits), M = 512
+    (the prefill: the tensor cores) and, for smollm, M = 2048 (training),
+    with phase 3's tolerance; ``matmul_dx``/``matmul_dw`` at smollm's
+    training shapes; the flash forward at smollm's prefill and training
+    shapes (D = 64, 15/5 heads) and granite's prefill (D = 128, 32/8), the
+    backward at smollm's training shape; the SR int8 words at smollm's
+    stacked (32 layers) and flat leaves, bit for bit; the EDF ladder at
+    (32, 65536). Each on the branch the main path takes, with the kernel's,
+    the plain version's and the library call's times and the bound."""
+    from repro_torch.config import load_config
+    from repro_torch.core import pushdown
+    dev, bf = "cuda", torch.bfloat16
+    scale = torch.tensor(2.0 ** -10, dtype=bf, device=dev)
+    rows = {k: [] for k in ("fxp_matmul", "matmul_bwd", "flash_attention",
+                            "flash_backward",
+                            "sr_quantize_fused_stacked_int8",
+                            "sr_quantize_fused_int8", "edf_ladder_hists")}
+
+    def fmt(row):
+        return ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else
+                         f"{k}={v}" for k, v in row.items())
+
+    for arch in FAMILY:
+        m = load_config(arch).model
+        layers, head = family_shapes(m)
+        ms = (BATCH, BATCH * PROMPT) + ((TRAIN_M,) if arch == SMOLLM else ())
+        for k, n in [*layers, head]:
+            copies = max(1, min(8, math.ceil(64e6 / (k * n))))
+            ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(copies)]
+            wds = [w.to(bf) * scale for w in ws]
+            for mm in ms:
+                xs = [torch.randn(mm, k, generator=gen, device=dev).to(bf)
+                      for _ in range(copies)]
+                c = fm.fxp_matmul
+                before = (c.launches, c.tc_launches, c.gemv_launches)
+                got = fm.fxp_matmul(xs[0], ws[0], scale)
+                moved = tuple(b - a for a, b in zip(before, (
+                    c.launches, c.tc_launches, c.gemv_launches)))
+                gemv = mm <= 16
+                if moved != (1, int(not gemv), int(gemv)):
+                    raise AssertionError(f"fxp_matmul {arch} ({mm},{k},{n}): "
+                                         f"branch counts {moved}")
+                ok, err = close_bf16(got, fm.plain(xs[0], ws[0], scale),
+                                     2.0 ** -16)
+                if not ok:
+                    raise AssertionError(f"fxp_matmul {arch} ({mm},{k},{n}): "
+                                         f"max err {err}")
+                reps = 20 if gemv else 5
+                row = {"arch": arch, "m": mm, "k": k, "n": n,
+                       "branch": "gemv" if gemv else "tc",
+                       "max_abs_err": err,
+                       "ms": cuda_time_ms([lambda x=x, w=w: fm.fxp_matmul(
+                           x, w, scale) for x, w in zip(xs, ws)], reps),
+                       "plain_ms": cuda_time_ms([lambda: fm.plain(
+                           xs[0], ws[0], scale)], 2),
+                       "library_ms": cuda_time_ms([
+                           lambda x=x, w=w: torch.matmul(x, w)
+                           for x, w in zip(xs, wds)], reps)}
+                if gemv:
+                    row["repeats_bit_equal"] = bit_stable(
+                        torch, lambda: fm.fxp_matmul(xs[0], ws[0], scale), 10,
+                        f"fxp_matmul {arch} ({mm},{k},{n})")
+                row["bound_ms"], row["bound_by"] = bound(
+                    2 * mm * k + k * n + 2 * mm * n + 2, 2.0 * mm * k * n)
+                rows["fxp_matmul"].append(row)
+                log(f"[family] fxp_matmul {arch} {mm}x{k}x{n}: {fmt(row)}")
+                if mm == TRAIN_M:
+                    rows["matmul_bwd"].append(family_bwd(
+                        torch, fm, gen, arch, xs[0], ws[0], wds[0], scale))
+                del xs
+            del ws, wds
+        torch.cuda.empty_cache()
+        h, hkv, dh = m.num_heads, m.num_kv_heads, m.resolved_head_dim
+        for case, B, S in (("prefill", BATCH, PROMPT),
+                           ("train", TRAIN_B, TRAIN_S)):
+            if case == "train" and arch != SMOLLM:
+                continue
+            q = torch.randn(B, S, h, dh, generator=gen, device=dev).to(bf)
+            k_ = torch.randn(B, S, hkv, dh, generator=gen, device=dev).to(bf)
+            v = torch.randn(B, S, hkv, dh, generator=gen, device=dev).to(bf)
+            t0 = fa.flash_attention.tc_launches
+            o, lse = fa.flash_attention(q, k_, v, return_lse=True, causal=True)
+            po = fa.plain(q, k_, v, causal=True)
+            torch.cuda.synchronize()
+            ok, err = close_bf16(o, po, 1e-4)
+            if not ok or fa.flash_attention.tc_launches != t0 + 1:
+                raise AssertionError(f"flash {arch} {case}: err {err}")
+            rep = h // hkv
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (
+                q, k_.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+            pairs = B * h * S * (S + 1) // 2
+            row = {"arch": arch, "case": case, "shape": [B, S, S, h, hkv, dh],
+                   "branch": "tensor cores", "max_abs_err": err,
+                   "ms": cuda_time_ms([lambda: fa.flash_attention(
+                       q, k_, v, causal=True)], 20),
+                   "plain_ms": cuda_time_ms([lambda: fa.plain(
+                       q, k_, v, causal=True)], 3),
+                   "library_ms": cuda_time_ms([
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True)], 20)}
+            row["bound_ms"], row["bound_by"] = bound(
+                2 * (2 * q.numel() + k_.numel() + v.numel()), 4.0 * dh * pairs)
+            rows["flash_attention"].append(row)
+            log(f"[family] flash_attention {arch} {case}: {fmt(row)}")
+            if case == "train":
+                rows["flash_backward"].append(family_flash_bwd(
+                    torch, fa, gen, arch, q, k_, v, o, lse, pairs))
+            del q, k_, v, qt, kt, vt, o, lse, po
+    # smollm's SR words (32 layers) and EDF ladder, bit for bit
+    m = load_config(SMOLLM).model
+    layers, head = family_shapes(m)
+    fls = torch.tensor([(0, 10, 28, 4, 17, -3, 9)[i % 7]
+                        for i in range(m.num_layers)], dtype=torch.int32,
+                       device=dev)
+    for name, shape, fl, kern, plain in (
+            *(("sr_quantize_fused_stacked_int8", (m.num_layers, k, n), fls,
+               sq.sr_quantize_fused_stacked_int8, sq.plain_stacked)
+              for k, n in layers),
+            *(("sr_quantize_fused_int8", s, fls[1], sq.sr_quantize_fused_int8,
+               sq.plain) for s in ((m.vocab_size, m.d_model), head))):
+        x = torch.randn(*shape, generator=gen, device=dev) * 0.05
+        got = kern(x, -4321, fl)
+        if got.dtype != torch.int8 or not torch.equal(got, plain(x, -4321, fl)):
+            raise AssertionError(f"{name} {shape}: words differ")
+        n = x.numel()
+        row = {"arch": SMOLLM, "shape": list(shape), "max_abs_err": 0.0,
+               "ms": cuda_time_ms([lambda: kern(x, -4321, fl)], 5),
+               "plain_ms": cuda_time_ms([lambda: plain(x, -4321, fl)], 2),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = max(
+            (5.0 * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (20.0 * n / F32_OPS * 1e3, "operations"))
+        rows[name].append(row)
+        log(f"[family] {name} {list(shape)}: bit-equal, {fmt(row)}")
+        del x, got
+    kw = dict(wl_ladder=pushdown.WL_LADDER, r_upr=150)
+    for L in (m.num_layers, 1):
+        w = torch.randn(L, EDF_SAMPLE, generator=gen, device=dev) * 0.02
+        fl = edf_inputs(torch, w)
+        r = torch.randint(50, 151, (L,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        got = el.edf_ladder_hists(w, fl, r, **kw)
+        if not torch.equal(got, el.plain(w, fl, r, **kw)):
+            raise AssertionError(f"edf_ladder ({L}, {EDF_SAMPLE}) differs")
+        T = len(pushdown.WL_LADDER)
+        row = {"arch": SMOLLM, "shape": [L, EDF_SAMPLE], "max_abs_err": 0.0,
+               "ms": cuda_time_ms([lambda: el.edf_ladder_hists(
+                   w, fl, r, **kw)], 10),
+               "plain_ms": cuda_time_ms([lambda: el.plain(w, fl, r, **kw)], 3),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = max(
+            (4.0 * (L * EDF_SAMPLE + L * (T + 3) + T + L * (1 + T) * 150)
+             / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (166.0 * L * EDF_SAMPLE / F32_OPS * 1e3, "operations"))
+        rows["edf_ladder_hists"].append(row)
+        log(f"[family] edf_ladder_hists ({L}, {EDF_SAMPLE}): bit-equal, "
+            f"{fmt(row)}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_bwd(torch, fm, gen, arch, x, w, wd, scale):
+    """``matmul_dx`` and ``matmul_dw`` at one of smollm's training shapes
+    (M = 2048), bf16 operands on the tensor cores, against their plain
+    versions (phase 3's tolerance), timed beside ``torch.matmul``."""
+    m, k = x.shape
+    n = w.shape[1]
+    dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    t0 = (fm.matmul_dx.tc_launches, fm.matmul_dw.tc_launches)
+    dx = fm.matmul_dx(dy, w, scale, out_dtype=torch.bfloat16)
+    dw = fm.matmul_dw(x, dy, out_dtype=torch.bfloat16)
+    ok_x, ex = close_bf16(dx, fm.plain_dx(dy, w, scale), 2.0 ** -16)
+    ok_w, ew = close_bf16(dw, fm.plain_dw(x, dy), 2.0 ** -16)
+    if not (ok_x and ok_w) or (fm.matmul_dx.tc_launches - t0[0],
+                               fm.matmul_dw.tc_launches - t0[1]) != (1, 1):
+        raise AssertionError(f"matmul_dx/dw {arch} ({m},{k},{n}): {ex}/{ew}")
+    flops = 2.0 * m * k * n
+    row = {"arch": arch, "m": m, "k": k, "n": n}
+    for name, kern, plain, lib, nbytes, err in (
+            ("matmul_dx", lambda: fm.matmul_dx(dy, w, scale),
+             lambda: fm.plain_dx(dy, w, scale), lambda: torch.matmul(dy, wd.T),
+             2 * m * n + k * n + 2 * m * k + 2, ex),
+            ("matmul_dw", lambda: fm.matmul_dw(x, dy, out_dtype=torch.bfloat16),
+             lambda: fm.plain_dw(x, dy), lambda: torch.matmul(x.T, dy),
+             2 * m * k + 2 * m * n + 2 * k * n, ew)):
+        b, by = bound(nbytes, flops)
+        row[name] = {"max_abs_err": err, "ms": cuda_time_ms([kern], 5),
+                     "plain_ms": cuda_time_ms([plain], 2),
+                     "library_ms": cuda_time_ms([lib], 5), "bound_ms": b,
+                     "bound_by": by}
+    log(f"[family] matmul_dx/dw {arch} {m}x{k}x{n}: dx {row['matmul_dx']}, "
+        f"dw {row['matmul_dw']}")
+    return row
+
+
+def family_flash_bwd(torch, fa, gen, arch, q, k, v, o, lse, pairs):
+    """The flash backward at smollm's training shape (D = 64, 15/5 heads):
+    dq and dkv on the tensor cores against the plain backward (phase 3's
+    tolerance), timed beside SDPA's flash backward."""
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    t0 = (fa.flash_attention_dq.tc_launches, fa.flash_attention_dkv.tc_launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.plain_bwd(q, k, v, o, lse, do, causal=True)
+    errs = []
+    for g, w in zip(got, want):
+        ok, e = close_bf16(g, w, 1e-4)
+        if not ok:
+            raise AssertionError(f"flash backward {arch}: err {e}")
+        errs.append(e)
+    if (fa.flash_attention_dq.tc_launches - t0[0],
+            fa.flash_attention_dkv.tc_launches - t0[1]) != (1, 1):
+        raise AssertionError(f"flash backward {arch}: off the tensor cores")
+    B, S, H, D = q.shape
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, delta)
+    launched, _ = sdpa_flash_backward(torch, q, k, v, do)
+    ins = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * B * H * S
+    row = {"arch": arch, "shape": [B, S, S, H, k.shape[2], D],
+           "library_ms": cuda_time_ms([launched], 10),
+           "library_covers": "flash_attention_dq+flash_attention_dkv"}
+    for name, fn, plain, flops, outs, err in (
+            ("flash_attention_dq", fa.flash_attention_dq, fa.plain_dq,
+             6.0 * D * pairs, 2 * q.numel(), errs[0]),
+            ("flash_attention_dkv", fa.flash_attention_dkv, fa.plain_dkv,
+             8.0 * D * pairs, 2 * (k.numel() + v.numel()), max(errs[1:]))):
+        b, by = bound(ins + outs, flops)
+        row[name] = {"max_abs_err": err,
+                     "ms": cuda_time_ms([lambda: fn(*args, causal=True)], 10),
+                     "plain_ms": cuda_time_ms([lambda: plain(
+                         *args, causal=True)], 2),
+                     "bound_ms": b, "bound_by": by}
+    log(f"[family] flash backward {arch} {row['shape']}: "
+        f"dq {row['flash_attention_dq']}, dkv {row['flash_attention_dkv']}, "
+        f"SDPA backward {row['library_ms']:.4g} ms")
+    return row
+
+
+def family_engine(torch, fm, fa, cfg, params, state, tag):
+    """An ``Engine`` of the config quantized on the card, then phase 4's
+    serving check (``engine_run``) on 4 prompts of 128 tokens. Returns the
+    record."""
+    from repro_torch.serve.engine import Engine
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, state, device="cuda")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    prompts = torch.randint(0, cfg.model.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device="cuda")
+    res, _, _ = engine_run(torch, fm, fa, eng, prompts, tag)
+    del eng
+    torch.cuda.empty_cache()
+    return {"quantize_s": quantize_s, **res}
+
+
+def smollm_path(torch, fm, fa):
+    """Phase 21, smollm-360m at full width: the Engine, 3 packed SR steps
+    through a switch, the registry's config with only batch and sequence
+    cut, and the batcher."""
+    from repro_torch.config import load_config
+    from repro_torch.core import controller
+    from repro_torch.models import transformer
+    from repro_torch.train import train_loop
+    res = {}
+    cfg = load_config(SMOLLM, overrides=OVERRIDES)
+    m = cfg.model
+    assert (m.num_layers, m.d_model, m.resolved_head_dim, m.vocab_size) == (
+        32, 960, 64, 49152), m
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(SEED, m, device="cuda")
+    state = controller.init_adapt_state(params, cfg.quant)
+    res["engine"] = family_engine(torch, fm, fa, cfg, params, state,
+                                  "smollm engine")
+    res["batcher"], cb = serve_burst(torch, cfg, params, state,
+                                     "smollm batcher", SEED + 8,
+                                     plen=(8, 25), new=(4, 13))
+    res["batcher"].update(replay_times(torch, cb, 7 * m.num_layers + 1,
+                                       "smollm batcher"))
+    res["serving_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del cb, params, state
+    torch.cuda.empty_cache()
+    # packed SR training through a switch, exact launches
+    cfg = load_config(SMOLLM, overrides=SR_OVERRIDES)
+    L = cfg.model.num_layers
+    dense = 7 * L + 1
+    per_step = {**ZERO, "fxp_matmul": dense, "matmul_dx": dense,
+                "matmul_dw": dense, "flash_attention": L,
+                "flash_attention_dq": L, "flash_attention_dkv": L,
+                "sr_quantize_fused_stacked_int8": N_STACKED,
+                "sr_quantize_fused_int8": N_FLAT}
+    state = train_loop.init_state(cfg, device="cuda")
+    state, steps, launches, peak = run_steps(torch, "smollm SR", cfg, state,
+                                             SMOLLM_SR_STEPS, per_step)
+    res["sr_train"] = {"steps": steps, "launches": launches,
+                       "peak_gib": peak}
+    del state
+    torch.cuda.empty_cache()
+    res["registry"] = registry_path(torch, SMOLLM)
+    return res
+
+
+def granite_path(torch, fm, fa):
+    """Phase 21, granite-8b at full width, serving only (one card cannot
+    train it: the f32 master alone is ~32 GB): the Engine, then the
+    batcher with its three levels, then ``launch.serve --continuous``; the
+    peak memory of each. Serving reads only each tensor's ⟨WL,FL⟩ of the
+    controller state (``engine.serving_adapt_state``, as the launcher cuts
+    it), so the rest (the bf16 gradient sums, another 14.9 GiB at this
+    width) is dropped first."""
+    from repro_torch.config import load_config
+    from repro_torch.core import controller
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import serving_adapt_state
+    cfg = load_config(GRANITE, overrides=OVERRIDES)
+    m = cfg.model
+    assert (m.num_layers, m.d_model, m.d_ff, m.vocab_size) == (
+        36, 4096, 14336, 49152), m
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED, m, device="cuda")
+    state = serving_adapt_state(controller.init_adapt_state(params,
+                                                            cfg.quant))
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "master_gib": torch.cuda.memory_allocated() / 2**30}
+    res["engine"] = family_engine(torch, fm, fa, cfg, params, state,
+                                  "granite engine")
+    res["batcher"], cb = serve_burst(torch, cfg, params, state,
+                                     "granite batcher", SEED + 9,
+                                     plen=(8, 25), new=(4, 13))
+    res["batcher"].update(replay_times(torch, cb, 7 * m.num_layers + 1,
+                                       "granite batcher"))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[granite] master {res['master_gib']:.2f} GiB, peak "
+        f"{res['peak_gib']:.2f} GiB with three levels")
+    del cb, params, state
+    res["launcher"] = batcher_launcher(torch, GRANITE)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4010,6 +4854,20 @@ def main() -> int:
     cnn_res = cnn_path(torch, sq, el)
     mark("19 cnn")
 
+    # 20. the continuous batcher on the phase-4 model; card against CPU
+    batcher_res = batcher_path(torch, fm)
+    mark("20 batcher")
+    batcher_depth2 = batcher_card_vs_cpu(torch)
+    mark("20 batcher depth 2")
+
+    # 21. the dense family: every new shape, smollm-360m, granite-8b
+    family_rows = check_family_shapes(torch, fm, fa, sq, el, gen)
+    mark("21 family shapes")
+    smollm_res = smollm_path(torch, fm, fa)
+    mark("21 smollm-360m")
+    granite_res = granite_path(torch, fm, fa)
+    mark("21 granite-8b")
+
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
             prologue_res["launches"], default_res["launches"],
@@ -4019,10 +4877,19 @@ def main() -> int:
              remat_res["accum_8_first"]["launches"],
              remat_res["accum_8_launches"], registry_res["launches"],
              ckpt_res["launches"]]
+    batchers = [batcher_res["burst"], batcher_res["again"],
+                batcher_res["isolation"], batcher_res["faults"],
+                batcher_res["recovery"], smollm_res["batcher"],
+                granite_res["batcher"]]
+    family = [*(b["launches_at_construction"] for b in batchers),
+              smollm_res["engine"]["launches"],
+              smollm_res["sr_train"]["launches"],
+              smollm_res["registry"]["launches"],
+              granite_res["engine"]["launches"]]
     kernels = kernel_record(runs, later, fxp_rows, fxp_err, flash_rows,
                             flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err,
                             sr_rows, edf_rows, grid_rows, q_rows, q_err,
-                            ops_rows, cnn_res)
+                            ops_rows, cnn_res, family)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4040,7 +4907,9 @@ def main() -> int:
         "default_train": default_res, "default_depth2": default_depth2,
         "remat_accum": remat_res, "remat_accum_depth2": remat_depth2,
         "registry": registry_res, "checkpoint": ckpt_res, "cnn": cnn_res,
-        "kernels": kernels, "phase_seconds": marks, "check_seconds": check_s,
+        "batcher": batcher_res, "batcher_depth2": batcher_depth2,
+        "family_shapes": family_rows, "smollm": smollm_res,
+        "granite": granite_res, "kernels": kernels, "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -4052,7 +4921,7 @@ def main() -> int:
 
 def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                   bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows,
-                  grid_rows, q_rows, q_err, ops_rows, cnn_res):
+                  grid_rows, q_rows, q_err, ops_rows, cnn_res, family):
     """One entry per kernel. ``launches`` sums the counts of the main
     paths' runs of phases 4-14 (``runs``); ``launches_16_18`` those of the
     counted runs of phases 16-18 (``later``: remat, accumulation at
@@ -4083,7 +4952,14 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     ``sr_quantize_fused_int8`` and ``edf_ladder_hists``, the only kernels
     it launches, add ``cnn_19``:
     their times summed over those launches from the per-shape times of
-    ``cnn_kernel_shapes``."""
+    ``cnn_kernel_shapes``. ``launches_20_21`` counts the launches of the
+    counted runs of phases 20 and 21 (``family``: each batcher's warm-up
+    decode at construction; smollm-360m's and granite-8b's ``Engine``
+    runs, smollm's SR steps and registry config). The GEMV calls recorded
+    into the batchers' graphs and replayed are in no count here: the JSON
+    file holds, per batcher, the calls recorded at capture and the GEMV
+    events the profiler saw in 8 replays. The per-shape times of phases
+    20 and 21 are ``check_family_shapes``'s rows in the JSON file."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     device_keys = ("device_ms", "library_device_ms")
 
@@ -4138,6 +5014,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                    "train": N_LAYERS * (steps + float_steps)}
     launches = {k: sum(run.get(k, 0) for run in runs) for k in KERNELS}
     launches_later = {k: sum(run.get(k, 0) for run in later) for k in KERNELS}
+    launches_family = {k: sum(run.get(k, 0) for run in family)
+                       for k in KERNELS}
     # SR int8: 4 SR steps, 2 int8-container steps; path B's embedding
     int8_steps = SR_STEPS + OTHER_STEPS
     stacked_by_shape = {tuple(r["shape"]): r
@@ -4198,7 +5076,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": launches[name],
                 "launches_16_18": launches_later[name],
-                "launches_19": cnn_res["launches"][name], "max_abs_err": err,
+                "launches_19": cnn_res["launches"][name],
+                "launches_20_21": launches_family[name], "max_abs_err": err,
                 **times, **({"cnn_19": cnn_19[name]} if name in cnn_19
                             else {})}
 

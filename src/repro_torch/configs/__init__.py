@@ -12,7 +12,9 @@ from repro_torch.config import Config
 
 # arch id -> module name
 _MODULES = {
+    "granite-8b": "granite_8b",
     "llama3.2-3b": "llama3_2_3b",
+    "smollm-360m": "smollm_360m",
     "alexnet": "alexnet",
     "resnet20": "resnet20",
     "tiny": "tiny",
@@ -21,8 +23,6 @@ _MODULES = {
 # Architectures the reference package registers that the port does not
 # serve yet, with the slice of the port that brings each one.
 _LATER = {
-    "granite-8b": "the dense-family slice",
-    "smollm-360m": "the dense-family slice",
     "gemma2-2b": "the gemma2 slice (softcap, local/global windows)",
     "mixtral-8x22b": "the MoE slice",
     "arctic-480b": "the MoE slice",

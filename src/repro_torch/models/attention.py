@@ -117,23 +117,40 @@ def _masked_attention(q, k, v, qpos, kpos, window, cap, causal):
 
 def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                   cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  slot_pos: torch.Tensor, t: int, *, window: int = 0,
+                  slot_pos: torch.Tensor, t, *, window: int = 0,
                   use_pallas: bool = False
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One-token decode. x: (B, 1, D); cache: (B, C, Hkv, Dh); slot_pos: (C,)
-    absolute positions per cache slot (-1 = empty); t: current position.
+    """One-token decode. x: (B, 1, D); cache: (B, C, Hkv, Dh).
+
+    ``t`` is the current position: a Python int, every row at t, with
+    slot_pos (C,) the absolute position of each cache slot (-1 = empty); or
+    a (B,) int32 tensor on x's device, row b at t[b] (the continuous
+    batcher's slot pool, the reference's single-row decode vmapped over the
+    slots), with slot_pos (B, C). Each row then takes rope at its own
+    position and writes its new k/v at t[b] % C of its own cache row; the
+    tensor path reads nothing back to the host, so it can be captured in a
+    CUDA graph.
 
     The new k/v are written into the cache IN PLACE (the reference returns
     updated copies); the returned caches are the same tensors."""
     h = common.rms_norm(x, p["pre_norm"], cfg.norm_eps)
     B = x.shape[0]
-    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    per_row = isinstance(t, torch.Tensor)
+    pos = (t.to(torch.int32)[:, None] if per_row
+           else torch.full((B, 1), t, dtype=torch.int32, device=x.device))
     q, k, v = _project_qkv(p, h, cfg, pos, use_pallas=use_pallas)
     C = cache_k.shape[1]
-    slot = t % C
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    kpos = slot_pos[None, :].expand(B, C)
+    if per_row:
+        rows = torch.arange(B, device=x.device)
+        slot = torch.remainder(pos[:, 0], C).to(torch.long)
+        cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+        kpos = slot_pos
+    else:
+        slot = t % C
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+        kpos = slot_pos[None, :].expand(B, C)
     out = _masked_attention(q, cache_k, cache_v, pos, kpos, window,
                             cfg.attn_logit_softcap, causal=True)
     out = common.dense(out.reshape(B, 1, -1), p["wo"], use_pallas=use_pallas)

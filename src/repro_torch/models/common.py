@@ -133,9 +133,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """Rotary embedding. x: (..., S, H, D); positions: (..., S) int."""
     d = x.shape[-1]
     half = d // 2
-    # log(theta) in f32, as jnp.log of a weakly typed float
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32,
-                                       device=x.device))
+    # log(theta) in f32, as jnp.log of a weakly typed float; a fill on the
+    # device, not a copy from the host, so a CUDA graph can capture it
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32,
+                                     device=x.device))
     freq = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32,
                                                device=x.device) / half)
     ang = positions[..., None].to(torch.float32) * freq        # (..., S, half)

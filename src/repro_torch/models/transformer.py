@@ -302,21 +302,30 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
     return caches
 
 
-def _slot_positions(C: int, t: int, device=None) -> torch.Tensor:
-    """Absolute position held by each rolling-cache slot at time t (-1 empty)."""
+def _slot_positions(C: int, t, device=None) -> torch.Tensor:
+    """Absolute position held by each rolling-cache slot at time t (-1
+    empty): (C,) for an int t, (B, C) for a (B,) tensor of per-row
+    positions."""
     idx = torch.arange(C, dtype=torch.int32, device=device)
+    if isinstance(t, torch.Tensor):
+        t = t.to(torch.int32)[:, None]
     p = t - torch.remainder(t - idx, C)
     return torch.where(p >= 0, p, -1).to(torch.int32)
 
 
 def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
-                caches: Dict[str, Any], t: int, *, use_pallas: bool = False
+                caches: Dict[str, Any], t, *, use_pallas: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """token: (B,) int; t: current absolute position (a Python int).
-    Returns (logits (B, V) f32, caches). The caches are updated in place
-    (the reference returns new ones) and returned."""
+    """token: (B,) int; t: the current absolute position, a Python int
+    (every row at t, the ``Engine``'s case) or a (B,) int32 tensor on
+    token's device (row b at t[b]: the continuous batcher's slot pool, one
+    batch where the reference vmaps a single-row decode over the slots;
+    nothing of this path reads back to the host, so it can be captured in
+    a CUDA graph). Returns (logits (B, V) f32, caches). The caches are
+    updated in place (the reference returns new ones) and returned."""
     plan, _ = _ported_plan(cfg)
-    t = int(t)
+    if not isinstance(t, torch.Tensor):
+        t = int(t)
     top = _top(params, use_pallas)
     x = _embed(top, token[:, None], cfg)
     # slot positions depend only on the slot's cache length and t: one

@@ -8,9 +8,8 @@ and the LM head run the fxp matmul kernel on them. Any other container is
 served from f32 grid values (``controller.quantize_params``), whose dense
 layers are library products, as the reference leaves them to XLA. Under
 ``quant.use_pallas`` the prefill's attention runs the flash kernel.
-
-``quantize_serving_levels`` (the AdaBits word-set ladder) comes with the
-scheduler slice.
+``quantize_serving_levels`` makes the AdaBits word-set ladder that the
+continuous batcher (``serve/scheduler.py``) swaps between decode steps.
 """
 from __future__ import annotations
 
@@ -43,6 +42,55 @@ def quantize_for_serving(params, adapt_state, qcfg, max_wl=None):
         qcfg = dataclasses.replace(qcfg, dense_prologue=False)
         return controller.quantize_params_packed(params, adapt_state, qcfg)
     return controller.quantize_params(params, adapt_state, qcfg)
+
+
+def serving_adapt_state(adapt_state):
+    """The controller state as serving reads it: each tensor's ⟨WL,FL⟩
+    and nothing else. A training state's other entries (the bf16 gradient
+    sums, half the master's bytes, and the lookback ring) are left out, so
+    a caller that keeps only this frees them before the weights are
+    quantized."""
+    tensors = (adapt_state or {}).get("tensors") or {}
+    return {"tensors": {p: {"wl": ts["wl"], "fl": ts["fl"]}
+                        for p, ts in tensors.items()}}
+
+
+def quantize_serving_levels(params, adapt_state, qcfg, levels):
+    """One quantized word set per serving word length (AdaBits: one set of
+    trained weights served at several bit-widths): {wl: qparams} for
+    ``levels`` (descending, levels[0] full precision), each the same
+    deterministic requantization with the controller state WL-clamped
+    (``quantize_for_serving(..., max_wl=wl)``). Every level must have the
+    same paths, leaf shapes and dtypes, so the batcher's decode reads any
+    of them through buffers of one layout (on the card, each level's
+    captured graph); a level that differs raises ``AssertionError`` here,
+    at load.
+
+    Without controller tensors there is nothing to requantize: the single
+    passthrough tree is returned under levels[0]."""
+    levels = tuple(levels)
+    if not levels:
+        raise ValueError("quantize_serving_levels: empty level ladder")
+    if not adapt_state or not adapt_state.get("tensors"):
+        return {levels[0]: quantize_for_serving(params, adapt_state, qcfg)}
+    out = {wl: quantize_for_serving(params, adapt_state, qcfg, max_wl=wl)
+           for wl in levels}
+    ref = dict(flatten_with_path(out[levels[0]]))
+    for wl in levels[1:]:
+        leaves = dict(flatten_with_path(out[wl]))
+        if sorted(leaves) != sorted(ref):
+            raise AssertionError(
+                f"serving level WL={wl} has other paths than the "
+                "full-precision level: swapping it in would need another "
+                "decode graph")
+        for path, a in ref.items():
+            b = leaves[path]
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(
+                    f"serving level WL={wl}: leaf {path} {tuple(a.shape)}/"
+                    f"{a.dtype} vs {tuple(b.shape)}/{b.dtype}: a precision "
+                    "swap would need another decode graph")
+    return out
 
 
 def make_prefill(cfg: Config):

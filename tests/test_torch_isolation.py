@@ -19,7 +19,7 @@ from repro_torch.kernels import edf_ladder, int8_matmul, kl_hist  # noqa: E402
 from repro_torch.kernels import sr_quantize  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.serve import engine  # noqa: E402
+from repro_torch.serve import engine, scheduler  # noqa: E402
 from repro_torch.train import train_loop  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,7 +37,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.fxp_matmul, repro_torch.kernels.ops, "
             "repro_torch.kernels.int8_matmul, repro_torch.kernels.kl_hist, "
             "repro_torch.core.threefry, repro_torch.train.checkpoint, "
-            "repro_torch.train.metrics, repro_torch.train.fault_tolerance\n"
+            "repro_torch.train.metrics, repro_torch.train.fault_tolerance, "
+            "repro_torch.serve.scheduler, repro_torch.serve.journal, "
+            "repro_torch.serve.faults, repro_torch.serve.policy\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax', 'jaxlib', 'msgpack') or m.startswith('jax'))\n"
             "assert not bad, bad\n")
@@ -75,6 +77,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     eng = engine.Engine(cfg, params, state, device="cpu")
     out, logits = eng.generate(torch.zeros(1, 3, dtype=torch.int32), 2)
     assert out.shape == (1, 2) and torch.isfinite(logits).all()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scheduler.ContinuousBatcher(cfg, params, state, slots=1,
+                                    max_context=8)
+    cb = scheduler.ContinuousBatcher(cfg, params, state, slots=1,
+                                     max_context=8, device="cpu")
+    req = cb.submit([1, 2], max_new_tokens=2)
+    cb.run_until_drained()
+    assert len(req.output) == 2 and cb.decode_captures == 0
 
 
 def test_unported_archs_and_slots_raise():
