@@ -13,8 +13,11 @@ from repro_torch.config import Config
 # arch id -> module name
 _MODULES = {
     "granite-8b": "granite_8b",
+    "gemma2-2b": "gemma2_2b",
     "llama3.2-3b": "llama3_2_3b",
     "smollm-360m": "smollm_360m",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "arctic-480b": "arctic_480b",
     "alexnet": "alexnet",
     "resnet20": "resnet20",
     "tiny": "tiny",
@@ -23,9 +26,6 @@ _MODULES = {
 # Architectures the reference package registers that the port does not
 # serve yet, with the slice of the port that brings each one.
 _LATER = {
-    "gemma2-2b": "the gemma2 slice (softcap, local/global windows)",
-    "mixtral-8x22b": "the MoE slice",
-    "arctic-480b": "the MoE slice",
     "zamba2-7b": "the SSM/hybrid slice",
     "mamba2-780m": "the SSM/hybrid slice",
     "llama-3.2-vision-11b": "the VLM slice",
@@ -43,16 +43,20 @@ def _load(arch: str):
 
 
 # Production-mesh training defaults for the LM family, as in the reference
-# registry (full-scan remat + 8-way gradient accumulation); the CNN family
-# keeps its config's own.
+# registry (full-scan remat + 8-way gradient accumulation; arctic-480b also
+# accumulates its gradients in bf16); the CNN family keeps its config's own.
 _LM_TRAIN = {"remat": "full", "accum_steps": 8}
+_ARCH_TRAIN = {
+    "arctic-480b": {**_LM_TRAIN, "accum_dtype": "bfloat16"},
+}
 
 
 def get_config(arch: str) -> Config:
     cfg = _load(arch).config()
     if cfg.model.family != "cnn" and arch != "tiny":
+        kw = _ARCH_TRAIN.get(arch, _LM_TRAIN)
         cfg = dataclasses.replace(
-            cfg, train=dataclasses.replace(cfg.train, **_LM_TRAIN))
+            cfg, train=dataclasses.replace(cfg.train, **kw))
     return cfg
 
 

@@ -55,39 +55,52 @@ def _full_precision_reduction():
         flags.allow_bf16_reduced_precision_reduction = before
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for two tensors of one dtype: f32 accumulation, rounded once to
-    that dtype. On the card a bf16 product is cuBLAS's bf16 GEMM; on the
-    CPU the factors are widened to f32 first."""
+def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """a @ b for two tensors of one dtype, a (..., K) by b (K, N) or two 3-D
+    stacks batched (``torch.bmm``): f32 accumulation, rounded once to
+    ``out_dtype`` (a's by default). On the card a bf16 product is cuBLAS's
+    bf16 GEMM, with an f32 result where asked; on the CPU the factors are
+    widened to f32 first."""
+    out_dtype = out_dtype or a.dtype
+    mm = torch.bmm if b.dim() == 3 else torch.matmul
     if a.device.type == "cuda" and a.dtype == torch.bfloat16:
         with _full_precision_reduction():
-            return torch.matmul(a, b)
-    return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
+            if out_dtype == a.dtype:
+                return mm(a, b)
+            return (torch.bmm if b.dim() == 3 else torch.mm)(
+                a, b, out_dtype=out_dtype)
+    return mm(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
 
 class _PlainDense(torch.autograd.Function):
-    """y = x @ w.astype(x.dtype), f32 accumulation, in x's dtype, as the
-    reference's ``jnp.dot`` (``models/common.py:64-68``), with the
-    gradients of its dtype chain: dx in x's dtype, dw rounded to x's dtype
-    (the transpose of the cast) and then to w's. Saves x and the weight
-    leaf itself and recasts in the backward, so no f32 or bf16 copy of a
-    weight outlives its own product."""
+    """y = x @ w.astype(x.dtype), f32 accumulation, in x's dtype or in
+    ``out_dtype``, as the reference's ``jnp.dot`` (``models/common.py:64-68``)
+    or, for two 3-D stacks, its ``einsum(...,
+    preferred_element_type=float32)`` over the MoE experts
+    (``models/moe.py:33-38``), with the gradients of its dtype chain: the
+    f32 products of the cotangent, dx in x's dtype, dw rounded to x's
+    dtype (the transpose of the cast) and then to w's. Saves x and the
+    weight leaf itself and recasts in the backward, so no f32 or bf16 copy
+    of a weight outlives its own product."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, out_dtype=None):
         ctx.save_for_backward(x, w)
-        return _mm(x, w.to(x.dtype))
+        return _mm(x, w.to(x.dtype), out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _mm(dy, w.to(x.dtype).T)
+            dx = _mm(dy, w.to(x.dtype).to(dy.dtype).mT, x.dtype)
         if ctx.needs_input_grad[1]:
-            x2 = x.reshape(-1, x.shape[-1])
-            dw = _mm(x2.T, dy.reshape(-1, dy.shape[-1])).to(w.dtype)
-        return dx, dw
+            x2, dy2 = x, dy
+            if w.dim() == 2:
+                x2 = x.reshape(-1, x.shape[-1])
+                dy2 = dy.reshape(-1, dy.shape[-1])
+            dw = _mm(x2.to(dy.dtype).mT, dy2, x.dtype).to(w.dtype)
+        return dx, dw, None
 
 
 def dense(x: torch.Tensor, w, *, use_pallas: bool = False) -> torch.Tensor:
@@ -174,7 +187,10 @@ def embed_lookup(table, ids: torch.Tensor, scale_by_dim: bool = False
         out = table[idx]
         d = table.shape[-1]
     if scale_by_dim:
-        out = out * torch.tensor(d ** 0.5, dtype=out.dtype, device=out.device)
+        # sqrt(d) rounded to out's dtype, filled on the device (a copy from
+        # the host would stop the batcher's CUDA graph capture)
+        out = out * torch.full((), d ** 0.5, dtype=out.dtype,
+                               device=out.device)
     return out
 
 

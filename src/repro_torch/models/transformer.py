@@ -11,11 +11,11 @@ would write a zero tensor of the whole stack per layer.
 Params layout (stacked leaves carry the leading num_periods dim):
 
     {"embed": (V, D),
-     "blocks": {"s{i}_attn": {...}, "s{i}_mlp": {...}},
+     "blocks": {"s{i}_attn": {...}, "s{i}_mlp"|"s{i}_moe": {...}},
      "final_norm": (D,),
      "head": (D, V)?}                  # absent when tie_embeddings
 
-Slots of kind mamba/cross, shared attention weights and MoE FFNs raise
+Slots of kind mamba/cross and shared attention weights raise
 NotImplementedError: they come with later slices of the port.
 """
 from __future__ import annotations
@@ -30,7 +30,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core.controller import unbind_layers
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, moe
 
 
 # ---------------------------------------------------------------------------
@@ -97,11 +97,11 @@ def ffn_key(i: int, slot: Slot) -> str:
 def _ported_plan(cfg: ModelConfig):
     plan, np_ = build_plan(cfg)
     for slot in plan:
-        if slot.kind != "attn" or slot.shared or slot.ffn == "moe":
+        if slot.kind != "attn" or slot.shared:
             raise NotImplementedError(
                 f"slot {slot} (kind={slot.kind}, ffn={slot.ffn}, "
-                f"shared={slot.shared}) is not ported yet: mamba, cross, "
-                "shared-attention and MoE slots come with later slices "
+                f"shared={slot.shared}) is not ported yet: mamba, cross "
+                "and shared-attention slots come with later slices "
                 "(ROADMAP.md, Queue 1)")
     return plan, np_
 
@@ -130,6 +130,9 @@ def init_params(key: int, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
             gen, cfg, np_, device=dev)
         if slot.ffn == "mlp":
             params["blocks"][ffn_key(i, slot)] = mlp.init_layer(
+                gen, cfg, np_, device=dev)
+        elif slot.ffn == "moe":
+            params["blocks"][ffn_key(i, slot)] = moe.init_layer(
                 gen, cfg, np_, device=dev)
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
                                        device=dev)
@@ -166,6 +169,19 @@ def _head_logits(top, x, cfg: ModelConfig, use_pallas: bool) -> torch.Tensor:
 def _embed(top, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return common.embed_lookup(top["embed"], tokens,
                                scale_by_dim=cfg.scale_embed).to(torch.bfloat16)
+
+
+def _apply_ffn(pslice, x, cfg: ModelConfig, i: int, slot: Slot,
+               use_pallas: bool, dropless: bool = False) -> torch.Tensor:
+    """The slot's FFN (``transformer.py:170-179``): the gated MLP, or the
+    MoE layer, dropless only in the decode step, as the reference's."""
+    if slot.ffn == "mlp":
+        return mlp.apply(pslice[ffn_key(i, slot)], x, cfg,
+                         use_pallas=use_pallas)
+    if slot.ffn == "moe":
+        return moe.apply(pslice[ffn_key(i, slot)], x, cfg, dropless=dropless,
+                         use_pallas=use_pallas)
+    return x
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -248,9 +264,7 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
             x, _ = attention.attend_full(
                 pslice[slot_key(i, slot)], x, cfg, positions,
                 window=slot.window, causal=causal, use_pallas=use_pallas)
-            if slot.ffn == "mlp":
-                x = mlp.apply(pslice[ffn_key(i, slot)], x, cfg,
-                              use_pallas=use_pallas)
+            x = _apply_ffn(pslice, x, cfg, i, slot, use_pallas)
             x = _maybe_qact(x, awl, slot_key(i, slot))
         return x
 
@@ -340,9 +354,7 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
             x, _ = attention.attend_decode(
                 pslice[key], x, cfg, ck, cv, spos[key], t, window=slot.window,
                 use_pallas=use_pallas)
-            if slot.ffn == "mlp":
-                x = mlp.apply(pslice[ffn_key(i, slot)], x, cfg,
-                              use_pallas=use_pallas)
+            x = _apply_ffn(pslice, x, cfg, i, slot, use_pallas, dropless=True)
     x = common.rms_norm(x, top["final_norm"], cfg.norm_eps)
     return _head_logits(top, x, cfg, use_pallas)[:, 0], caches
 
@@ -384,9 +396,7 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
             C = cache_len(slot, S)
             per_layer[key]["k"].append(_roll_into_cache(k, C).to(cache_dtype))
             per_layer[key]["v"].append(_roll_into_cache(v, C).to(cache_dtype))
-            if slot.ffn == "mlp":
-                x = mlp.apply(pslice[ffn_key(i, slot)], x, cfg,
-                              use_pallas=use_pallas)
+            x = _apply_ffn(pslice, x, cfg, i, slot, use_pallas)
     caches = {key: {n: torch.stack(c[n]) for n in ("k", "v")}
               for key, c in per_layer.items()}
     x = common.rms_norm(x[:, -1:], top["final_norm"], cfg.norm_eps)

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``
 or ``chip_smoke.py``, and its entry points refuse to run quietly on the CPU.
 """
+import dataclasses
 import os
 import re
 import subprocess
@@ -88,13 +89,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_archs_and_slots_raise():
-    with pytest.raises(KeyError, match="slice"):
-        get_config("gemma2-2b")
+    for arch in ("zamba2-7b", "mamba2-780m", "llama-3.2-vision-11b",
+                 "hubert-xlarge"):
+        with pytest.raises(KeyError, match="slice"):
+            get_config(arch)
     with pytest.raises(KeyError, match="unknown"):
         get_config("nope")
-    moe = load_config("tiny", overrides=["model.num_experts=4"])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer.init_params(0, moe.model, device="cpu")
+    tiny = load_config("tiny").model
+    for slot in (dataclasses.replace(tiny, layer_pattern=("mamba",)),
+                 dataclasses.replace(tiny, shared_attn_weights=True),
+                 dataclasses.replace(tiny, cross_attn_every=1)):
+        with pytest.raises(NotImplementedError, match="mamba, cross"):
+            transformer.init_params(0, slot, device="cpu")
+    # MoE slots are ported: tiny with experts has an s0_moe block
+    moe = load_config("tiny", overrides=["model.num_experts=4",
+                                         "model.experts_per_token=2"])
+    params = transformer.init_params(0, moe.model, device="cpu")
+    assert params["blocks"]["s0_moe"]["we_gate"].ndim == 4
     # the float32 container under the registry's defaults (SR from
     # jax.random noise, no use_pallas) is ported: it quantizes with the
     # step key, and asks for it when only the fused kernels' seeds come
@@ -107,6 +118,35 @@ def test_unported_archs_and_slots_raise():
     q = controller.quantize_params(params, state, cfg.quant,
                                    key=controller.step_key(0, 0))
     assert set(q) == set(params)
+
+
+def test_moe_module_imports_without_jax():
+    code = ("import sys\n"
+            "import repro_torch.models.moe, repro_torch.configs.gemma2_2b, "
+            "repro_torch.configs.mixtral_8x22b, "
+            "repro_torch.configs.arctic_480b\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('repro', 'jax', 'jaxlib') or m.startswith('jax'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "arctic-480b"])
+def test_moe_init_params_raise_without_cuda(monkeypatch, arch):
+    from repro_torch.configs import get_smoke_config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = get_smoke_config(arch).model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(0, m)
+    p = transformer.init_params(0, m, device="cpu")
+    blk = p["blocks"]["s0_moe"]
+    assert blk["we_up"].shape == (m.num_layers, m.num_experts, m.d_model,
+                                  m.d_ff)
+    assert blk["router"].device.type == "cpu"
+    assert ("dense" in blk) == bool(m.dense_residual_d_ff)
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
