@@ -362,6 +362,11 @@ PROLOGUE_PER_STEP = {**FLASH_STEP, "fxp_qmatmul": DENSE_CALLS,
 # quant.use_pallas, so the QuantConfig defaults stand (float32 container,
 # SR with jax.random noise, no hand-written kernel).
 DEFAULT_OVERRIDES = [o for o in FLOAT_OVERRIDES if o != "quant.use_pallas=true"]
+# Phase 15 compares card and CPU at depth 2 with the vocabulary cut to
+# 8192: the CPU's threefry noise over the full embedding and head (788 M
+# of the 940 M quantized elements) took most of the phase's 84 s.
+DEFAULT_DEPTH2_CUTS = ["model.num_layers=2", "model.vocab_size=8192",
+                       "train.global_batch=2", "train.seq_len=64"]
 DEFAULT_STEPS = 4
 # The ops path of phase 14: one launch of sr_quantize per layer of the
 # (28, 3072, 8192) leaf below, one kl_hist of it, int8_matmul forward and
@@ -461,6 +466,15 @@ MIXTRAL, ARCTIC = "mixtral-8x22b", "arctic-480b"
 MIXTRAL_SERVE_LAYERS, MIXTRAL_TRAIN_LAYERS = 2, 1
 MIXTRAL_STEPS = 2                      # the second ends in a switch
 ARCTIC_CUTS = ["model.num_layers=1", "model.num_experts=16"]
+# Phase 24: the SSM family at full width. mamba2-780m at full depth (48
+# layers, 0.857 G params); zamba2-7b served at full depth (27 periods of
+# two mamba layers and the shared attention + MLP block, 4.645 G params)
+# and trained at 9 of its 27 periods (1.84 G params: a full-depth step
+# holds ~19 GB of f32 master, as much of f32 gradients and ~9 GB of
+# grad_sum and the quantized copy before any activation).
+MAMBA, ZAMBA = "mamba2-780m", "zamba2-7b"
+SSM_SR_STEPS = 2                       # the second ends in a switch
+ZAMBA_TRAIN_PERIODS = 9
 # PyTorch ops that would run a library GEMM: none may appear in a step.
 LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
                  "aten::matmul", "aten::linear", "aten::einsum"}
@@ -1907,15 +1921,44 @@ def check_edf_ladder(torch, el, gen):
 # Phases 4 and 5
 
 
+def plan_counts(m):
+    """What one forward of ``m`` runs and quantizes, from its layer plan:
+    (``fxp_matmul`` calls of a packed forward under ``quant.use_pallas``,
+    attention layers, stacked quantized leaves, flat ones). A layer's four
+    attention projections (zamba2's shared block's in every period), a
+    mamba layer's in_proj and out_proj, a gated MLP's three, an MoE
+    layer's dense residual's three (arctic; the experts are library
+    products over dequantized words), and the head unless it is tied (a
+    library product over the dequantized embedding). The stacked leaves:
+    a slot's attention projections, its MLP's or its MoE layer's expert
+    stacks and residual, a mamba slot's in_proj, conv_w and out_proj; the
+    flat ones: the embedding, the head, a mamba slot's d_skip (one
+    ⟨WL,FL⟩ per tensor) and every leaf of the shared block. The router,
+    the norms and the SSM dynamics are not quantized."""
+    from repro_torch.models import transformer
+    plan, periods = transformer.build_plan(m)
+    dense = attn = stacked = 0
+    flat = 1 + int(not m.tie_embeddings)
+    for slot in plan:
+        if slot.kind == "mamba":
+            dense, stacked, flat = dense + 2 * periods, stacked + 3, flat + 1
+            continue
+        ffn = {"mlp": 3, "moe": 3 if m.dense_residual_d_ff else 0,
+               "none": 0}[slot.ffn]
+        leaves = 4 + {"mlp": 3, "moe": 3 + ffn, "none": 0}[slot.ffn]
+        attn += periods
+        dense += (4 + ffn) * periods
+        if slot.shared:
+            flat += leaves
+        else:
+            stacked += leaves
+    return dense + int(not m.tie_embeddings), attn, stacked, flat
+
+
 def fxp_per_forward(m):
-    """``fxp_matmul`` calls of one packed forward under ``quant.use_pallas``:
-    a layer's four attention projections, its gated MLP's three (an MoE
-    layer has none: its experts are library products over dequantized
-    words) and a dense residual's three (arctic), and the head unless it
-    is tied (a library product over the dequantized embedding)."""
-    per_layer = 4 + (0 if m.num_experts else 3) + (
-        3 if m.dense_residual_d_ff else 0)
-    return per_layer * m.num_layers + (0 if m.tie_embeddings else 1)
+    """``fxp_matmul`` calls of one packed forward under ``quant.use_pallas``
+    (``plan_counts``)."""
+    return plan_counts(m)[0]
 
 
 def instrument(eng, torch, fm, fa, record):
@@ -1955,7 +1998,7 @@ def engine_run(torch, fm, fa, eng, prompts, tag, packed=True):
     finite and not constant; then the same run warm. Returns (record,
     tokens, logits) of the first run."""
     m = eng.cfg.model
-    L = m.num_layers
+    L = plan_counts(m)[1]                 # attention layers
     per_fwd = fxp_per_forward(m) if packed else 0
     head = int(packed and not m.tie_embeddings)   # the head's GEMV call
     record = []
@@ -1969,7 +2012,7 @@ def engine_run(torch, fm, fa, eng, prompts, tag, packed=True):
     launches = {k: w.launches for k, w in ws.items() if w.launches}
     gemv = head + per_fwd * (NEW - 1) if packed else 0
     check_tensor_cores(tag, launches, gemv=gemv)
-    want = {"flash_attention": L,
+    want = {**({"flash_attention": L} if L else {}),
             **({"fxp_matmul": per_fwd * NEW} if packed else {})}
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches} != {want}")
@@ -3274,10 +3317,12 @@ def default_quantizer_path(torch):
 
 
 def default_card_vs_cpu(torch):
-    """Phase 14's configuration at depth 2: one step from the same state on
-    the card and on the CPU; the quantized copy each step read (captured
-    from ``train_loop._quantized_copy``) bit-equal, since threefry is
-    integer arithmetic and the quantize exact-rounded f32; the step within
+    """Phase 14's configuration at depth 2, full-width layers and a
+    vocabulary of 8192 (``DEFAULT_DEPTH2_CUTS``): one step from the same
+    state on the card and on the CPU; the quantized copy each step read
+    (captured from ``train_loop._quantized_copy``) bit-equal, since
+    threefry is integer arithmetic and the quantize exact-rounded f32;
+    the step within
     the slice-2 bounds; then, after a second step on the card (every window
     of two closes), the same state through ``precision_switch`` on both:
     identical. The plain attention of this path takes its AV product in
@@ -3285,6 +3330,7 @@ def default_card_vs_cpu(torch):
     reference's choice by backend); the slice-2 bounds hold two sides that
     round alike and sum in other orders, so for this step the CPU takes the
     card's bf16 AV product."""
+    from repro_torch.config import load_config
     from repro_torch.core import controller
     from repro_torch.models import attention
     from repro_torch.train import train_loop
@@ -3299,8 +3345,11 @@ def default_card_vs_cpu(torch):
     train_loop._quantized_copy = capture
     attention.av_dtype = lambda v: v.dtype
     try:
-        gpu, _, cfg, r = step_card_vs_cpu(torch, "default", DEFAULT_OVERRIDES,
-                                          SEED + 31, ("final_norm", "head"))
+        gpu, _, cfg, r = step_card_vs_cpu(
+            torch, "default", DEFAULT_OVERRIDES, SEED + 31,
+            ("final_norm", "head"), cfg=load_config(
+                "llama3.2-3b", overrides=DEFAULT_OVERRIDES
+                + DEFAULT_DEPTH2_CUTS))
     finally:
         train_loop._quantized_copy = inner
         attention.av_dtype = av_dtype
@@ -5085,23 +5134,12 @@ def chunked_plain(torch, x, seed, rnd, out, chunk=1 << 26):
     return start.elapsed_time(end)
 
 
-def stacked_leaves(m):
-    """(stacked, flat) quantized leaves of ``m``: per slot of its period the
-    four attention projections and the MLP's three or the MoE layer's
-    expert stacks (three) and dense residual (three); the embedding, and
-    the head unless it is tied. The router and the norms are excluded."""
-    from repro_torch.models import transformer
-    plan, _ = transformer.build_plan(m)
-    per_slot = 4 + 3 + (3 if m.dense_residual_d_ff else 0)
-    return per_slot * len(plan), 1 + int(not m.tie_embeddings)
-
-
 def packed_per_step(m):
     """Exact launches of one packed SR step of ``m`` (no remat, no
     accumulation): each dense call forward and twice backward, one flash
-    forward, dq and dkv a layer, the SR words of every quantized leaf."""
-    dense, L = fxp_per_forward(m), m.num_layers
-    stacked, flat = stacked_leaves(m)
+    forward, dq and dkv an attention layer, the SR words of every
+    quantized leaf."""
+    dense, L, stacked, flat = plan_counts(m)
     return {**ZERO, "fxp_matmul": dense, "matmul_dx": dense,
             "matmul_dw": dense, "flash_attention": L,
             "flash_attention_dq": L, "flash_attention_dkv": L,
@@ -5583,6 +5621,228 @@ def moe_card_vs_cpu(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the SSM family (mamba2-780m, zamba2-7b)
+
+
+def qmatmul_rows_at(torch, fm, gen, arch, layers, m, rows):
+    """``fxp_qmatmul`` and ``matmul_qdx`` (SR, bf16 x and dy: the tensor
+    cores) at each (K, N) of ``layers`` with M = ``m``, against their plain
+    versions with ``check_qmatmul``'s tolerance, timed beside
+    ``torch.matmul`` of the dequantized words, with the bound."""
+    from repro_torch.kernels import ops
+    dev, bf = "cuda", torch.bfloat16
+    f = 10
+    fl = torch.tensor(f, dtype=torch.int32, device=dev)
+    for k, n in layers:
+        x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+        dy = torch.randn(m, n, generator=gen, device=dev).to(bf)
+        w = torch.randn(k, n, generator=gen, device=dev) * 0.02
+        seed = -(m * 7 + k)
+        words = (ops.qdense_words(w, seed, fl, 1).to(bf)
+                 * torch.tensor(2.0 ** -f, dtype=bf, device=dev))
+        for name, kern, plain, a, lib, nbytes in (
+                ("fxp_qmatmul", fm.fxp_qmatmul, fm.plain_q, x,
+                 lambda: torch.matmul(x, words),
+                 2 * m * k + 4 * k * n + 2 * m * n),
+                ("matmul_qdx", fm.matmul_qdx, fm.plain_qdx, dy,
+                 lambda: torch.matmul(dy, words.T),
+                 2 * m * n + 4 * k * n + 2 * m * k)):
+            t0 = kern.tc_launches
+            got = kern(a, w, seed, fl, 1)
+            ok, err = close_bf16(got, plain(a, w, seed, fl, 1), 2.0 ** -16)
+            if not ok or kern.tc_launches != t0 + 1:
+                raise AssertionError(f"{name} {arch} ({m},{k},{n}): max err "
+                                     f"{err}")
+            row = {"arch": arch, "m": m, "k": k, "n": n, "max_abs_err": err,
+                   "ms": cuda_time_ms([lambda: kern(a, w, seed, fl, 1)], 5),
+                   "plain_ms": cuda_time_ms([lambda: plain(a, w, seed, fl,
+                                                           1)], 2),
+                   "library_ms": cuda_time_ms([lib], 5),
+                   "repeats_bit_equal": bit_stable(
+                       torch, lambda: kern(a, w, seed, fl, 1), 10,
+                       f"{name} {arch} ({m},{k},{n})")}
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * m * k * n)
+            rows[name].append(row)
+            log(f"[{arch}] {name} {m}x{k}x{n}: {fmt_row(row)}")
+        del x, dy, w, words
+    torch.cuda.empty_cache()
+
+
+def ssm_dense_shapes(m):
+    """(K, N) of a mamba layer's in_proj (N = 2·d_inner + 2·state + heads,
+    not a multiple of 128) and out_proj, and of the head."""
+    di = m.ssm_expand * m.d_model
+    heads = di // m.ssm_head_dim
+    return [(m.d_model, 2 * di + 2 * m.ssm_state + heads), (di, m.d_model),
+            (m.d_model, m.vocab_size)]
+
+
+def ssm_shapes(torch, fm, fa, gen):
+    """Phase 24's kernel shapes, each against its plain version:
+    ``fxp_matmul`` at mamba2-780m's in_proj (N = 6448), out_proj and head
+    (V = 50280, whose word rows are not 16-byte aligned) and zamba2-7b's
+    (N = 14576, V = 32000) at M = 4 (the GEMV, repeated for equal bits),
+    512 and 2048 (the tensor cores), with ``matmul_dx``/``_dw`` at 2048;
+    zamba2's shared attention and MLP (K = 3584 and 14336) at M = 4 and
+    512; ``fxp_qmatmul``/``matmul_qdx`` at mamba2's training shapes; the
+    flash forward at zamba2's head dim 112 (32/32 heads) at the prefill
+    (4 x 128) and training (4 x 512) shapes, and dq/dkv at training on
+    the tensor cores."""
+    from repro_torch.config import load_config
+    rows = {k: [] for k in ("fxp_matmul", "matmul_bwd", "flash_attention",
+                            "flash_backward", "fxp_qmatmul", "matmul_qdx")}
+    ms = (BATCH, BATCH * PROMPT, TRAIN_M)
+    mm = load_config(MAMBA).model
+    fxp_rows_at(torch, fm, gen, MAMBA, ssm_dense_shapes(mm), ms, rows,
+                train_m=TRAIN_M)
+    qmatmul_rows_at(torch, fm, gen, MAMBA, ssm_dense_shapes(mm), TRAIN_M,
+                    rows)
+    zm = load_config(ZAMBA).model
+    assert zm.resolved_head_dim == 112, zm
+    flash_rows_at(torch, fa, gen, ZAMBA, zm, (
+        ("prefill", BATCH, PROMPT), ("train", TRAIN_B, TRAIN_S)), rows,
+        bwd_case="train")
+    fxp_rows_at(torch, fm, gen, ZAMBA, ssm_dense_shapes(zm), ms, rows,
+                train_m=TRAIN_M)
+    d = zm.d_model
+    fxp_rows_at(torch, fm, gen, ZAMBA, [(d, d), (d, zm.d_ff), (zm.d_ff, d)],
+                ms[:2], rows)
+    return rows
+
+
+def ssm_serving(torch, fm, fa, cfg, tag, seed):
+    """``cfg``'s model at its full width and depth, served: the ``Engine``
+    on 4 x 128 prompts, 32 new tokens (phase 4's exact launches), then the
+    batcher with its three levels on a burst of 16 requests over 4 slots
+    (every slot serves several: a reused slot starts from zeroed caches),
+    replays bit-equal to the eager decode and timed; the peak memory."""
+    from repro_torch.core import controller
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import serving_adapt_state
+    m = cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED, m, device="cuda")
+    state = serving_adapt_state(controller.init_adapt_state(params, cfg.quant))
+    torch.cuda.synchronize()
+    res = {"params": params_count(params), "init_s": time.perf_counter() - t0}
+    res["engine"] = family_engine(torch, fm, fa, cfg, params, state,
+                                  f"{tag} engine")
+    res["serving_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["batcher"], cb = serve_burst(torch, cfg, params, state,
+                                     f"{tag} batcher", seed,
+                                     check_replay=True, plen=(8, 25),
+                                     new=(4, 13))
+    if res["batcher"]["requests"] <= CB_SLOTS:
+        raise AssertionError(f"{tag} batcher: no slot was reused")
+    res["batcher"].update(replay_times(torch, cb, fxp_per_forward(m),
+                                       f"{tag} batcher"))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] {res['params'] / 1e9:.3f} G params; peak serving "
+        f"{res['serving_peak_gib']:.2f} GiB, with the batcher's three levels "
+        f"{res['peak_gib']:.2f} GiB")
+    del cb, params, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssm_sr_train(torch, cfg, tag):
+    """``SSM_SR_STEPS`` packed SR steps of 4 x 512 through a switch, exact
+    launches (``packed_per_step``). Returns (state, record)."""
+    from repro_torch.train import train_loop
+    per_step, per_switch = packed_per_step(cfg.model)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_loop.init_state(cfg, device="cuda")
+    n = params_count(state["params"])
+    state, steps, launches, peak = run_steps(torch, tag, cfg, state,
+                                             SSM_SR_STEPS, per_step,
+                                             per_switch)
+    log(f"[{tag}] {n / 1e9:.3f} G params; peak {peak:.2f} GiB")
+    return state, {"params": n, "steps": steps, "launches": launches,
+                   "peak_gib": peak}
+
+
+def mamba2_path(torch, fm, fa):
+    """Phase 24, mamba2-780m at full width and depth (0.857 G params): the
+    ``Engine`` and the batcher (``ssm_serving``); 2 packed SR steps of 4 x
+    512 (two chunks of 256 a sequence) through a switch; from that state
+    one step through the quantize prologue with exact launches; the
+    registry's config with only the batch cut (8 microbatches of 1 x 512,
+    remat full, the QuantConfig defaults: no kernel)."""
+    from repro_torch.config import load_config
+    from repro_torch.train import train_loop
+    cfg = load_config(MAMBA, overrides=OVERRIDES)
+    m = cfg.model
+    assert (m.num_layers, m.d_model, m.ssm_expand, m.ssm_head_dim,
+            m.ssm_state, m.ssm_chunk, m.vocab_size) == (
+        48, 1536, 2, 64, 128, 256, 50280), m
+    res = ssm_serving(torch, fm, fa, cfg, "mamba2", SEED + 17)
+    cfg = load_config(MAMBA, overrides=SR_OVERRIDES)
+    state, res["sr_train"] = ssm_sr_train(torch, cfg, "mamba2 SR")
+    # the prologue: in_proj, out_proj and the head draw their words in the
+    # dense kernels; conv_w keeps its stacked SR words, the embedding and
+    # d_skip their flat ones, and the regularizer draws each dense
+    # layer-slice's view through the flat kernel, forward and backward
+    pcfg = load_config(MAMBA, overrides=PROLOGUE_OVERRIDES)
+    dense = fxp_per_forward(m)
+    want = {**ZERO, "fxp_qmatmul": dense, "matmul_qdx": dense,
+            "matmul_dw": dense, "sr_quantize_fused_stacked_int8": 1,
+            "sr_quantize_fused_int8": 2 + 2 * dense}
+    batch = train_loop.make_batch(pcfg, SSM_SR_STEPS, device="cuda")
+    state, _, res["prologue"] = counted_step(
+        torch, "mamba2 prologue", pcfg, state, batch, SSM_SR_STEPS, want)
+    del state, batch
+    torch.cuda.empty_cache()
+    res["registry"] = registry_path(torch, MAMBA)
+    return res
+
+
+def zamba2_path(torch, fm, fa):
+    """Phase 24, zamba2-7b at full width: served at full depth (4.645 G
+    params: ``ssm_serving``, the shared block's flash forward at head dim
+    112 in every period of the prefill), then trained at 9 of its 27
+    periods (1.84 G params), 2 packed SR steps of 4 x 512 through a switch
+    (flash dq/dkv at D = 112 on the tensor cores, the shared block's
+    per-tensor SR words and its gradient summed over the periods)."""
+    from repro_torch.config import load_config
+    cfg = load_config(ZAMBA, overrides=OVERRIDES)
+    m = cfg.model
+    assert (m.num_layers, m.d_model, m.num_heads, m.num_kv_heads,
+            m.resolved_head_dim, m.d_ff, m.ssm_state, m.vocab_size,
+            m.shared_attn_weights) == (81, 3584, 32, 32, 112, 14336, 64,
+                                        32000, True), m
+    res = ssm_serving(torch, fm, fa, cfg, "zamba2", SEED + 18)
+    cfg = load_config(ZAMBA, overrides=SR_OVERRIDES + [
+        f"model.num_layers={3 * ZAMBA_TRAIN_PERIODS}"])
+    state, res["sr_train"] = ssm_sr_train(torch, cfg, "zamba2 SR")
+    res["sr_train"]["cut"] = f"{ZAMBA_TRAIN_PERIODS} of 27 periods"
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssm_card_vs_cpu(torch):
+    """Both smoke configs (chunk 8), card against CPU: phase 5's drive of
+    the ``Engine`` (a 32-token prefill of four chunks and 4 decode steps;
+    logits within 2^-5 of the largest, greedy tokens equal past the
+    margin) and one packed step of 2 x 64 from the same state within the
+    CPU tests' bounds (loss 2e-3, every update 2e-2 normwise)."""
+    from repro_torch.config import apply_overrides
+    from repro_torch.configs import get_smoke_config
+    res = {}
+    for arch in (MAMBA, ZAMBA):
+        cfg = apply_overrides(get_smoke_config(arch), OVERRIDES)
+        r = res[arch] = {"serving": card_vs_cpu(torch, cfg=cfg,
+                                                tag=f"{arch} smoke")}
+        step_cfg = apply_overrides(get_smoke_config(arch), TRAIN_OVERRIDES + [
+            "train.global_batch=2", "train.seq_len=64"])
+        gpu, _, _, r["step"] = step_card_vs_cpu(
+            torch, f"{arch} smoke", TRAIN_OVERRIDES, SEED, (), cfg=step_cfg)
+        del gpu
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5742,6 +6002,16 @@ def main() -> int:
     moe_depth2 = moe_card_vs_cpu(torch)
     mark("23 moe smoke vs CPU")
 
+    # 24. the SSM family: mamba2-780m and zamba2-7b; smoke configs vs CPU
+    ssm_rows = ssm_shapes(torch, fm, fa, gen)
+    mark("24 ssm shapes")
+    mamba_res = mamba2_path(torch, fm, fa)
+    mark("24 mamba2-780m")
+    zamba_res = zamba2_path(torch, fm, fa)
+    mark("24 zamba2-7b")
+    ssm_depth2 = ssm_card_vs_cpu(torch)
+    mark("24 ssm smoke vs CPU")
+
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
             prologue_res["launches"], default_res["launches"],
@@ -5767,10 +6037,16 @@ def main() -> int:
                 mixtral_serve["batcher"]["launches_at_construction"],
                 mixtral_train["launches"], arctic_res["engine"]["launches"],
                 arctic_res["registry"]["launches"]]
+    slice_17 = [*(r[k]["launches"] for r in (mamba_res, zamba_res)
+                  for k in ("engine", "sr_train")),
+                *(r["batcher"]["launches_at_construction"]
+                  for r in (mamba_res, zamba_res)),
+                mamba_res["prologue"]["launches"],
+                mamba_res["registry"]["launches"]]
     kernels = kernel_record(runs, later, fxp_rows, fxp_err, flash_rows,
                             flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err,
                             sr_rows, edf_rows, grid_rows, q_rows, q_err,
-                            ops_rows, cnn_res, family, slice_16)
+                            ops_rows, cnn_res, family, slice_16, slice_17)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5794,7 +6070,10 @@ def main() -> int:
         "gemma2": gemma_res, "gemma2_smoke_vs_cpu": gemma_depth2,
         "moe_shapes": moe_rows, "mixtral_serving": mixtral_serve,
         "mixtral_training": mixtral_train, "arctic": arctic_res,
-        "moe_smoke_vs_cpu": moe_depth2, "kernels": kernels, "phase_seconds": marks, "check_seconds": check_s,
+        "moe_smoke_vs_cpu": moe_depth2, "ssm_shapes": ssm_rows,
+        "mamba2": mamba_res, "zamba2": zamba_res,
+        "ssm_smoke_vs_cpu": ssm_depth2, "kernels": kernels,
+        "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -5807,7 +6086,7 @@ def main() -> int:
 def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                   bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows,
                   grid_rows, q_rows, q_err, ops_rows, cnn_res, family,
-                  slice_16):
+                  slice_16, slice_17):
     """One entry per kernel. ``launches`` sums the counts of the main
     paths' runs of phases 4-14 (``runs``); ``launches_16_18`` those of the
     counted runs of phases 16-18 (``later``: remat, accumulation at
@@ -5850,7 +6129,11 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     gemma2-2b's, mixtral-8x22b's and arctic-480b's ``Engine`` runs, the
     batchers' warm-up decodes, gemma2's and mixtral's SR steps, arctic's
     registry config), whose per-shape times are ``gemma2_shapes``'s and
-    ``moe_shapes``'s rows in the JSON file."""
+    ``moe_shapes``'s rows in the JSON file. ``launches_24`` counts those
+    of phase 24 (``slice_17``: mamba2-780m's and zamba2-7b's ``Engine``
+    runs, SR steps and batchers' warm-up decodes, mamba2's prologue step
+    and registry config), whose per-shape times are ``ssm_shapes``'s rows
+    in the JSON file."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     device_keys = ("device_ms", "library_device_ms")
 
@@ -5908,6 +6191,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     launches_family = {k: sum(run.get(k, 0) for run in family)
                        for k in KERNELS}
     launches_slice_16 = {k: sum(run.get(k, 0) for run in slice_16)
+                         for k in KERNELS}
+    launches_slice_17 = {k: sum(run.get(k, 0) for run in slice_17)
                          for k in KERNELS}
     # SR int8: 4 SR steps, 2 int8-container steps; path B's embedding
     int8_steps = SR_STEPS + OTHER_STEPS
@@ -5971,7 +6256,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                 "launches_16_18": launches_later[name],
                 "launches_19": cnn_res["launches"][name],
                 "launches_20_21": launches_family[name],
-                "launches_22_23": launches_slice_16[name], "max_abs_err": err,
+                "launches_22_23": launches_slice_16[name],
+                "launches_24": launches_slice_17[name], "max_abs_err": err,
                 **times, **({"cnn_19": cnn_19[name]} if name in cnn_19
                             else {})}
 

@@ -18,6 +18,8 @@ _MODULES = {
     "smollm-360m": "smollm_360m",
     "mixtral-8x22b": "mixtral_8x22b",
     "arctic-480b": "arctic_480b",
+    "zamba2-7b": "zamba2_7b",
+    "mamba2-780m": "mamba2_780m",
     "alexnet": "alexnet",
     "resnet20": "resnet20",
     "tiny": "tiny",
@@ -26,8 +28,6 @@ _MODULES = {
 # Architectures the reference package registers that the port does not
 # serve yet, with the slice of the port that brings each one.
 _LATER = {
-    "zamba2-7b": "the SSM/hybrid slice",
-    "mamba2-780m": "the SSM/hybrid slice",
     "llama-3.2-vision-11b": "the VLM slice",
     "hubert-xlarge": "the audio-encoder slice",
 }

@@ -1,5 +1,5 @@
-"""Dense LM stack (counterpart of ``repro/models/transformer.py``, dense
-attention+MLP family).
+"""LM stack (counterpart of ``repro/models/transformer.py``): attention,
+mamba2 and zamba2's shared attention slots, each with its MLP or MoE FFN.
 
 The layer plan is periodic: parameters are stacked as (num_periods, ...)
 per slot of the period, and where the reference ``lax.scan``s over periods
@@ -11,12 +11,17 @@ would write a zero tensor of the whole stack per layer.
 Params layout (stacked leaves carry the leading num_periods dim):
 
     {"embed": (V, D),
-     "blocks": {"s{i}_attn": {...}, "s{i}_mlp"|"s{i}_moe": {...}},
+     "blocks": {"s{i}_attn"|"s{i}_mamba": {...},
+                "s{i}_mlp"|"s{i}_moe": {...}},
+     "shared": {"attn": {...}, "mlp": {...}}?,  # zamba2: one unstacked
+                                        # block that every period uses
      "final_norm": (D,),
      "head": (D, V)?}                  # absent when tie_embeddings
 
-Slots of kind mamba/cross and shared attention weights raise
-NotImplementedError: they come with later slices of the port.
+The controller sees "blocks/..." paths as stacked (per-layer precision)
+and "shared/..." as per-tensor, so a shared leaf's gradient is the sum of
+its uses. Cross-attention slots and encoders raise NotImplementedError:
+they come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core.controller import unbind_layers
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mlp, moe
+from repro_torch.models import attention, common, mlp, moe, ssm
 
 
 # ---------------------------------------------------------------------------
@@ -97,12 +102,10 @@ def ffn_key(i: int, slot: Slot) -> str:
 def _ported_plan(cfg: ModelConfig):
     plan, np_ = build_plan(cfg)
     for slot in plan:
-        if slot.kind != "attn" or slot.shared:
+        if slot.kind == "cross":
             raise NotImplementedError(
-                f"slot {slot} (kind={slot.kind}, ffn={slot.ffn}, "
-                f"shared={slot.shared}) is not ported yet: mamba, cross "
-                "and shared-attention slots come with later slices "
-                "(ROADMAP.md, Queue 1)")
+                f"slot {slot} is not ported yet: cross-attention slots come "
+                "with the VLM slice (ROADMAP.md, Queue 1)")
     return plan, np_
 
 
@@ -126,9 +129,20 @@ def init_params(key: int, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
     params["embed"] = common.init_embed(gen, cfg.vocab_size, cfg.d_model,
                                         device=dev)
     for i, slot in enumerate(plan):
-        params["blocks"][slot_key(i, slot)] = attention.init_layer(
-            gen, cfg, np_, device=dev)
-        if slot.ffn == "mlp":
+        if slot.shared:
+            if "shared" not in params:
+                params["shared"] = {"attn": attention.init_layer(
+                    gen, cfg, 0, device=dev)}
+                if slot.ffn == "mlp":
+                    params["shared"]["mlp"] = mlp.init_layer(gen, cfg, 0,
+                                                             device=dev)
+        elif slot.kind == "mamba":
+            params["blocks"][slot_key(i, slot)] = ssm.init_layer(
+                gen, cfg, np_, device=dev)
+        else:
+            params["blocks"][slot_key(i, slot)] = attention.init_layer(
+                gen, cfg, np_, device=dev)
+        if slot.ffn == "mlp" and not slot.shared:
             params["blocks"][ffn_key(i, slot)] = mlp.init_layer(
                 gen, cfg, np_, device=dev)
         elif slot.ffn == "moe":
@@ -171,10 +185,22 @@ def _embed(top, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                                scale_by_dim=cfg.scale_embed).to(torch.bfloat16)
 
 
-def _apply_ffn(pslice, x, cfg: ModelConfig, i: int, slot: Slot,
+def _attn_params(top, pslice, i: int, slot: Slot):
+    """An attention slot's params: its slice of the stack, or the shared
+    block's (``transformer.py:164-167``)."""
+    return top["shared"]["attn"] if slot.shared else pslice[slot_key(i, slot)]
+
+
+def _apply_ffn(top, pslice, x, cfg: ModelConfig, i: int, slot: Slot,
                use_pallas: bool, dropless: bool = False) -> torch.Tensor:
-    """The slot's FFN (``transformer.py:170-179``): the gated MLP, or the
-    MoE layer, dropless only in the decode step, as the reference's."""
+    """The slot's FFN (``transformer.py:170-179``): the gated MLP (the
+    shared block's on a shared slot), or the MoE layer, dropless only in
+    the decode step, as the reference's."""
+    if slot.ffn == "none":
+        return x
+    if slot.shared:     # the reference's: a shared slot runs no MoE layer
+        return (mlp.apply(top["shared"]["mlp"], x, cfg, use_pallas=use_pallas)
+                if "mlp" in top["shared"] else x)
     if slot.ffn == "mlp":
         return mlp.apply(pslice[ffn_key(i, slot)], x, cfg,
                          use_pallas=use_pallas)
@@ -261,10 +287,14 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
     def layer(x, pslice, awl):
         pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
-            x, _ = attention.attend_full(
-                pslice[slot_key(i, slot)], x, cfg, positions,
-                window=slot.window, causal=causal, use_pallas=use_pallas)
-            x = _apply_ffn(pslice, x, cfg, i, slot, use_pallas)
+            if slot.kind == "mamba":
+                x = ssm.apply(pslice[slot_key(i, slot)], x, cfg,
+                              use_pallas=use_pallas)
+            else:
+                x, _ = attention.attend_full(
+                    _attn_params(top, pslice, i, slot), x, cfg, positions,
+                    window=slot.window, causal=causal, use_pallas=use_pallas)
+            x = _apply_ffn(top, pslice, x, cfg, i, slot, use_pallas)
             x = _maybe_qact(x, awl, slot_key(i, slot))
         return x
 
@@ -308,6 +338,10 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     caches: Dict[str, Any] = {}
     for i, slot in enumerate(plan):
+        if slot.kind == "mamba":
+            caches[slot_key(i, slot)] = ssm.init_cache(cfg, batch, np_, dtype,
+                                                       device=dev)
+            continue
         C = cache_len(slot, context)
         caches[slot_key(i, slot)] = {
             "k": torch.zeros((np_, batch, C, hkv, dh), dtype=dtype, device=dev),
@@ -336,7 +370,8 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
     batch where the reference vmaps a single-row decode over the slots;
     nothing of this path reads back to the host, so it can be captured in
     a CUDA graph). Returns (logits (B, V) f32, caches). The caches are
-    updated in place (the reference returns new ones) and returned."""
+    updated in place (the reference returns new ones) and returned: an
+    attention slot's new k/v, a mamba slot's conv window and SSM state."""
     plan, _ = _ported_plan(cfg)
     if not isinstance(t, torch.Tensor):
         t = int(t)
@@ -345,16 +380,23 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
     # slot positions depend only on the slot's cache length and t: one
     # per slot, not one per layer
     spos = {key: _slot_positions(c["k"].shape[2], t, device=x.device)
-            for key, c in caches.items()}
+            for key, c in caches.items() if "k" in c}
     for l, (pslice,) in enumerate(unbind_layers(params["blocks"])):
         pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
             key = slot_key(i, slot)
-            ck, cv = caches[key]["k"][l], caches[key]["v"][l]
-            x, _ = attention.attend_decode(
-                pslice[key], x, cfg, ck, cv, spos[key], t, window=slot.window,
-                use_pallas=use_pallas)
-            x = _apply_ffn(pslice, x, cfg, i, slot, use_pallas, dropless=True)
+            if slot.kind == "mamba":
+                x, _ = ssm.apply_decode(
+                    pslice[key], x, cfg,
+                    {n: c[l] for n, c in caches[key].items()},
+                    use_pallas=use_pallas)
+            else:
+                ck, cv = caches[key]["k"][l], caches[key]["v"][l]
+                x, _ = attention.attend_decode(
+                    _attn_params(top, pslice, i, slot), x, cfg, ck, cv,
+                    spos[key], t, window=slot.window, use_pallas=use_pallas)
+            x = _apply_ffn(top, pslice, x, cfg, i, slot, use_pallas,
+                           dropless=True)
     x = common.rms_norm(x, top["final_norm"], cfg.norm_eps)
     return _head_logits(top, x, cfg, use_pallas)[:, 0], caches
 
@@ -378,26 +420,34 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
             use_pallas: bool = False, cache_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt, returning (last-position logits (B,V), caches
-    stacked (num_periods, B, C, Hkv, Dh) per slot)."""
+    stacked over the periods per slot: (num_periods, B, C, Hkv, Dh) k and v
+    for attention, the conv window in ``cache_dtype`` and the f32 SSM
+    state for mamba)."""
     plan, _ = _ported_plan(cfg)
     top = _top(params, use_pallas)
     x = _embed(top, tokens, cfg)
     B, S = tokens.shape
     positions = _positions(B, S, x.device)
-    per_layer = {slot_key(i, slot): {"k": [], "v": []}
-                 for i, slot in enumerate(plan)}
+    per_layer = {slot_key(i, slot): {} for i, slot in enumerate(plan)}
     for (pslice,) in unbind_layers(params["blocks"]):
         pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
             key = slot_key(i, slot)
-            x, (k, v) = attention.attend_full(
-                pslice[key], x, cfg, positions, window=slot.window,
-                use_pallas=use_pallas)
-            C = cache_len(slot, S)
-            per_layer[key]["k"].append(_roll_into_cache(k, C).to(cache_dtype))
-            per_layer[key]["v"].append(_roll_into_cache(v, C).to(cache_dtype))
-            x = _apply_ffn(pslice, x, cfg, i, slot, use_pallas)
-    caches = {key: {n: torch.stack(c[n]) for n in ("k", "v")}
+            if slot.kind == "mamba":
+                x, st = ssm.apply(pslice[key], x, cfg, return_state=True,
+                                  use_pallas=use_pallas)
+                st["conv"] = st["conv"].to(cache_dtype)
+            else:
+                x, (k, v) = attention.attend_full(
+                    _attn_params(top, pslice, i, slot), x, cfg, positions,
+                    window=slot.window, use_pallas=use_pallas)
+                C = cache_len(slot, S)
+                st = {"k": _roll_into_cache(k, C).to(cache_dtype),
+                      "v": _roll_into_cache(v, C).to(cache_dtype)}
+            for n, t in st.items():
+                per_layer[key].setdefault(n, []).append(t)
+            x = _apply_ffn(top, pslice, x, cfg, i, slot, use_pallas)
+    caches = {key: {n: torch.stack(ts) for n, ts in c.items()}
               for key, c in per_layer.items()}
     x = common.rms_norm(x[:, -1:], top["final_norm"], cfg.norm_eps)
     return _head_logits(top, x, cfg, use_pallas)[:, 0], caches
@@ -409,7 +459,9 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def act_wl_from_state(adapt_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Per-slot activation word length = the slot out-projection's WL
-    (paper: activations are quantized at the layer's precision)."""
+    (paper: activations are quantized at the layer's precision): ``wo`` of
+    an attention slot, ``out_proj`` of a mamba slot. A shared slot has
+    none, as in the reference."""
     out = {}
     for path, ts in adapt_state["tensors"].items():
         parts = path.split("/")

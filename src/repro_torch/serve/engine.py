@@ -177,9 +177,15 @@ def _merge_prefill_caches(full: Dict[str, Any], pref: Dict[str, Any],
                           prompt_len: int) -> Dict[str, Any]:
     """Embed prefill caches (sized to the prompt) into the generation-sized
     cache buffers (in place). Positions keep their slot = pos % C invariant
-    because the full cache length C' >= prompt length."""
+    because the full cache length C' >= prompt length. A mamba slot's
+    conv window and SSM state have the same shapes in both and are copied
+    whole."""
     for key, slot_cache in full.items():
         p = pref[key]
+        if "ssm" in slot_cache:
+            for n, dst in slot_cache.items():
+                dst.copy_(p[n])
+            continue
         dst_k = slot_cache["k"]
         C_dst, C_src = dst_k.shape[2], p["k"].shape[2]
         pos = torch.arange(prompt_len - C_src, prompt_len, device=dst_k.device)

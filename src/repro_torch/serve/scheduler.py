@@ -236,8 +236,8 @@ class ContinuousBatcher:
             self._graphs[wl] = graph
             self.decode_captures += 1
         for c in self.caches.values():
-            c["k"].zero_()
-            c["v"].zero_()
+            for t in c.values():
+                t.zero_()
         self._logits.zero_()
         torch.cuda.synchronize(self.device)
 
@@ -465,10 +465,12 @@ class ContinuousBatcher:
                                   pending=list(req.prompt))
 
     def _zero_rows(self, i: int) -> None:
-        """Zero slot ``i``'s rows of every cache, in place."""
+        """Zero slot ``i``'s rows of every leaf of every cache (an
+        attention slot's k/v, a mamba slot's conv window and SSM state), in
+        place."""
         for c in self.caches.values():
-            c["k"][:, i].zero_()
-            c["v"][:, i].zero_()
+            for t in c.values():
+                t[:, i].zero_()
 
     def _guarded_decode(self, tokens, positions):
         """Decode with fault-injection hooks and bounded in-step retry of

@@ -40,7 +40,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.core.threefry, repro_torch.train.checkpoint, "
             "repro_torch.train.metrics, repro_torch.train.fault_tolerance, "
             "repro_torch.serve.scheduler, repro_torch.serve.journal, "
-            "repro_torch.serve.faults, repro_torch.serve.policy\n"
+            "repro_torch.serve.faults, repro_torch.serve.policy, "
+            "repro_torch.models.ssm, repro_torch.configs.mamba2_780m, "
+            "repro_torch.configs.zamba2_7b\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax', 'jaxlib', 'msgpack') or m.startswith('jax'))\n"
             "assert not bad, bad\n")
@@ -89,18 +91,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_archs_and_slots_raise():
-    for arch in ("zamba2-7b", "mamba2-780m", "llama-3.2-vision-11b",
-                 "hubert-xlarge"):
+    for arch in ("llama-3.2-vision-11b", "hubert-xlarge"):
         with pytest.raises(KeyError, match="slice"):
             get_config(arch)
     with pytest.raises(KeyError, match="unknown"):
         get_config("nope")
     tiny = load_config("tiny").model
-    for slot in (dataclasses.replace(tiny, layer_pattern=("mamba",)),
-                 dataclasses.replace(tiny, shared_attn_weights=True),
-                 dataclasses.replace(tiny, cross_attn_every=1)):
-        with pytest.raises(NotImplementedError, match="mamba, cross"):
-            transformer.init_params(0, slot, device="cpu")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        transformer.init_params(0, dataclasses.replace(tiny,
+                                                       cross_attn_every=1),
+                                device="cpu")
+    # mamba and shared-attention slots are ported
+    p = transformer.init_params(0, dataclasses.replace(
+        tiny, layer_pattern=("mamba",), ssm_state=8, ssm_head_dim=16),
+        device="cpu")
+    assert p["blocks"]["s0_mamba"]["conv_w"].shape[:2] == (tiny.num_layers, 4)
+    p = transformer.init_params(0, dataclasses.replace(
+        tiny, shared_attn_weights=True), device="cpu")
+    assert p["blocks"] == {} and set(p["shared"]) == {"attn", "mlp"}
     # MoE slots are ported: tiny with experts has an s0_moe block
     moe = load_config("tiny", overrides=["model.num_experts=4",
                                          "model.experts_per_token=2"])
@@ -132,6 +140,20 @@ def test_moe_module_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
+def test_ssm_init_params_raise_without_cuda(monkeypatch, arch):
+    from repro_torch.configs import get_smoke_config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = get_smoke_config(arch).model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(0, m)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_caches(m, 1, 8)
+    caches = transformer.init_caches(m, 1, 8, device="cpu")
+    assert caches["s0_mamba"]["ssm"].dtype == torch.float32
+    assert caches["s0_mamba"]["conv"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "arctic-480b"])
