@@ -237,7 +237,26 @@ Phases (any failure exits non-zero; nothing is caught):
      remat full, a bf16 accumulator, the QuantConfig defaults), 2 steps,
      and ``Engine``; both smoke configs card against CPU (logits, chosen
      experts and every pair's slot, one packed step's updates and dropped
-     pairs).
+     pairs);
+ 24. the SSM family: mamba2-780m and zamba2-7b at full width (the dense
+     kernels at their ragged N and unaligned head rows, flash at D = 112),
+     served (``Engine``, batcher) and trained (mamba2 at full depth, zamba2
+     at 9 of 27 periods); smoke configs card against CPU;
+ 25. cross-attention and the audio encoder: the non-causal flash forward,
+     dq and dkv at hubert-xlarge's (4, 512, 16/16, 80) beside non-causal
+     SDPA; the f32 SIMT ``fxp_matmul`` and ``matmul_dw`` at the VLM's
+     memory projection (4096 x 4096 x 1024) beside f32 ``torch.matmul``;
+     ``fxp_matmul``, ``matmul_dx`` and ``matmul_dw`` at every dense layer
+     and head of both models at the training M = 2048 (hubert's head at
+     N = 504) and the VLM's GEMV shapes; llama-3.2-vision-11b
+     served at full depth (``Engine`` with a (4, 1024, 4096) f32 image
+     memory, exact launches by branch) and trained at 4 of its 8 periods
+     (3 packed SR steps of 4 x 512 with 1024 image tokens a row, through a
+     switch); hubert-xlarge trained at full depth (3 packed SR steps of 4 x
+     512 frames through a switch, then its registry config with only batch
+     and sequence cut); each peak; both smoke configs card against CPU
+     (the VLM's ``Engine`` and batcher, one packed SR step of each with
+     activation quantization on and one with it off).
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -261,6 +280,7 @@ SEED = 0
 # tensor-core rate (activations are bf16; int8 words are exact in bf16).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12                      # outside the tensor cores
 
 # Serving shapes of llama3.2-3b: (K, N) of each dense layer, launches per
 # layer, and the LM head.
@@ -362,10 +382,12 @@ PROLOGUE_PER_STEP = {**FLASH_STEP, "fxp_qmatmul": DENSE_CALLS,
 # quant.use_pallas, so the QuantConfig defaults stand (float32 container,
 # SR with jax.random noise, no hand-written kernel).
 DEFAULT_OVERRIDES = [o for o in FLOAT_OVERRIDES if o != "quant.use_pallas=true"]
-# Phase 15 compares card and CPU at depth 2 with the vocabulary cut to
-# 8192: the CPU's threefry noise over the full embedding and head (788 M
-# of the 940 M quantized elements) took most of the phase's 84 s.
-DEFAULT_DEPTH2_CUTS = ["model.num_layers=2", "model.vocab_size=8192",
+# Phases 7, 11, 15 and 16 compare card and CPU at depth 2 with the
+# vocabulary cut to 8192: over the full embedding and head (788 M of the
+# 940 M quantized elements at depth 2) the CPU's quantized copies, noise
+# and products took most of their 66, 54, 84 and 96 s.
+DEPTH2_VOCAB = "model.vocab_size=8192"
+DEFAULT_DEPTH2_CUTS = ["model.num_layers=2", DEPTH2_VOCAB,
                        "train.global_batch=2", "train.seq_len=64"]
 DEFAULT_STEPS = 4
 # The ops path of phase 14: one launch of sr_quantize per layer of the
@@ -475,6 +497,16 @@ ARCTIC_CUTS = ["model.num_layers=1", "model.num_experts=16"]
 MAMBA, ZAMBA = "mamba2-780m", "zamba2-7b"
 SSM_SR_STEPS = 2                       # the second ends in a switch
 ZAMBA_TRAIN_PERIODS = 9
+# Phase 25: the last two registered architectures at full width.
+# llama-3.2-vision-11b (8 periods of four self-attention layers and a
+# cross slot over 1024 image tokens, 9.775 G params) serves at full depth
+# and trains at 4 of its 8 periods (5.41 G params, a packed step's peak
+# 62.14 GiB on the card; at full depth the f32 master and gradients alone
+# are ~73 GiB); hubert-xlarge (48 encoder layers, 1.261 G params) trains
+# at full depth.
+VLM, HUBERT = "llama-3.2-vision-11b", "hubert-xlarge"
+VLM_TRAIN_PERIODS = 4
+CROSS_SR_STEPS = 3                     # the second ends in a switch
 # PyTorch ops that would run a library GEMM: none may appear in a step.
 LIBRARY_GEMMS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
                  "aten::matmul", "aten::linear", "aten::einsum"}
@@ -556,8 +588,8 @@ def graph_time_ms(fns, reps: int) -> float:
     return ms
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -958,8 +990,9 @@ def check_matmul_bwd(torch, fm, gen):
     return rows, max_err
 
 
-def sdpa_flash_backward(torch, q, k, v, do):
-    """SDPA's backward on the inputs of a flash backward call, pinned to
+def sdpa_flash_backward(torch, q, k, v, do, causal=True):
+    """SDPA's backward on the inputs of a flash backward call (causal, or
+    not for an encoder's), pinned to
     PyTorch's flash-attention backend: (B, H, S, D) copies with the kv heads
     repeated beforehand, the forward run once, then two closures over the
     same inputs: ``autograd.grad`` through ``scaled_dot_product_attention``
@@ -974,20 +1007,20 @@ def sdpa_flash_backward(torch, q, k, v, do):
     dot = do.transpose(1, 2).contiguous()
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=causal)
 
     def launched():
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
     fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-        qt.detach(), kt.detach(), vt.detach(), 0.0, True)
+        qt.detach(), kt.detach(), vt.detach(), 0.0, causal)
     o, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
 
     def device():
         return torch.ops.aten._scaled_dot_product_flash_attention_backward(
             dot, qt.detach(), kt.detach(), vt.detach(), o, lse, cq, ck, mq, mk,
-            0.0, True, seed, offset)
+            0.0, causal, seed, offset)
 
     return launched, device
 
@@ -1924,15 +1957,18 @@ def check_edf_ladder(torch, el, gen):
 def plan_counts(m):
     """What one forward of ``m`` runs and quantizes, from its layer plan:
     (``fxp_matmul`` calls of a packed forward under ``quant.use_pallas``,
-    attention layers, stacked quantized leaves, flat ones). A layer's four
-    attention projections (zamba2's shared block's in every period), a
-    mamba layer's in_proj and out_proj, a gated MLP's three, an MoE
+    flash-attention layers, stacked quantized leaves, flat ones). A
+    layer's four attention projections (zamba2's shared block's in every
+    period; a cross slot's wq, its wk and wv on the image memory, its wo),
+    a mamba layer's in_proj and out_proj, a gated MLP's three, an MoE
     layer's dense residual's three (arctic; the experts are library
-    products over dequantized words), and the head unless it is tied (a
-    library product over the dequantized embedding). The stacked leaves:
-    a slot's attention projections, its MLP's or its MoE layer's expert
-    stacks and residual, a mamba slot's in_proj, conv_w and out_proj; the
-    flat ones: the embedding, the head, a mamba slot's d_skip (one
+    products over dequantized words), an encoder's in_proj, and the head
+    unless it is tied (a library product over the dequantized embedding).
+    A cross slot attends in the plain attention, as the reference's does
+    under ``use_pallas`` too. The stacked leaves: a slot's attention
+    projections, its MLP's or its MoE layer's expert stacks and residual,
+    a mamba slot's in_proj, conv_w and out_proj; the flat ones: the
+    embedding (an encoder's in_proj), the head, a mamba slot's d_skip (one
     ⟨WL,FL⟩ per tensor) and every leaf of the shared block. The router,
     the norms and the SSM dynamics are not quantized."""
     from repro_torch.models import transformer
@@ -1946,13 +1982,25 @@ def plan_counts(m):
         ffn = {"mlp": 3, "moe": 3 if m.dense_residual_d_ff else 0,
                "none": 0}[slot.ffn]
         leaves = 4 + {"mlp": 3, "moe": 3 + ffn, "none": 0}[slot.ffn]
-        attn += periods
+        attn += periods if slot.kind == "attn" else 0
         dense += (4 + ffn) * periods
         if slot.shared:
             flat += leaves
         else:
             stacked += leaves
-    return dense + int(not m.tie_embeddings), attn, stacked, flat
+    return (dense + int(not m.tie_embeddings) + int(m.is_encoder), attn,
+            stacked, flat)
+
+
+def memory_calls(m):
+    """``fxp_matmul`` calls of a packed forward on a VLM's f32 image memory
+    (each cross layer's wk and wv): the SIMT branch, as the decode step
+    reads them from its cache and calls neither. In training the memory
+    needs no gradient, so they run no ``matmul_dx``, and their f32
+    ``matmul_dw`` runs on the SIMT branch too."""
+    from repro_torch.models import transformer
+    plan, periods = transformer.build_plan(m)
+    return 2 * periods * sum(slot.kind == "cross" for slot in plan)
 
 
 def fxp_per_forward(m):
@@ -1987,37 +2035,41 @@ def instrument(eng, torch, fm, fa, record):
     eng._decode = wrap(eng._decode, "decode")
 
 
-def engine_run(torch, fm, fa, eng, prompts, tag, packed=True):
+def engine_run(torch, fm, fa, eng, prompts, tag, packed=True, memory=None):
     """Phase 4's serving check, shared by every ``Engine`` run:
-    ``generate`` on ``prompts`` (``NEW`` new tokens, greedy) with every
-    count set to 0 just before and read just after. Each prefill and
-    decode call's launches are exact: with the packed container the
-    prefill's dense layers on the tensor cores, its head and every decode
-    call on the GEMV; one flash launch a layer in the prefill; with a
-    float container the flash launches alone. Tokens in range, logits
-    finite and not constant; then the same run warm. Returns (record,
-    tokens, logits) of the first run."""
+    ``generate`` on ``prompts`` (``NEW`` new tokens, greedy; a VLM's with
+    its image ``memory``) with every count set to 0 just before and read
+    just after. Each prefill and decode call's launches are exact: with
+    the packed container the prefill's dense layers on the tensor cores
+    (a VLM's memory projections on the f32 SIMT branch), its head and
+    every decode call on the GEMV; one flash launch a self-attention layer
+    in the prefill; with a float container the flash launches alone.
+    Tokens in range, logits finite and not constant; then the same run
+    warm. Returns (record, tokens, logits) of the first run."""
     m = eng.cfg.model
     L = plan_counts(m)[1]                 # attention layers
     per_fwd = fxp_per_forward(m) if packed else 0
+    mem = memory_calls(m) if packed else 0        # the prefill's alone
+    per_dec = per_fwd - mem
     head = int(packed and not m.tie_embeddings)   # the head's GEMV call
     record = []
     instrument(eng, torch, fm, fa, record)
     ws = wrappers()
     reset_counts(ws)
     t0 = time.perf_counter()
-    out, logits = eng.generate(prompts, NEW)
+    out, logits = eng.generate(prompts, NEW, memory=memory)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {k: w.launches for k, w in ws.items() if w.launches}
-    gemv = head + per_fwd * (NEW - 1) if packed else 0
-    check_tensor_cores(tag, launches, gemv=gemv)
+    gemv = head + per_dec * (NEW - 1) if packed else 0
+    check_tensor_cores(tag, launches, gemv=gemv, simt={"fxp_matmul": mem})
     want = {**({"flash_attention": L} if L else {}),
-            **({"fxp_matmul": per_fwd * NEW} if packed else {})}
+            **({"fxp_matmul": per_fwd + per_dec * (NEW - 1)} if packed
+               else {})}
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches} != {want}")
-    per_call = {"prefill": (per_fwd, L, per_fwd - head, head),
-                "decode": (per_fwd, 0, 0, per_fwd)}
+    per_call = {"prefill": (per_fwd, L, per_fwd - head - mem, head),
+                "decode": (per_dec, 0, 0, per_dec)}
     if record[0]["kind"] != "prefill" or len(record) != NEW:
         raise AssertionError(f"{tag}: unexpected step record {record}")
     for r in record:
@@ -2033,7 +2085,7 @@ def engine_run(torch, fm, fa, eng, prompts, tag, packed=True):
     cold = step_times(record)
     record.clear()
     t0 = time.perf_counter()
-    eng.generate(prompts, NEW)
+    eng.generate(prompts, NEW, memory=memory)
     torch.cuda.synchronize()
     warm = step_times(record, total_s=time.perf_counter() - t0)
     for name, r in (("cold", cold), ("warm", warm)):
@@ -2323,10 +2375,11 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def drive(eng, prompt, steps, feed=None):
-    """Prefill + ``steps`` decode steps through the engine's step functions;
-    the decode tokens are ``feed`` (teacher forcing) or the greedy choice.
-    Returns (per-step logits on the CPU, tokens fed)."""
+def drive(eng, prompt, steps, feed=None, memory=None):
+    """Prefill (a VLM's with its image ``memory``) + ``steps`` decode steps
+    through the engine's step functions; the decode tokens are ``feed``
+    (teacher forcing) or the greedy choice. Returns (per-step logits on
+    the CPU, tokens fed)."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.serve import engine as engine_mod
@@ -2334,7 +2387,7 @@ def drive(eng, prompt, steps, feed=None):
     caches = transformer.init_caches(eng.cfg.model, B, S + steps + 1,
                                      device=eng.device)
     with torch.inference_mode():
-        logits, pref = eng._prefill(eng.qparams, prompt)
+        logits, pref = eng._prefill(eng.qparams, prompt, memory)
         caches = engine_mod._merge_prefill_caches(caches, pref, S)
         outs, toks = [logits.float().cpu()], []
         for i in range(steps):
@@ -2353,7 +2406,7 @@ def card_vs_cpu(torch, cfg=None, tag="depth2"):
     probabilities by V in bf16 on the card and in f32 on the CPU, so logits
     are held within 2^-5 of the largest logit (four bf16 ulps there);
     greedy tokens must agree wherever the CPU's top-1/top-2 margin exceeds
-    twice that."""
+    twice that. A VLM's prompt comes with an N(0, 1) image memory."""
     from repro_torch.config import load_config
     from repro_torch.core import controller
     from repro_torch.models import transformer
@@ -2370,11 +2423,15 @@ def card_vs_cpu(torch, cfg=None, tag="depth2"):
                               device=dev)
     del params, cpu_params
     gen = torch.Generator().manual_seed(SEED + 2)
-    prompt = torch.randint(0, cfg.model.vocab_size, (2, 32), generator=gen)
+    m = cfg.model
+    prompt = torch.randint(0, m.vocab_size, (2, 32), generator=gen)
+    memory = (torch.randn((2, m.num_image_tokens, m.d_model), generator=gen)
+              if m.cross_attn_every else None)
     t0 = time.perf_counter()
-    cpu_logits, cpu_toks = drive(engines["cpu"], prompt, 4)
+    cpu_logits, cpu_toks = drive(engines["cpu"], prompt, 4, memory=memory)
     cpu_s = time.perf_counter() - t0
-    gpu_logits, _ = drive(engines["cuda"], prompt.cuda(), 4, feed=cpu_toks)
+    gpu_logits, _ = drive(engines["cuda"], prompt.cuda(), 4, feed=cpu_toks,
+                          memory=None if memory is None else memory.cuda())
     worst, agreed, gated = 0.0, 0, 0
     for step, (c, g) in enumerate(zip(cpu_logits, gpu_logits)):
         tol = 2.0 ** -5 * c.abs().max().item()
@@ -2435,21 +2492,23 @@ def reset_counts(ws):
                 setattr(w, key, 0)
 
 
-def check_tensor_cores(tag, launches, gemv=0, simt=()):
+def check_tensor_cores(tag, launches, gemv=0, simt=None):
     """Every flash forward, dq and dkv, ``matmul_dx``, ``matmul_dw``,
     ``fxp_qmatmul``, ``matmul_qdx`` and ``fxp_matmul`` at M > 16 of a main
     path's run (bf16 activations) took the tensor-core branch, and the
     ``gemv`` launches of ``fxp_matmul`` at M <= 16 (decode, the prefill's
     head) its GEMV: the wrappers' ``tc_launches`` and ``gemv_launches``, set
     to 0 with ``launches`` just before the run, account for every launch.
-    The kernels named in ``simt`` took their SIMT branch every time
-    (gemma2's flash backward at D = 256)."""
+    ``simt`` maps a kernel to how many of its launches took its SIMT
+    branch instead (gemma2's flash backward at D = 256, a VLM's f32 memory
+    projections)."""
     ws = wrappers()
+    simt = simt or {}
     for name in TC_KERNELS:
         if name not in launches:
             continue
-        want = 0 if name in simt else \
-            launches[name] - (gemv if name == "fxp_matmul" else 0)
+        want = launches[name] - simt.get(name, 0) - (
+            gemv if name == "fxp_matmul" else 0)
         if ws[name].tc_launches != want:
             raise AssertionError(f"{tag}: {ws[name].tc_launches} of "
                                  f"{launches[name]} {name} launches took "
@@ -2547,8 +2606,8 @@ def flat_paths(tree, prefix=""):
 
 
 def train_card_vs_cpu(torch):
-    """One train step at depth 2, full width, batch 2 x 64, with activation
-    quantization on (the main path's packed step) and one with it off: the
+    """One train step at depth 2, full width (the vocabulary cut to 8192:
+    ``DEPTH2_VOCAB``), batch 2 x 64, with activation quantization on (the main path's packed step) and one with it off: the
     same state (drawn on the card, copied to the CPU) and batch, kernels on
     the card and plain versions on the CPU. Both sides round after every
     op and only sum in other orders, so loss is held to rtol 2e-3,
@@ -2566,8 +2625,8 @@ def train_card_vs_cpu(torch):
                                ("act_quant_off",
                                 ["quant.quantize_activations=false"], ())):
         cfg = load_config("llama3.2-3b", overrides=TRAIN_OVERRIDES + [
-            "model.num_layers=2", "train.global_batch=2", "train.seq_len=64"]
-            + extra)
+            "model.num_layers=2", DEPTH2_VOCAB, "train.global_batch=2",
+            "train.seq_len=64"] + extra)
         gpu = train_loop.init_state(cfg, SEED + 3, device="cuda")
         cpu = to_device(gpu, "cpu")
         p0 = flat_paths(to_device(gpu["params"], "cpu"))
@@ -2826,7 +2885,7 @@ def sr_card_vs_cpu(torch):
 
 
 def run_steps(torch, tag, cfg, state, steps, per_step, per_switch=None,
-              simt=()):
+              simt=None):
     """``train_loop.train`` for ``steps`` steps from ``state`` with every
     count set to 0 just before and read just after: exact launches per
     step (``per_step``, plus ``per_switch``, by default ``PER_SWITCH``,
@@ -3024,8 +3083,8 @@ def prologue_train_path(torch):
 
 
 def step_card_vs_cpu(torch, tag, overrides, seed, loose, batch=2, cfg=None):
-    """One train step at depth 2, full width, ``batch`` x 64 (2 x 64 by
-    default), or of ``cfg`` (a smoke config), from the same
+    """One train step at depth 2, full width (the vocabulary cut to 8192),
+    ``batch`` x 64 (2 x 64 by default), or of ``cfg``, from the same
     state (drawn on the card, copied to the CPU) and batch: loss within
     rtol 2e-3, grad_norm within 2e-2 and every leaf's update within 2e-2
     normwise (``loose`` leaves, which activation quantization makes see
@@ -3037,7 +3096,7 @@ def step_card_vs_cpu(torch, tag, overrides, seed, loose, batch=2, cfg=None):
 
     if cfg is None:
         cfg = load_config("llama3.2-3b", overrides=overrides + [
-            "model.num_layers=2", f"train.global_batch={batch}",
+            "model.num_layers=2", DEPTH2_VOCAB, f"train.global_batch={batch}",
             "train.seq_len=64"])
     gpu = train_loop.init_state(cfg, seed, device="cuda")
     cpu = to_device(gpu, "cpu")
@@ -3316,6 +3375,21 @@ def default_quantizer_path(torch):
             "ops_int8_scale_grads": [float(dsx), float(dsw)]}
 
 
+@contextlib.contextmanager
+def card_av():
+    """The plain attention's AV product in v's own dtype on the CPU too,
+    as on the card (``attention.av_dtype``; the reference takes f32 on the
+    CPU): the card-against-CPU comparisons then hold two sides that round
+    alike and sum in other orders."""
+    from repro_torch.models import attention
+    inner = attention.av_dtype
+    attention.av_dtype = lambda v: v.dtype
+    try:
+        yield
+    finally:
+        attention.av_dtype = inner
+
+
 def default_card_vs_cpu(torch):
     """Phase 14's configuration at depth 2, full-width layers and a
     vocabulary of 8192 (``DEFAULT_DEPTH2_CUTS``): one step from the same
@@ -3332,10 +3406,9 @@ def default_card_vs_cpu(torch):
     card's bf16 AV product."""
     from repro_torch.config import load_config
     from repro_torch.core import controller
-    from repro_torch.models import attention
     from repro_torch.train import train_loop
     seen = []
-    inner, av_dtype = train_loop._quantized_copy, attention.av_dtype
+    inner = train_loop._quantized_copy
 
     def capture(*args, **kwargs):
         out = inner(*args, **kwargs)
@@ -3343,16 +3416,15 @@ def default_card_vs_cpu(torch):
         return out
 
     train_loop._quantized_copy = capture
-    attention.av_dtype = lambda v: v.dtype
     try:
-        gpu, _, cfg, r = step_card_vs_cpu(
-            torch, "default", DEFAULT_OVERRIDES, SEED + 31,
-            ("final_norm", "head"), cfg=load_config(
-                "llama3.2-3b", overrides=DEFAULT_OVERRIDES
-                + DEFAULT_DEPTH2_CUTS))
+        with card_av():
+            gpu, _, cfg, r = step_card_vs_cpu(
+                torch, "default", DEFAULT_OVERRIDES, SEED + 31,
+                ("final_norm", "head"), cfg=load_config(
+                    "llama3.2-3b", overrides=DEFAULT_OVERRIDES
+                    + DEFAULT_DEPTH2_CUTS))
     finally:
         train_loop._quantized_copy = inner
-        attention.av_dtype = av_dtype
     if len(seen) != 2:
         raise AssertionError(f"{len(seen)} quantized copies, expected 2")
     # the quantized leaves (the others are the master itself, cast to f32:
@@ -4515,18 +4587,19 @@ def batcher_path(torch, fm):
     return res
 
 
-def batcher_card_vs_cpu(torch):
-    """The batcher at depth 2 (full width, the same weights), card against
-    CPU, 3 requests in 4 slots: every step's logits within 2^-5 of the
-    CPU's largest, greedy tokens equal where the CPU's top-1/top-2 margin
-    exceeds twice that (phase 5's rule); after a near tie the streams part
-    and the comparison stops."""
+def batcher_card_vs_cpu(torch, cfg=None, tag="batcher depth 2"):
+    """The batcher at depth 2 (full width, the same weights; or ``cfg``, a
+    smoke config), card against CPU, 3 requests in 4 slots: every step's
+    logits within 2^-5 of the CPU's largest, greedy tokens equal where the
+    CPU's top-1/top-2 margin exceeds twice that (phase 5's rule); after a
+    near tie the streams part and the comparison stops."""
     from repro_torch.config import load_config
     from repro_torch.core import controller
     from repro_torch.models import transformer
     from repro_torch.serve.scheduler import ContinuousBatcher
-    cfg = load_config("llama3.2-3b", overrides=OVERRIDES + [
-        "model.num_layers=2"])
+    if cfg is None:
+        cfg = load_config("llama3.2-3b", overrides=OVERRIDES + [
+            "model.num_layers=2"])
     params = transformer.init_params(SEED, cfg.model, device="cuda")
     runs = {}
     t0 = time.perf_counter()
@@ -4555,24 +4628,24 @@ def batcher_card_vs_cpu(torch):
         err = (g - c).abs().max().item()
         worst = max(worst, err / tol)
         if err > tol or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"batcher depth 2 step {step}: |card-cpu| "
+            raise AssertionError(f"{tag} step {step}: |card-cpu| "
                                  f"{err} > {tol}")
         top2 = torch.topk(c, 2, dim=-1).values
         sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
         same = g.argmax(-1) == c.argmax(-1)
         if not bool(same[sure].all()):
-            raise AssertionError(f"batcher depth 2 step {step}: greedy "
+            raise AssertionError(f"{tag} step {step}: greedy "
                                  "tokens differ past the margin")
         steps += 1
         if not bool(same.all()):
             parted = step
             break
     if parted is None and runs["cuda"][1] != runs["cpu"][1]:
-        raise AssertionError("batcher depth 2: outputs differ with no tie")
+        raise AssertionError(f"{tag}: outputs differ with no tie")
     if runs["cuda"][2] != 1 or runs["cpu"][2] != 0:
-        raise AssertionError(f"batcher depth 2: captures {runs['cuda'][2]}, "
+        raise AssertionError(f"{tag}: captures {runs['cuda'][2]}, "
                              f"{runs['cpu'][2]}")
-    log(f"[batcher depth2] card vs CPU: worst |err|/tol {worst:.3f} over "
+    log(f"[{tag}] card vs CPU: worst |err|/tol {worst:.3f} over "
         f"{steps} steps, outputs {'equal' if parted is None else 'parted after a near tie at step %d' % parted}")
     return {"worst_err_over_tol": worst, "steps_compared": steps,
             "parted_at": parted, "outputs": runs["cuda"][1],
@@ -4713,18 +4786,23 @@ def family_bwd(torch, fm, gen, arch, x, w, wd, scale):
 
 def family_engine(torch, fm, fa, cfg, params, state, tag):
     """An ``Engine`` of the config quantized on the card, then phase 4's
-    serving check (``engine_run``) on 4 prompts of 128 tokens. Returns the
-    record."""
+    serving check (``engine_run``) on 4 prompts of 128 tokens (a VLM's
+    with an N(0, 1) f32 image memory of (4, num_image_tokens, d_model)).
+    Returns the record."""
     from repro_torch.serve.engine import Engine
     t0 = time.perf_counter()
     eng = Engine(cfg, params, state, device="cuda")
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    prompts = torch.randint(0, cfg.model.vocab_size, (BATCH, PROMPT),
+    m = cfg.model
+    prompts = torch.randint(0, m.vocab_size, (BATCH, PROMPT),
                             generator=gen, device="cuda")
-    res, _, _ = engine_run(torch, fm, fa, eng, prompts, tag)
-    del eng
+    memory = (torch.randn((BATCH, m.num_image_tokens, m.d_model),
+                          generator=gen, device="cuda")
+              if m.cross_attn_every else None)
+    res, _, _ = engine_run(torch, fm, fa, eng, prompts, tag, memory=memory)
+    del eng, memory
     torch.cuda.empty_cache()
     return {"quantize_s": quantize_s, **res}
 
@@ -4931,16 +5009,18 @@ def fmt_row(row):
 def flash_rows_at(torch, fa, gen, arch, m, cases, rows, bwd_case=None):
     """The flash forward at each (case, B, S) of ``cases`` with ``m``'s
     heads, head dim, window and softcap (``window`` when the config's
-    attention is local somewhere), on the tensor cores, against the plain
-    version with phase 3's tolerance, timed beside SDPA where SDPA computes
-    the same function (no softcap, no window); at ``bwd_case`` also dq and
-    dkv, on the branch their head dim names (the tensor cores at D <= 128,
-    else SIMT), against the plain backward."""
+    attention is local somewhere), causal unless ``m`` is an encoder, on
+    the tensor cores, against the plain version with phase 3's tolerance,
+    timed beside SDPA where SDPA computes the same function (no softcap,
+    no window); at ``bwd_case`` also dq and dkv, on the branch their head
+    dim names (the tensor cores at D <= 128, else SIMT), against the plain
+    backward."""
     dev, bf = "cuda", torch.bfloat16
     h, hkv, dh = m.num_heads, m.num_kv_heads, m.resolved_head_dim
     window = m.window_size if "local" in m.attn_pattern else 0
     softcap = m.attn_logit_softcap
-    kw = dict(causal=True, window=window, softcap=softcap)
+    causal = not m.is_encoder
+    kw = dict(causal=causal, window=window, softcap=softcap)
     for case, B, S in cases:
         q = torch.randn(B, S, h, dh, generator=gen, device=dev).to(bf)
         k_ = torch.randn(B, S, hkv, dh, generator=gen, device=dev).to(bf)
@@ -4953,7 +5033,8 @@ def flash_rows_at(torch, fa, gen, arch, m, cases, rows, bwd_case=None):
         if not ok or fa.flash_attention.tc_launches != t0 + 1:
             raise AssertionError(f"flash {arch} {case}: err {err}")
         w = window if window and window < S else S
-        pairs = B * h * sum(min(i + 1, w) for i in range(S))
+        pairs = B * h * (sum(min(i + 1, w) for i in range(S)) if causal
+                         else S * S)
         lib = None
         if not softcap and not (window and window < S):
             rep = h // hkv
@@ -4961,10 +5042,11 @@ def flash_rows_at(torch, fa, gen, arch, m, cases, rows, bwd_case=None):
                 q, k_.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
             lib = cuda_time_ms([
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True)], 10)
+                    qt, kt, vt, is_causal=causal)], 10)
             del qt, kt, vt
         row = {"arch": arch, "case": case, "shape": [B, S, S, h, hkv, dh],
-               "window": window, "softcap": softcap, "branch": "tensor cores",
+               "causal": causal, "window": window, "softcap": softcap,
+               "branch": "tensor cores",
                "max_abs_err": err,
                "ms": cuda_time_ms([lambda: fa.flash_attention(
                    q, k_, v, **kw)], 10),
@@ -5010,9 +5092,10 @@ def flash_bwd_row(torch, fa, gen, arch, q, k, v, o, lse, pairs, kw):
     ins = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * B * H * S
     lib = None
     if not kw["softcap"] and not (kw["window"] and kw["window"] < S):
-        launched, _ = sdpa_flash_backward(torch, q, k, v, do)
+        launched, _ = sdpa_flash_backward(torch, q, k, v, do, kw["causal"])
         lib = cuda_time_ms([launched], 10)
     row = {"arch": arch, "shape": [B, S, S, H, k.shape[2], D],
+           "causal": kw["causal"],
            "branch": "tensor cores" if tc else "SIMT", "library_ms": lib,
            "library_covers": "flash_attention_dq+flash_attention_dkv"}
     for name, fn, plain, flops, outs, err in (
@@ -5136,11 +5219,14 @@ def chunked_plain(torch, x, seed, rnd, out, chunk=1 << 26):
 
 def packed_per_step(m):
     """Exact launches of one packed SR step of ``m`` (no remat, no
-    accumulation): each dense call forward and twice backward, one flash
-    forward, dq and dkv an attention layer, the SR words of every
-    quantized leaf."""
+    accumulation): each dense call forward and twice backward (once, for
+    dw alone, where its input needs no gradient: a VLM's memory
+    projections, an encoder's in_proj on the frames), one flash forward,
+    dq and dkv a self-attention layer, the SR words of every quantized
+    leaf."""
     dense, L, stacked, flat = plan_counts(m)
-    return {**ZERO, "fxp_matmul": dense, "matmul_dx": dense,
+    dx = dense - memory_calls(m) - int(m.is_encoder)
+    return {**ZERO, "fxp_matmul": dense, "matmul_dx": dx,
             "matmul_dw": dense, "flash_attention": L,
             "flash_attention_dq": L, "flash_attention_dkv": L,
             "sr_quantize_fused_stacked_int8": stacked,
@@ -5348,7 +5434,8 @@ def gemma2_path(torch, fm, fa):
     state = train_loop.init_state(cfg, device="cuda")
     state, steps, launches, peak = run_steps(
         torch, "gemma2 SR", cfg, state, GEMMA_SR_STEPS, per_step, per_switch,
-        simt=("flash_attention_dq", "flash_attention_dkv"))
+        simt={n: per_step[n] * GEMMA_SR_STEPS
+              for n in ("flash_attention_dq", "flash_attention_dkv")})
     state, prof = profiled_packed_step(
         torch, cfg, state, GEMMA_SR_STEPS, {"tied head",
                                             "router or tied head (backward)"},
@@ -5747,17 +5834,19 @@ def ssm_serving(torch, fm, fa, cfg, tag, seed):
     return res
 
 
-def ssm_sr_train(torch, cfg, tag):
-    """``SSM_SR_STEPS`` packed SR steps of 4 x 512 through a switch, exact
-    launches (``packed_per_step``). Returns (state, record)."""
+def packed_sr_train(torch, cfg, tag, n_steps=SSM_SR_STEPS):
+    """``n_steps`` packed SR steps of 4 x 512 through a switch, exact
+    launches (``packed_per_step``; a VLM's memory projections on the SIMT
+    branches, ``memory_calls``). Returns (state, record)."""
     from repro_torch.train import train_loop
     per_step, per_switch = packed_per_step(cfg.model)
+    mem = memory_calls(cfg.model) * n_steps
     torch.cuda.reset_peak_memory_stats()
     state = train_loop.init_state(cfg, device="cuda")
     n = params_count(state["params"])
-    state, steps, launches, peak = run_steps(torch, tag, cfg, state,
-                                             SSM_SR_STEPS, per_step,
-                                             per_switch)
+    state, steps, launches, peak = run_steps(
+        torch, tag, cfg, state, n_steps, per_step, per_switch,
+        simt={"fxp_matmul": mem, "matmul_dw": mem})
     log(f"[{tag}] {n / 1e9:.3f} G params; peak {peak:.2f} GiB")
     return state, {"params": n, "steps": steps, "launches": launches,
                    "peak_gib": peak}
@@ -5779,7 +5868,7 @@ def mamba2_path(torch, fm, fa):
         48, 1536, 2, 64, 128, 256, 50280), m
     res = ssm_serving(torch, fm, fa, cfg, "mamba2", SEED + 17)
     cfg = load_config(MAMBA, overrides=SR_OVERRIDES)
-    state, res["sr_train"] = ssm_sr_train(torch, cfg, "mamba2 SR")
+    state, res["sr_train"] = packed_sr_train(torch, cfg, "mamba2 SR")
     # the prologue: in_proj, out_proj and the head draw their words in the
     # dense kernels; conv_w keeps its stacked SR words, the embedding and
     # d_skip their flat ones, and the regularizer draws each dense
@@ -5815,7 +5904,7 @@ def zamba2_path(torch, fm, fa):
     res = ssm_serving(torch, fm, fa, cfg, "zamba2", SEED + 18)
     cfg = load_config(ZAMBA, overrides=SR_OVERRIDES + [
         f"model.num_layers={3 * ZAMBA_TRAIN_PERIODS}"])
-    state, res["sr_train"] = ssm_sr_train(torch, cfg, "zamba2 SR")
+    state, res["sr_train"] = packed_sr_train(torch, cfg, "zamba2 SR")
     res["sr_train"]["cut"] = f"{ZAMBA_TRAIN_PERIODS} of 27 periods"
     del state
     torch.cuda.empty_cache()
@@ -5840,6 +5929,212 @@ def ssm_card_vs_cpu(torch):
         gpu, _, _, r["step"] = step_card_vs_cpu(
             torch, f"{arch} smoke", TRAIN_OVERRIDES, SEED, (), cfg=step_cfg)
         del gpu
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: cross-attention (llama-3.2-vision-11b) and the audio encoder
+# (hubert-xlarge)
+
+
+def memory_projection_rows(torch, fm, gen, m, k, n):
+    """The f32 SIMT branches at a VLM's memory projection (M = batch ·
+    image tokens, K = d_model, N = kv heads · head dim), each one launch
+    on the branch the dtypes name (no tensor-core or GEMV count):
+    ``fxp_matmul`` of f32 x on int8 words with the bf16 scale 2^-10, f32
+    out, within 1e-5·max|plain| of the plain version (the same f32
+    products summed in another order), beside ``torch.matmul`` in f32 on
+    the dequantized words; ``matmul_dw`` of f32 x and f32 dy into the
+    bf16 receiver (phase 3's bf16 tolerance), beside ``torch.matmul(x.T,
+    dy)`` in f32. TF32 is off, so the library calls are f32 products too;
+    the bounds take 67 TFLOP/s."""
+    dev = "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    scale = torch.tensor(2.0 ** -10, dtype=torch.bfloat16, device=dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    dy = torch.randn(m, n, generator=gen, device=dev)
+    wd = w.float() * scale.float()
+    rows = []
+    for name, kern, plain, lib, nbytes in (
+            ("fxp_matmul", lambda: fm.fxp_matmul(x, w, scale),
+             lambda: fm.plain(x, w, scale), lambda: torch.matmul(x, wd),
+             4 * m * k + k * n + 4 * m * n + 2),
+            ("matmul_dw", lambda: fm.matmul_dw(x, dy,
+                                               out_dtype=torch.bfloat16),
+             lambda: fm.plain_dw(x, dy), lambda: torch.matmul(x.T, dy),
+             4 * m * k + 4 * m * n + 2 * k * n)):
+        c = getattr(fm, name)
+        before = (c.launches, c.tc_launches, getattr(c, "gemv_launches", 0))
+        got, want = kern(), plain()
+        moved = tuple(b - a for a, b in zip(before, (
+            c.launches, c.tc_launches, getattr(c, "gemv_launches", 0))))
+        if name == "fxp_matmul":
+            err = (got - want).abs().max().item()
+            ok = got.dtype == torch.float32 and \
+                err <= 1e-5 * want.abs().max().item()
+        else:
+            ok, err = close_bf16(got, want, 2.0 ** -16)
+        if not ok or moved != (1, 0, 0) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} f32 {VLM} memory ({m},{k},{n}): "
+                                 f"max err {err}, counts {moved}")
+        row = {"arch": VLM, "kernel": name, "m": m, "k": k, "n": n,
+               "branch": "simt", "dtype": "float32", "max_abs_err": err,
+               "ms": cuda_time_ms([kern], 5),
+               "plain_ms": cuda_time_ms([plain], 2),
+               "library_ms": cuda_time_ms([lib], 5)}
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * m * k * n,
+                                                 F32_FLOPS)
+        rows.append(row)
+        log(f"[{VLM}] {name} f32 memory projection {m}x{k}x{n}: "
+            f"{fmt_row(row)}")
+        del got, want
+    del x, w, dy, wd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cross_encoder_shapes(torch, fm, fa, gen):
+    """Phase 25's kernel shapes, each against its plain version and beside
+    its library call, with its bound: the non-causal flash forward, dq and
+    dkv at hubert-xlarge's training shape (4 x 512, 16/16 heads of 80: the
+    tensor cores, the backward's head dim padded to 128) beside
+    non-causal SDPA; the f32 SIMT ``fxp_matmul`` and ``matmul_dw`` at the
+    VLM's memory projection (M = 4 · 1024 image tokens, K = 4096, N =
+    1024; ``memory_projection_rows``); ``fxp_matmul``, ``matmul_dx`` and
+    ``matmul_dw`` at M = 2048 (training, the tensor cores) at every dense
+    layer and the head of hubert (K = 1280 with N = 1280 and 5120, K =
+    5120 with N = 1280, and the head's N = 504: word rows that are not
+    16-byte aligned) and of the VLM (K = 4096 with N = 4096, 1024, 14336
+    and 128256, K = 14336 with N = 4096), which no earlier phase gave
+    dx and dw; the GEMV at the VLM's wk/wv (N = 1024) and head (N =
+    128256) at M = 4."""
+    from repro_torch.config import load_config
+    rows = {k: [] for k in ("fxp_matmul", "matmul_bwd", "flash_attention",
+                            "flash_backward")}
+    hm = load_config(HUBERT).model
+    assert (hm.is_encoder, hm.num_heads, hm.num_kv_heads,
+            hm.resolved_head_dim) == (True, 16, 16, 80), hm
+    flash_rows_at(torch, fa, gen, HUBERT, hm, (("train", TRAIN_B, TRAIN_S),),
+                  rows, bwd_case="train")
+    layers, head = family_shapes(hm)
+    fxp_rows_at(torch, fm, gen, HUBERT, [*layers, head], (TRAIN_M,), rows,
+                train_m=TRAIN_M)
+    vm = load_config(VLM).model
+    kv = vm.num_kv_heads * vm.resolved_head_dim
+    layers, head = family_shapes(vm)
+    fxp_rows_at(torch, fm, gen, VLM, [(vm.d_model, kv), head],
+                (BATCH, TRAIN_M), rows, train_m=TRAIN_M)
+    fxp_rows_at(torch, fm, gen, VLM, [s for s in layers
+                                      if s != (vm.d_model, kv)],
+                (TRAIN_M,), rows, train_m=TRAIN_M)
+    rows["memory_projection"] = memory_projection_rows(
+        torch, fm, gen, BATCH * vm.num_image_tokens, vm.d_model, kv)
+    return rows
+
+
+def vlm_path(torch, fm, fa):
+    """Phase 25, llama-3.2-vision-11b at full width: served at full depth
+    (9.775 G params; RTN int8 words at FL 10 under ``quant.use_pallas``:
+    ``family_engine`` on 4 prompts of 128 tokens and 32 new, greedy, with a
+    (4, 1024, 4096) f32 image memory: the prefill's 16 memory projections
+    on the f32 SIMT branch, its other dense layers on the tensor cores, its
+    head and every decode call on the GEMV, one flash launch a
+    self-attention layer; the serving peak), then trained at
+    ``VLM_TRAIN_PERIODS`` of its 8 periods (5.41 G params; each stacked
+    cross leaf holds four layers): ``CROSS_SR_STEPS`` packed SR steps of 4 x
+    512 tokens, each row with 1024 image tokens, through a switch every
+    tensor takes (``packed_sr_train``: the cross slots' wk/wv forward and
+    dw on the SIMT branches, no dx for them)."""
+    from repro_torch.config import load_config
+    from repro_torch.core import controller
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import serving_adapt_state
+    cfg = load_config(VLM, overrides=OVERRIDES)
+    m = cfg.model
+    assert (m.num_layers, m.d_model, m.num_heads, m.num_kv_heads,
+            m.resolved_head_dim, m.d_ff, m.vocab_size, m.cross_attn_every,
+            m.num_image_tokens) == (40, 4096, 32, 8, 128, 14336, 128256, 5,
+                                    1024), m
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED, m, device="cuda")
+    state = serving_adapt_state(controller.init_adapt_state(params,
+                                                            cfg.quant))
+    torch.cuda.synchronize()
+    res = {"params": params_count(params), "init_s": time.perf_counter() - t0,
+           "master_gib": torch.cuda.memory_allocated() / 2**30}
+    res["engine"] = family_engine(torch, fm, fa, cfg, params, state,
+                                  "vlm engine")
+    res["serving_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[vlm] {res['params'] / 1e9:.3f} G params, master "
+        f"{res['master_gib']:.2f} GiB; peak serving "
+        f"{res['serving_peak_gib']:.2f} GiB")
+    del params, state
+    torch.cuda.empty_cache()
+    cfg = load_config(VLM, overrides=SR_OVERRIDES + [
+        f"model.num_layers={5 * VLM_TRAIN_PERIODS}"])
+    state, res["sr_train"] = packed_sr_train(torch, cfg, "vlm SR",
+                                             CROSS_SR_STEPS)
+    res["sr_train"]["cut"] = f"{VLM_TRAIN_PERIODS} of 8 periods"
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def hubert_path(torch):
+    """Phase 25, hubert-xlarge at full width and depth (48 encoder layers,
+    d 1280, 16/16 heads of 80, d_ff 5120, GELU, V 504; 1.261 G params):
+    ``CROSS_SR_STEPS`` packed SR steps of 4 x 512 frames through a switch
+    (``packed_sr_train``: in_proj on the frames with no dx, the
+    non-causal flash forward, dq and dkv at D = 80 on the tensor cores, the
+    head at N = 504), then the registry's config with only the batch and
+    the sequence cut (``registry_path``: 8 x 512 in 8 microbatches, remat
+    full, the QuantConfig defaults)."""
+    from repro_torch.config import load_config
+    cfg = load_config(HUBERT, overrides=SR_OVERRIDES)
+    m = cfg.model
+    assert (m.num_layers, m.d_model, m.d_ff, m.vocab_size, m.act_fn,
+            m.is_encoder) == (48, 1280, 5120, 504, "gelu", True), m
+    state, res = packed_sr_train(torch, cfg, "hubert SR", CROSS_SR_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    return {"sr_train": res, "registry": registry_path(torch, HUBERT)}
+
+
+def cross_encoder_card_vs_cpu(torch):
+    """Both smoke configs, card against CPU, the CPU given the card's AV
+    dtype (``card_av``): the VLM's ``Engine`` with an image memory (phase
+    5's drive: logits within 2^-5 of the largest, greedy tokens equal past
+    the margin) and its batcher (phase 20's comparison: the cross slots
+    read the zero caches, under the card's CUDA graph); one packed SR step
+    of 2 x 64 of each from the same state within phase 7's bounds (loss
+    2e-3, every update 2e-2 normwise; with activation quantization on, the
+    main path's step, the final norm and the head 5e-2), and beside it
+    phase 7's control, the same step with activation quantization off,
+    every leaf within 2e-2."""
+    from repro_torch.config import apply_overrides
+    from repro_torch.configs import get_smoke_config
+    res = {}
+    with card_av():
+        cfg = apply_overrides(get_smoke_config(VLM), OVERRIDES)
+        res[VLM] = {"serving": card_vs_cpu(torch, cfg=cfg, tag="vlm smoke"),
+                    "batcher": batcher_card_vs_cpu(
+                        torch, cfg=cfg, tag="vlm smoke batcher")}
+        res[HUBERT] = {}
+        for arch in (VLM, HUBERT):
+            for name, extra, loose in (
+                    ("act_quant_on", [], ("final_norm", "head")),
+                    ("act_quant_off", ["quant.quantize_activations=false"],
+                     ())):
+                cfg = apply_overrides(get_smoke_config(arch), SR_OVERRIDES + [
+                    "train.global_batch=2", "train.seq_len=64"] + extra)
+                gpu, _, _, res[arch][f"step_{name}"] = step_card_vs_cpu(
+                    torch, f"{arch} smoke SR ({name})", SR_OVERRIDES, SEED,
+                    loose, cfg=cfg)
+                del gpu
+    torch.cuda.empty_cache()
     return res
 
 
@@ -6012,6 +6307,17 @@ def main() -> int:
     ssm_depth2 = ssm_card_vs_cpu(torch)
     mark("24 ssm smoke vs CPU")
 
+    # 25. cross-attention and the encoder: llama-3.2-vision-11b,
+    # hubert-xlarge; smoke configs vs CPU
+    cross_rows = cross_encoder_shapes(torch, fm, fa, gen)
+    mark("25 shapes")
+    vlm_res = vlm_path(torch, fm, fa)
+    mark("25 llama-3.2-vision-11b")
+    hubert_res = hubert_path(torch)
+    mark("25 hubert-xlarge")
+    cross_depth2 = cross_encoder_card_vs_cpu(torch)
+    mark("25 smoke vs CPU")
+
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
             prologue_res["launches"], default_res["launches"],
@@ -6043,10 +6349,14 @@ def main() -> int:
                   for r in (mamba_res, zamba_res)),
                 mamba_res["prologue"]["launches"],
                 mamba_res["registry"]["launches"]]
+    slice_18 = [vlm_res["engine"]["launches"], vlm_res["sr_train"]["launches"],
+                hubert_res["sr_train"]["launches"],
+                hubert_res["registry"]["launches"]]
     kernels = kernel_record(runs, later, fxp_rows, fxp_err, flash_rows,
                             flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err,
                             sr_rows, edf_rows, grid_rows, q_rows, q_err,
-                            ops_rows, cnn_res, family, slice_16, slice_17)
+                            ops_rows, cnn_res, family, slice_16, slice_17,
+                            slice_18)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6072,7 +6382,9 @@ def main() -> int:
         "mixtral_training": mixtral_train, "arctic": arctic_res,
         "moe_smoke_vs_cpu": moe_depth2, "ssm_shapes": ssm_rows,
         "mamba2": mamba_res, "zamba2": zamba_res,
-        "ssm_smoke_vs_cpu": ssm_depth2, "kernels": kernels,
+        "ssm_smoke_vs_cpu": ssm_depth2, "cross_encoder_shapes": cross_rows,
+        "vlm": vlm_res, "hubert": hubert_res,
+        "cross_encoder_smoke_vs_cpu": cross_depth2, "kernels": kernels,
         "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -6086,7 +6398,7 @@ def main() -> int:
 def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                   bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows,
                   grid_rows, q_rows, q_err, ops_rows, cnn_res, family,
-                  slice_16, slice_17):
+                  slice_16, slice_17, slice_18):
     """One entry per kernel. ``launches`` sums the counts of the main
     paths' runs of phases 4-14 (``runs``); ``launches_16_18`` those of the
     counted runs of phases 16-18 (``later``: remat, accumulation at
@@ -6133,7 +6445,10 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     of phase 24 (``slice_17``: mamba2-780m's and zamba2-7b's ``Engine``
     runs, SR steps and batchers' warm-up decodes, mamba2's prologue step
     and registry config), whose per-shape times are ``ssm_shapes``'s rows
-    in the JSON file."""
+    in the JSON file. ``launches_25`` counts those of phase 25
+    (``slice_18``: llama-3.2-vision-11b's ``Engine`` run and SR steps,
+    hubert-xlarge's SR steps and registry config), whose per-shape times
+    are ``cross_encoder_shapes``'s rows in the JSON file."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     device_keys = ("device_ms", "library_device_ms")
 
@@ -6193,6 +6508,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     launches_slice_16 = {k: sum(run.get(k, 0) for run in slice_16)
                          for k in KERNELS}
     launches_slice_17 = {k: sum(run.get(k, 0) for run in slice_17)
+                         for k in KERNELS}
+    launches_slice_18 = {k: sum(run.get(k, 0) for run in slice_18)
                          for k in KERNELS}
     # SR int8: 4 SR steps, 2 int8-container steps; path B's embedding
     int8_steps = SR_STEPS + OTHER_STEPS
@@ -6257,7 +6574,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                 "launches_19": cnn_res["launches"][name],
                 "launches_20_21": launches_family[name],
                 "launches_22_23": launches_slice_16[name],
-                "launches_24": launches_slice_17[name], "max_abs_err": err,
+                "launches_24": launches_slice_17[name],
+                "launches_25": launches_slice_18[name], "max_abs_err": err,
                 **times, **({"cnn_19": cnn_19[name]} if name in cnn_19
                             else {})}
 

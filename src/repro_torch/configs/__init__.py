@@ -1,5 +1,5 @@
-"""Architecture registry of the port: one module per architecture the port
-serves so far. Each module exposes ``config()`` (the published dims) and
+"""Architecture registry of the port: one module per architecture the
+reference registers. Each module exposes ``config()`` (the published dims) and
 ``smoke()`` (a reduced same-family config for CPU tests).
 """
 from __future__ import annotations
@@ -19,24 +19,16 @@ _MODULES = {
     "mixtral-8x22b": "mixtral_8x22b",
     "arctic-480b": "arctic_480b",
     "zamba2-7b": "zamba2_7b",
+    "llama-3.2-vision-11b": "llama3_2_vision_11b",
+    "hubert-xlarge": "hubert_xlarge",
     "mamba2-780m": "mamba2_780m",
     "alexnet": "alexnet",
     "resnet20": "resnet20",
     "tiny": "tiny",
 }
 
-# Architectures the reference package registers that the port does not
-# serve yet, with the slice of the port that brings each one.
-_LATER = {
-    "llama-3.2-vision-11b": "the VLM slice",
-    "hubert-xlarge": "the audio-encoder slice",
-}
-
 
 def _load(arch: str):
-    if arch in _LATER:
-        raise KeyError(f"arch {arch!r} is not ported yet; it comes with "
-                       f"{_LATER[arch]} (ROADMAP.md, Queue 1)")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

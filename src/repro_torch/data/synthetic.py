@@ -13,8 +13,9 @@ CIFAR stream (the CNN family): a fixed N(0, 1) prototype image per class
 plus 1.5·N(0, 1) noise, labels uniform: separable but noisy, so accuracy
 climbs as on real data, without a file.
 
-Encoder (audio) and image-memory batches come with the slices of those
-model families (ROADMAP.md, Queue 1).
+Encoder (audio) batches: N(0, 1) frame embeddings, labelled by the argmax
+of their first V features; a VLM's batch adds N(0, 1) image-patch
+embeddings as its memory (the reference's stub frontends).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from repro_torch.device import resolve_device
 def _step_generator(seed: int, step: int, device, salt: int = 0
                     ) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, step, salt) alone; salt
-    0 is the LM stream's, 1 the CIFAR stream's."""
+    0 is the LM stream's (tokens, or an encoder's frames), 1 the CIFAR
+    stream's, 2 a VLM's image memory."""
     gen = torch.Generator(device=device)
     gen.manual_seed((int(seed) * 1_000_003 + int(step)
                      + int(salt) * 0x9E3779B97F4A7C15) % (2 ** 63))
@@ -51,15 +53,26 @@ def lm_tokens(generator: torch.Generator, batch: int, seq: int, vocab: int,
 
 
 def lm_batch(cfg: Config, step: int, *, device=None) -> Dict[str, torch.Tensor]:
-    """{"tokens": (global_batch, seq_len) int32} for the dense LM, drawn on
-    ``device`` (default ``cuda``; raises without it unless ``"cpu"``)."""
+    """The batch of the LM stack (``synthetic.py:47-62``), drawn on
+    ``device`` (default ``cuda``; raises without it unless ``"cpu"``):
+    {"tokens": (global_batch, seq_len) int32}, with, for a VLM, "memory":
+    (global_batch, num_image_tokens, d_model) f32 N(0, 1); for an encoder
+    {"embeds": (global_batch, seq_len, d_model) f32 N(0, 1), "labels":
+    the argmax of each frame's first vocab_size features, int32}."""
     m, t = cfg.model, cfg.train
-    if m.is_encoder or m.cross_attn_every:
-        raise NotImplementedError(
-            "encoder (frame) and image-memory batches come with the audio "
-            "and VLM slices of the port (ROADMAP.md, Queue 1)")
-    gen = _step_generator(t.seed, step, resolve_device(device))
-    return {"tokens": lm_tokens(gen, t.global_batch, t.seq_len, m.vocab_size)}
+    dev = resolve_device(device)
+    gen = _step_generator(t.seed, step, dev)
+    if m.is_encoder:
+        emb = torch.randn((t.global_batch, t.seq_len, m.d_model),
+                          generator=gen, device=dev)
+        labels = torch.argmax(emb[..., :m.vocab_size], dim=-1)
+        return {"embeds": emb, "labels": labels.to(torch.int32)}
+    batch = {"tokens": lm_tokens(gen, t.global_batch, t.seq_len, m.vocab_size)}
+    if m.cross_attn_every:
+        batch["memory"] = torch.randn(
+            (t.global_batch, m.num_image_tokens, m.d_model),
+            generator=_step_generator(t.seed, step, dev, salt=2), device=dev)
+    return batch
 
 
 _PROTO_CACHE: Dict[tuple, torch.Tensor] = {}

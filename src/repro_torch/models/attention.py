@@ -1,9 +1,11 @@
-"""Grouped-query attention block with KV caching (counterpart of
-``repro/models/attention.py``; ``cross_attend``/``project_memory`` come with
-the VLM slice).
+"""Grouped-query attention block with KV caching and cross-attention
+(counterpart of ``repro/models/attention.py``).
 
-  * ``attend_full``   — prefill / full-sequence forward
-  * ``attend_decode`` — one-token decode against a (possibly rolling) cache
+  * ``attend_full``    — prefill / full-sequence forward (causal, or not
+                         for an encoder)
+  * ``attend_decode``  — one-token decode against a (possibly rolling) cache
+  * ``project_memory`` — an encoder memory's k/v, projected once (VLM)
+  * ``cross_attend``   — queries over that memory (VLM cross slots)
 """
 from __future__ import annotations
 
@@ -157,3 +159,47 @@ def attend_decode(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     if cfg.use_post_norm:
         out = common.rms_norm(out, p["post_norm"], cfg.norm_eps)
     return x + out, (cache_k, cache_v)
+
+
+def cross_attend(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+                 memory_k: torch.Tensor, memory_v: torch.Tensor,
+                 use_pallas: bool = False) -> torch.Tensor:
+    """Cross-attention over a precomputed encoder memory (the VLM's cross
+    slots; ``attention.py:190-207``). memory_k/v: (B, M, Hkv, Dh), from
+    ``project_memory``: f32 in the forward (the f32 memory through the
+    dense layer), the cache's dtype at decode. The query takes no rope;
+    every query sees every memory slot (no causal mask, no window), in the
+    plain attention, as in the reference under ``use_pallas`` too: its AV
+    product in v's dtype on the card (``av_dtype``)."""
+    h = common.rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    B, S, _ = x.shape
+    hq, dh = cfg.num_heads, cfg.resolved_head_dim
+    q = common.dense(h, p["wq"], use_pallas=use_pallas).reshape(B, S, hq, dh)
+    M = memory_k.shape[1]
+    kpos = torch.arange(M, dtype=torch.int32, device=x.device)[None].expand(B, M)
+    qpos = torch.full((B, S), M, dtype=torch.int32, device=x.device)
+    out = _masked_attention(q, memory_k, memory_v, qpos, kpos, 0,
+                            cfg.attn_logit_softcap, causal=False)
+    out = common.dense(out.reshape(B, S, -1), p["wo"], use_pallas=use_pallas)
+    if cfg.use_post_norm:
+        out = common.rms_norm(out, p["post_norm"], cfg.norm_eps)
+    return x + out
+
+
+def project_memory(p: Dict[str, torch.Tensor], memory: torch.Tensor,
+                   cfg: ModelConfig, use_pallas: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder memory (B, M, D) projected to (k, v), each (B, M, Hkv,
+    Dh) in the memory's dtype (f32 from the batch: under ``use_pallas`` on
+    packed words the fxp kernel's f32 branch; the memory needs no gradient,
+    so training runs ``matmul_dw`` for it and no ``matmul_dx``)."""
+    if memory is None:
+        raise ValueError("a cross-attention slot needs the encoder memory: "
+                         "pass memory= (B, num_image_tokens, d_model)")
+    B, M, _ = memory.shape
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = common.dense(memory, p["wk"], use_pallas=use_pallas
+                     ).reshape(B, M, hkv, dh)
+    v = common.dense(memory, p["wv"], use_pallas=use_pallas
+                     ).reshape(B, M, hkv, dh)
+    return k, v

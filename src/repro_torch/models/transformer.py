@@ -1,5 +1,7 @@
 """LM stack (counterpart of ``repro/models/transformer.py``): attention,
-mamba2 and zamba2's shared attention slots, each with its MLP or MoE FFN.
+cross-attention (the VLM), mamba2 and zamba2's shared attention slots,
+each with its MLP or MoE FFN, over tokens or, for an encoder (the audio
+family), precomputed frame embeddings.
 
 The layer plan is periodic: parameters are stacked as (num_periods, ...)
 per slot of the period, and where the reference ``lax.scan``s over periods
@@ -10,8 +12,9 @@ would write a zero tensor of the whole stack per layer.
 
 Params layout (stacked leaves carry the leading num_periods dim):
 
-    {"embed": (V, D),
-     "blocks": {"s{i}_attn"|"s{i}_mamba": {...},
+    {"embed": (V, D)?,                 # absent for an encoder
+     "in_proj": (D, D)?,               # an encoder's frame projection
+     "blocks": {"s{i}_attn"|"s{i}_mamba"|"s{i}_cross": {...},
                 "s{i}_mlp"|"s{i}_moe": {...}},
      "shared": {"attn": {...}, "mlp": {...}}?,  # zamba2: one unstacked
                                         # block that every period uses
@@ -20,14 +23,15 @@ Params layout (stacked leaves carry the leading num_periods dim):
 
 The controller sees "blocks/..." paths as stacked (per-layer precision)
 and "shared/..." as per-tensor, so a shared leaf's gradient is the sum of
-its uses. Cross-attention slots and encoders raise NotImplementedError:
-they come with later slices of the port.
+its uses. A cross slot projects the encoder memory (image-patch
+embeddings) inside the layer body, so remat recomputes it; prefill caches
+the projected k/v, which decode reads and never writes.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -99,16 +103,6 @@ def ffn_key(i: int, slot: Slot) -> str:
     return f"s{i}_{slot.ffn}"
 
 
-def _ported_plan(cfg: ModelConfig):
-    plan, np_ = build_plan(cfg)
-    for slot in plan:
-        if slot.kind == "cross":
-            raise NotImplementedError(
-                f"slot {slot} is not ported yet: cross-attention slots come "
-                "with the VLM slice (ROADMAP.md, Queue 1)")
-    return plan, np_
-
-
 # ---------------------------------------------------------------------------
 # Init
 
@@ -121,13 +115,16 @@ def init_params(key: int, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(key))
-    plan, np_ = _ported_plan(cfg)
-    if cfg.is_encoder:
-        raise NotImplementedError("encoder (audio) models come with a later "
-                                  "slice (ROADMAP.md, Queue 1)")
+    plan, np_ = build_plan(cfg)
     params: Dict[str, Any] = {"blocks": {}}
-    params["embed"] = common.init_embed(gen, cfg.vocab_size, cfg.d_model,
-                                        device=dev)
+    if cfg.is_encoder:
+        # the stub frontend's frames arrive at d_model; a learned
+        # projection keeps the path trainable (``transformer.py:127-132``)
+        params["in_proj"] = common.init_dense(gen, (cfg.d_model, cfg.d_model),
+                                              device=dev)
+    else:
+        params["embed"] = common.init_embed(gen, cfg.vocab_size, cfg.d_model,
+                                            device=dev)
     for i, slot in enumerate(plan):
         if slot.shared:
             if "shared" not in params:
@@ -162,11 +159,12 @@ def init_params(key: int, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
 
 def _top(params, use_pallas: bool):
     """Non-block params, dequantized at entry except dense leaves under
-    ``use_pallas`` and the embedding, whose rows ``embed_lookup`` gathers
-    before dequantizing."""
+    ``use_pallas`` (an encoder's ``in_proj`` among them) and the embedding,
+    whose rows ``embed_lookup`` gathers before dequantizing."""
     rest = {k: v for k, v in params.items() if k not in ("blocks", "embed")}
     top = fxp.unpack_tree(rest, keep_dense=use_pallas)
-    top["embed"] = params["embed"]
+    if "embed" in params:
+        top["embed"] = params["embed"]
     return top
 
 
@@ -183,6 +181,29 @@ def _head_logits(top, x, cfg: ModelConfig, use_pallas: bool) -> torch.Tensor:
 def _embed(top, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return common.embed_lookup(top["embed"], tokens,
                                scale_by_dim=cfg.scale_embed).to(torch.bfloat16)
+
+
+def _inputs(top, cfg: ModelConfig, tokens, embeds, use_pallas: bool
+            ) -> torch.Tensor:
+    """The residual stream's input, bf16: the tokens' embeddings, or an
+    encoder's frame embeddings cast to bf16 and projected by ``in_proj``
+    (``transformer.py:207-213``)."""
+    if tokens is not None:
+        return _embed(top, tokens, cfg)
+    if embeds is None:
+        raise ValueError("forward needs tokens= or, for an encoder, embeds=")
+    return common.dense(embeds.to(torch.bfloat16), top["in_proj"],
+                        use_pallas=use_pallas)
+
+
+def _cross(top, pslice, x, cfg: ModelConfig, i: int, slot: Slot, memory,
+           use_pallas: bool):
+    """A cross slot over ``memory``: its k/v projected, then attended to.
+    Returns (x, (k, v))."""
+    p = _attn_params(top, pslice, i, slot)
+    mk, mv = attention.project_memory(p, memory, cfg, use_pallas=use_pallas)
+    return attention.cross_attend(p, x, cfg, mk, mv,
+                                  use_pallas=use_pallas), (mk, mv)
 
 
 def _attn_params(top, pslice, i: int, slot: Slot):
@@ -264,9 +285,17 @@ def _remat(body, remat: str):
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, *,
-            tokens: torch.Tensor, act_wl: Dict[str, torch.Tensor] | None = None,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            memory: Optional[torch.Tensor] = None,
+            act_wl: Dict[str, torch.Tensor] | None = None,
             use_pallas: bool = False, remat: str = "none") -> torch.Tensor:
     """Full-sequence forward → logits (B, S, V) f32, differentiable.
+
+    ``tokens``: (B, S) int for the LM archs; ``embeds``: (B, S, D) frame
+    embeddings for an encoder, whose attention is not causal; ``memory``:
+    (B, M, D) image-patch embeddings for the cross slots, projected in
+    every cross layer's body.
 
     ``act_wl`` ({slot key: (num_periods,) int WL}, ``act_wl_from_state``)
     quantizes the residual stream at the end of each slot at that layer's
@@ -275,9 +304,9 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
     to its activation quantization, so no unpacked weight is saved; the
     embedding, the final norm and the head stay outside, as in the
     reference's per-period scan."""
-    plan, _ = _ported_plan(cfg)
+    plan, _ = build_plan(cfg)
     top = _top(params, use_pallas)
-    x = _embed(top, tokens, cfg)
+    x = _inputs(top, cfg, tokens, embeds, use_pallas)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     causal = not cfg.is_encoder
@@ -290,6 +319,9 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
             if slot.kind == "mamba":
                 x = ssm.apply(pslice[slot_key(i, slot)], x, cfg,
                               use_pallas=use_pallas)
+            elif slot.kind == "cross":
+                x, _ = _cross(top, pslice, x, cfg, i, slot, memory,
+                              use_pallas)
             else:
                 x, _ = attention.attend_full(
                     _attn_params(top, pslice, i, slot), x, cfg, positions,
@@ -333,7 +365,7 @@ def cache_len(slot: Slot, context: int) -> int:
 
 def init_caches(cfg: ModelConfig, batch: int, context: int,
                 dtype=torch.bfloat16, *, device=None) -> Dict[str, Any]:
-    plan, np_ = _ported_plan(cfg)
+    plan, np_ = build_plan(cfg)
     dev = resolve_device(device)
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     caches: Dict[str, Any] = {}
@@ -342,7 +374,9 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
             caches[slot_key(i, slot)] = ssm.init_cache(cfg, batch, np_, dtype,
                                                        device=dev)
             continue
-        C = cache_len(slot, context)
+        # a cross slot holds the memory's projected k/v, one per image token
+        C = (cfg.num_image_tokens if slot.kind == "cross"
+             else cache_len(slot, context))
         caches[slot_key(i, slot)] = {
             "k": torch.zeros((np_, batch, C, hkv, dh), dtype=dtype, device=dev),
             "v": torch.zeros((np_, batch, C, hkv, dh), dtype=dtype, device=dev),
@@ -371,16 +405,19 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
     nothing of this path reads back to the host, so it can be captured in
     a CUDA graph). Returns (logits (B, V) f32, caches). The caches are
     updated in place (the reference returns new ones) and returned: an
-    attention slot's new k/v, a mamba slot's conv window and SSM state."""
-    plan, _ = _ported_plan(cfg)
+    attention slot's new k/v, a mamba slot's conv window and SSM state; a
+    cross slot reads its cache (the memory's k/v from prefill) and writes
+    nothing."""
+    plan, _ = build_plan(cfg)
     if not isinstance(t, torch.Tensor):
         t = int(t)
     top = _top(params, use_pallas)
     x = _embed(top, token[:, None], cfg)
     # slot positions depend only on the slot's cache length and t: one
-    # per slot, not one per layer
-    spos = {key: _slot_positions(c["k"].shape[2], t, device=x.device)
-            for key, c in caches.items() if "k" in c}
+    # per self-attention slot, not one per layer
+    spos = {slot_key(i, slot): _slot_positions(
+        caches[slot_key(i, slot)]["k"].shape[2], t, device=x.device)
+        for i, slot in enumerate(plan) if slot.kind == "attn"}
     for l, (pslice,) in enumerate(unbind_layers(params["blocks"])):
         pslice = fxp.unpack_tree(pslice, keep_dense=use_pallas)
         for i, slot in enumerate(plan):
@@ -389,6 +426,11 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
                 x, _ = ssm.apply_decode(
                     pslice[key], x, cfg,
                     {n: c[l] for n, c in caches[key].items()},
+                    use_pallas=use_pallas)
+            elif slot.kind == "cross":
+                x = attention.cross_attend(
+                    _attn_params(top, pslice, i, slot), x, cfg,
+                    caches[key]["k"][l], caches[key]["v"][l],
                     use_pallas=use_pallas)
             else:
                 ck, cv = caches[key]["k"][l], caches[key]["v"][l]
@@ -417,13 +459,14 @@ def _roll_into_cache(k: torch.Tensor, C: int) -> torch.Tensor:
 
 
 def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
-            use_pallas: bool = False, cache_dtype=torch.bfloat16
-            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            memory: Optional[torch.Tensor] = None, use_pallas: bool = False,
+            cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt, returning (last-position logits (B,V), caches
     stacked over the periods per slot: (num_periods, B, C, Hkv, Dh) k and v
-    for attention, the conv window in ``cache_dtype`` and the f32 SSM
-    state for mamba)."""
-    plan, _ = _ported_plan(cfg)
+    for attention, (num_periods, B, M, Hkv, Dh) for a cross slot (the
+    projected ``memory``, in ``cache_dtype``), the conv window in
+    ``cache_dtype`` and the f32 SSM state for mamba)."""
+    plan, _ = build_plan(cfg)
     top = _top(params, use_pallas)
     x = _embed(top, tokens, cfg)
     B, S = tokens.shape
@@ -437,6 +480,10 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
                 x, st = ssm.apply(pslice[key], x, cfg, return_state=True,
                                   use_pallas=use_pallas)
                 st["conv"] = st["conv"].to(cache_dtype)
+            elif slot.kind == "cross":
+                x, (k, v) = _cross(top, pslice, x, cfg, i, slot, memory,
+                                   use_pallas)
+                st = {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
             else:
                 x, (k, v) = attention.attend_full(
                     _attn_params(top, pslice, i, slot), x, cfg, positions,
@@ -460,8 +507,8 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, *,
 def act_wl_from_state(adapt_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Per-slot activation word length = the slot out-projection's WL
     (paper: activations are quantized at the layer's precision): ``wo`` of
-    an attention slot, ``out_proj`` of a mamba slot. A shared slot has
-    none, as in the reference."""
+    an attention or cross slot, ``out_proj`` of a mamba slot. A shared slot
+    has none, as in the reference."""
     out = {}
     for path, ts in adapt_state["tensors"].items():
         parts = path.split("/")

@@ -10,6 +10,9 @@ layers are library products, as the reference leaves them to XLA. Under
 ``quant.use_pallas`` the prefill's attention runs the flash kernel.
 ``quantize_serving_levels`` makes the AdaBits word-set ladder that the
 continuous batcher (``serve/scheduler.py``) swaps between decode steps.
+A VLM's prompt comes with its image memory, whose projected k/v the
+prefill caches for every decode step. An encoder (the audio family) has
+no decode step: the engine refuses it.
 """
 from __future__ import annotations
 
@@ -96,8 +99,8 @@ def quantize_serving_levels(params, adapt_state, qcfg, levels):
 def make_prefill(cfg: Config):
     m = cfg.model
 
-    def prefill_step(qparams, tokens):
-        return transformer.prefill(qparams, m, tokens,
+    def prefill_step(qparams, tokens, memory=None):
+        return transformer.prefill(qparams, m, tokens, memory=memory,
                                    use_pallas=cfg.quant.use_pallas)
 
     return prefill_step
@@ -111,6 +114,15 @@ def make_decode(cfg: Config):
                                        use_pallas=cfg.quant.use_pallas)
 
     return decode_step
+
+
+def check_decoder(cfg: Config) -> None:
+    """Serving decodes tokens: an encoder has no embedding and no decode
+    step (the reference's ``Engine.generate`` fails on the missing
+    ``embed``), so it is refused by name."""
+    if cfg.model.is_encoder:
+        raise ValueError(f"{cfg.model.name} is an encoder: it has no decode "
+                         "step to serve")
 
 
 def sample(logits: torch.Tensor, key: Optional[threefry.Key] = None,
@@ -129,10 +141,12 @@ class Engine:
     """Minimal batched serving engine over the quantized model.
 
     ``device`` defaults to ``cuda`` and raises on a host without CUDA unless
-    ``device="cpu"``; every tensor of ``params`` must lie on it."""
+    ``device="cpu"``; every tensor of ``params`` must lie on it. An encoder
+    raises ``ValueError`` (``check_decoder``)."""
 
     def __init__(self, cfg: Config, params, adapt_state: Optional[dict] = None,
                  *, device=None):
+        check_decoder(cfg)
         self.device = resolve_device(device)
         for path, leaf in flatten_with_path(params):
             if leaf.device.type != self.device.type:
@@ -146,16 +160,20 @@ class Engine:
 
     @torch.inference_mode()
     def generate(self, tokens: torch.Tensor, max_new_tokens: int, *,
+                 memory: Optional[torch.Tensor] = None,
                  temperature: float = 0.0, seed: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S) prompt batch (same length). Returns (generated
+        """tokens: (B, S) prompt batch (same length); ``memory``: (B, M, D)
+        image-patch embeddings for a VLM's cross slots. Returns (generated
         (B, max_new) int32, last logits (B, V) f32)."""
         tokens = tokens.to(self.device)
+        if memory is not None:
+            memory = memory.to(self.device)
         B, S = tokens.shape
         context = S + max_new_tokens
         caches = transformer.init_caches(self.cfg.model, B, context,
                                          device=self.device)
-        logits, pref_caches = self._prefill(self.qparams, tokens)
+        logits, pref_caches = self._prefill(self.qparams, tokens, memory)
         caches = _merge_prefill_caches(caches, pref_caches, S)
         # the reference's keys: PRNGKey(seed) for the first token,
         # fold_in(key, i) for token i + 1 (greedy decoding needs none)
@@ -178,11 +196,12 @@ def _merge_prefill_caches(full: Dict[str, Any], pref: Dict[str, Any],
     """Embed prefill caches (sized to the prompt) into the generation-sized
     cache buffers (in place). Positions keep their slot = pos % C invariant
     because the full cache length C' >= prompt length. A mamba slot's
-    conv window and SSM state have the same shapes in both and are copied
-    whole."""
+    conv window and SSM state, and a cache as long in both (a cross slot's
+    memory k/v, ``engine.py:170``), are copied whole."""
     for key, slot_cache in full.items():
         p = pref[key]
-        if "ssm" in slot_cache:
+        if "ssm" in slot_cache or (slot_cache["k"].shape[2]
+                                   == p["k"].shape[2]):
             for n, dst in slot_cache.items():
                 dst.copy_(p[n])
             continue

@@ -56,7 +56,7 @@ from repro_torch.core import threefry
 from repro_torch.core.controller import flatten_with_path
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.serve.engine import (quantize_for_serving,
+from repro_torch.serve.engine import (check_decoder, quantize_for_serving,
                                       quantize_serving_levels, sample)
 from repro_torch.serve.faults import FaultInjector, TransientDecodeError
 from repro_torch.serve.journal import RequestJournal
@@ -127,7 +127,10 @@ class ContinuousBatcher:
     """Explicit kwargs override ``cfg.serve``; ``clock`` must be monotonic
     (injectable for deterministic deadline tests). ``device`` defaults to
     ``cuda`` and raises on a host without CUDA unless ``device="cpu"``;
-    every tensor of ``params`` must lie on it."""
+    every tensor of ``params`` must lie on it. An encoder raises
+    ``ValueError`` (``engine.check_decoder``). A VLM's cross slots read
+    the zeros of ``init_caches``: the reference's batcher takes no image
+    memory, and neither does this one."""
 
     def __init__(self, cfg: Config, params, adapt_state=None, *,
                  slots: Optional[int] = None,
@@ -141,6 +144,7 @@ class ContinuousBatcher:
                  journal_path: str = "",
                  clock: Callable[[], float] = time.monotonic,
                  device=None):
+        check_decoder(cfg)
         self.device = resolve_device(device)
         for path, leaf in flatten_with_path(params):
             if leaf.device.type != self.device.type:

@@ -1,5 +1,6 @@
 """AdaPT-SGD training loop of the port (paper alg. 1; counterpart of
-``repro/train/train_loop.py``), dense LM and CNN families.
+``repro/train/train_loop.py``), the LM stack's families (an encoder's
+frames and a VLM's image memory among them) and the CNN family.
 
 Each ``train_step``:
     1. L̂ = Quantize(L, Q)            — the quantized copy of the f32 master
@@ -116,11 +117,23 @@ def init_state(cfg: Config, seed: Optional[int] = None, *, device=None
 
 
 def _task_loss(cfg: Config, qparams, batch, act_wl=None) -> torch.Tensor:
-    """The LM loss of the quantized copy on ``batch`` (differentiable)."""
-    logits = transformer.forward(qparams, cfg.model, tokens=batch["tokens"],
-                                 act_wl=act_wl, use_pallas=cfg.quant.use_pallas,
-                                 remat=cfg.train.remat)
-    return transformer.lm_loss(logits, batch["tokens"], shift=True)
+    """The LM loss of the quantized copy on ``batch`` (differentiable), as
+    the reference dispatches it (``train_loop.py:77-86``): an encoder's
+    framewise CE of ``embeds`` against ``labels`` (no shift), else the
+    shifted loss of ``tokens``; a VLM's forward also reads ``memory``."""
+    m = cfg.model
+    if m.is_encoder:
+        kwargs = {"embeds": batch["embeds"]}
+        targets, shift = batch["labels"], False
+    else:
+        kwargs = {"tokens": batch["tokens"]}
+        targets, shift = batch["tokens"], True
+    if m.cross_attn_every:
+        kwargs["memory"] = batch["memory"]
+    logits = transformer.forward(qparams, m, act_wl=act_wl,
+                                 use_pallas=cfg.quant.use_pallas,
+                                 remat=cfg.train.remat, **kwargs)
+    return transformer.lm_loss(logits, targets, shift=shift)
 
 
 def _cnn_task_loss(cfg: Config, qparams, stats, batch):

@@ -42,7 +42,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.serve.scheduler, repro_torch.serve.journal, "
             "repro_torch.serve.faults, repro_torch.serve.policy, "
             "repro_torch.models.ssm, repro_torch.configs.mamba2_780m, "
-            "repro_torch.configs.zamba2_7b\n"
+            "repro_torch.configs.zamba2_7b, "
+            "repro_torch.configs.llama3_2_vision_11b, "
+            "repro_torch.configs.hubert_xlarge, repro_torch.data.synthetic\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax', 'jaxlib', 'msgpack') or m.startswith('jax'))\n"
             "assert not bad, bad\n")
@@ -91,16 +93,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_archs_and_slots_raise():
+    # every arch of the reference's registry is ported: the VLM and the
+    # audio encoder load, a cross slot and an encoder initialize
     for arch in ("llama-3.2-vision-11b", "hubert-xlarge"):
-        with pytest.raises(KeyError, match="slice"):
-            get_config(arch)
+        assert get_config(arch).model.name == arch
     with pytest.raises(KeyError, match="unknown"):
         get_config("nope")
     tiny = load_config("tiny").model
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        transformer.init_params(0, dataclasses.replace(tiny,
-                                                       cross_attn_every=1),
+    p = transformer.init_params(0, dataclasses.replace(
+        tiny, num_layers=2, cross_attn_every=2), device="cpu")
+    assert set(p["blocks"]) == {"s0_attn", "s0_mlp", "s1_cross", "s1_mlp"}
+    p = transformer.init_params(0, dataclasses.replace(tiny, is_encoder=True),
                                 device="cpu")
+    assert "embed" not in p and "in_proj" in p
     # mamba and shared-attention slots are ported
     p = transformer.init_params(0, dataclasses.replace(
         tiny, layer_pattern=("mamba",), ssm_state=8, ssm_head_dim=16),
