@@ -256,7 +256,23 @@ Phases (any failure exits non-zero; nothing is caught):
      512 frames through a switch, then its registry config with only batch
      and sequence cut); each peak; both smoke configs card against CPU
      (the VLM's ``Engine`` and batcher, one packed SR step of each with
-     activation quantization on and one with it off).
+     activation quantization on and one with it off);
+ 26. the data-parallel mesh: (a) full-width llama3.2-3b leaves (the
+     embedding, stacked wq and wi_up) under the specs ``param_pspec`` gives
+     them with zero_shard on (1, 2, 1), (2, 2, 1) and (1, 4, 1) meshes,
+     quantized block by block on the card by the four fused SR entry
+     points with the per-shard seeds, each block and the assembled leaf
+     bit for bit against their plain versions, each launch timed; (b) two
+     ranks spawned on cuda:0 over gloo (the kernels built first, here),
+     llama3.2-3b at full width and depth 14 of 28 in the float32
+     container under use_pallas, fused_prng and SR: 2 steps and a switch
+     on a (1, 2, 1) mesh with zero_shard, 2 steps on a (2, 1, 1) mesh with
+     QSGD across pods, exact launches a rank, ⟨WL,FL⟩ equal on both ranks, the
+     first step within 2e-2 normwise a leaf of one process that computes
+     each rank's gradients on its rows with the same words and sums them
+     as the ranks do; step ms a rank, the bytes each collective is handed,
+     the QSGD payload against f32, the peak a rank (two ranks on one card:
+     not a multi-GPU speed).
 
 The second-to-last line is the kernels' JSON record and the last line is
 ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -6138,6 +6154,393 @@ def cross_encoder_card_vs_cpu(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the data-parallel mesh (sharding rules, per-shard SR words,
+# ZeRO blocks, QSGD across pods)
+
+MESH_AXES = ("pod", "data", "model")
+SHARD_MESHES = [(1, 2, 1), (2, 2, 1), (1, 4, 1)]
+SHARD_LEAVES = {"embed": (VOCAB, D_MODEL),
+                "blocks/s0_attn/wq": (N_LAYERS, D_MODEL, D_MODEL),
+                "blocks/s0_mlp/wi_up": (N_LAYERS, D_MODEL, D_FF)}
+# Two ranks share cuda:0 over gloo, so the full depth's two masters, their
+# gathered copies and gradients would not fit 80 GB: depth 14 of 28.
+DP_DEPTH = 14
+DP_STEPS = 2                   # the first held against one process, then
+DP_SEED = 29                   # a switch after the second (lookback 2)
+DP_OVERRIDES = FLOAT_OVERRIDES + [f"model.num_layers={DP_DEPTH}"]
+# (mesh, overrides, a switch after the steps): the switch, which gathers
+# each master and "grad_sum", runs once, on the blocks of the zero run
+DP_RUNS = {"zero_1x2x1": ((1, 2, 1), ["train.zero_shard=true"], True),
+           "qsgd_2x1x1": ((2, 1, 1), ["train.qsgd_pod_compression=true"],
+                          False)}
+# The ranks' first step against one process given the same words (each
+# leaf quantized block by block as the ranks quantize it). The zero run:
+# one step on the whole global batch with no mesh, so a fault in how the
+# ranks split the batch shows. Each rank's weight gradients come out of
+# bf16 GEMMs on its half of the rows, rounded to bf16 there (<= 2^-9
+# relative an element) and then averaged, where the one process rounds the
+# whole batch's once: the updates differ by that rounding (2.4e-3 normwise
+# per leaf in tests/test_torch_dp.py's two-rank step on the CPU), held at
+# 1e-2, and the losses at 1e-4. The QSGD run: each pod's gradient on its
+# rows (sliced from the batch, not by the ranks' split), encoded with the
+# step key, the decoded words summed in pod order: the same GEMMs and the
+# same sums, so held at bit equality.
+DP_UPDATE_NORMWISE = 1e-2
+DP_LOSS_RTOL = 1e-4
+DP_JOIN_S = 420
+# a rank's launches over the steps: every quantized leaf's block once a
+# step, the flash kernels once a layer; the switch adds the ladder once a
+# tensor (on the gathered master)
+DP_PATH = {**ZERO, "sr_quantize_fused_stacked": N_STACKED * DP_STEPS,
+           "sr_quantize_fused": N_FLAT * DP_STEPS,
+           "flash_attention": DP_DEPTH * DP_STEPS,
+           "flash_attention_dq": DP_DEPTH * DP_STEPS,
+           "flash_attention_dkv": DP_DEPTH * DP_STEPS}
+DP_SWITCH = {"edf_ladder_hists": N_STACKED + N_FLAT}
+
+
+def _rank_blocks(shape, spec, sizes):
+    """(shard index, block slices, that rank's ``NamedSharding``) of each
+    distinct block of a leaf of ``shape`` under ``spec`` on a mesh of
+    ``sizes``, as the first rank that holds it sees it: replicas along the
+    axes the spec does not name hold the same block and draw the same
+    words."""
+    from repro_torch import distributed as dst
+    from repro_torch.sharding import Mesh, NamedSharding
+    mesh = Mesh(MESH_AXES, sizes)
+    seen = set()
+    for r in range(math.prod(sizes)):
+        m = mesh.at(dst.rank_coords(r, MESH_AXES, sizes))
+        i = dst.shard_index(spec, m, len(shape))
+        if i not in seen:
+            seen.add(i)
+            yield (i, dst.block_slices(shape, spec, m),
+                   NamedSharding(m, spec, shape))
+
+
+def sharded_kernels(torch):
+    """Phase 26 (a): full-width llama3.2-3b leaves (the embedding, a stacked
+    wq and wi_up) under every spec ``param_pspec`` gives them with
+    zero_shard on (1, 2, 1), (2, 2, 1) and (1, 4, 1) meshes, quantized
+    block by block on the card by all four entry points with the per-shard
+    seeds (``kops.sr_quantize_fused[_int8](sharding=)``), each block bit for
+    bit against its plain version and the whole against the assembled
+    plain version (``ref_sr_quantize_fused_sharded_words``); each launch
+    timed by CUDA events beside its plain version and its bound."""
+    from repro_torch.config import load_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import Mesh, shard_grid
+    cfg = load_config("llama3.2-3b", overrides=["train.zero_shard=true"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    rows = []
+    for path, shape in SHARD_LEAVES.items():
+        x = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        stacked = len(shape) == 3
+        L = shape[0]
+        wl = (torch.full((L,), 8, dtype=torch.int32, device="cuda")
+              if stacked else torch.tensor(8, dtype=torch.int32,
+                                           device="cuda"))
+        fl = wl + 2
+        for sizes in SHARD_MESHES:
+            mesh = Mesh(MESH_AXES, sizes)
+            spec = mesh_lib.param_pspec(path, shape, cfg, mesh, fsdp=True)
+            grid = shard_grid(shape, spec, mesh)
+            for int8 in (True, False):
+                name = ("sr_quantize_fused" + ("_stacked" if stacked else "")
+                        + ("_int8" if int8 else ""))
+                whole = torch.empty(shape, dtype=torch.int8 if int8
+                                    else torch.float32, device="cuda")
+                for i, sl, sh in _rank_blocks(shape, spec, sizes):
+                    blk = x[sl].contiguous()
+
+                    def call(b=blk, sh=sh):
+                        if int8:
+                            return ops.sr_quantize_fused_int8(
+                                b, 17, fl, use_pallas=True, sharding=sh)
+                        return ops.sr_quantize_fused(b, 17, wl, fl,
+                                                     use_pallas=True,
+                                                     sharding=sh)
+                    q = call()
+                    seed = int(ref.ref_fold_shard_seed(17, i))
+                    rows_l = sl[0]
+                    if int8:
+                        plain = (lambda b=blk: ref
+                                 .ref_sr_quantize_fused_stacked_int8_words(
+                                     b, seed, fl[rows_l]) if stacked else
+                                 ref.ref_sr_quantize_fused_int8_words(
+                                     b, seed, fl))
+                    else:
+                        plain = (lambda b=blk: ref
+                                 .ref_sr_quantize_fused_stacked_words(
+                                     b, seed, wl[rows_l], fl[rows_l])
+                                 if stacked else
+                                 ref.ref_sr_quantize_fused_words(b, seed, wl,
+                                                                 fl))
+                    want = plain()
+                    if not torch.equal(q, want):
+                        raise AssertionError(f"{name} {sizes} block {i} of "
+                                             f"{path}: not bit-equal")
+                    whole[sl] = q
+                    out_b = 1 if int8 else 4
+                    n = blk.numel()
+                    tb, by = bound(n * (4 + out_b), 0)
+                    rows.append({
+                        "kernel": name, "leaf": path, "mesh": list(sizes),
+                        "spec": [list(a) if isinstance(a, tuple) else a
+                                 for a in spec],
+                        "block": i, "shape": list(blk.shape),
+                        "ms": cuda_time_ms([call], 5),
+                        "plain_ms": cuda_time_ms([plain], 1),
+                        "bound_ms": tb, "bound_by": by})
+                assembled = ref.ref_sr_quantize_fused_sharded_words(
+                    x, 17, wl, fl, grid, int8=int8)
+                if not torch.equal(whole, assembled):
+                    raise AssertionError(f"{name} {sizes} {path}: assembled "
+                                         "blocks differ")
+                del whole, assembled
+                torch.cuda.empty_cache()
+        del x
+    log(f"[26a] {len(rows)} blocks bit-equal on {len(SHARD_MESHES)} meshes")
+    return rows
+
+
+def _dp_config(extra):
+    from repro_torch.config import load_config
+    return load_config("llama3.2-3b", overrides=DP_OVERRIDES + list(extra))
+
+
+def _dp_one_process(torch, cfg, sizes, batch):
+    """The ranks' first step in one process, with no mesh, from the same
+    initial state (``init_state`` from ``DP_SEED``) and the same words
+    (every leaf the ranks hold in blocks quantized block by block with its
+    per-shard seeds, ``_rank_blocks``). Without QSGD the gradients of the
+    whole global batch (``train_loop.loss_and_grads``); under QSGD each
+    pod's gradient on its own rows, sliced from the batch, encoded with the
+    step key, the decoded words summed in pod order and divided by the pod
+    count. Then ``train_loop.apply_grads``."""
+    from repro_torch.core import controller, threefry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.quant import qsgd
+    from repro_torch.sharding import Mesh, folded_axes, held_in_blocks
+    from repro_torch.train import train_loop
+    state = train_loop.init_state(cfg, DP_SEED, device="cuda")
+    sh = dict(controller.flatten_with_path(mesh_lib.state_shardings(
+        {"params": state["params"]}, cfg, Mesh(MESH_AXES, sizes))["params"]))
+    tensors = state["adapt"]["tensors"]
+    seeds = controller.leaf_seeds(DP_SEED, 0, tensors)
+    qparams = controller.quantize_params(state["params"], state["adapt"],
+                                         cfg.quant, seeds)
+    for p, leaf in controller.flatten_with_path(state["params"]):
+        if p not in tensors or not folded_axes(sh[p].spec, leaf.ndim):
+            continue
+        if not held_in_blocks(leaf.shape, sh[p]):
+            raise AssertionError(f"[26b] {p}: an uneven leaf takes the "
+                                 "noise path; the check quantizes blocks")
+        words = torch.empty_like(leaf)
+        for _, sl, bsh in _rank_blocks(tuple(leaf.shape), sh[p].spec, sizes):
+            words[sl] = ops.sr_quantize_fused(
+                leaf[sl], seeds[p], tensors[p]["wl"], tensors[p]["fl"],
+                use_pallas=True, sharding=bsh)
+        controller._set_path(qparams, p, words)
+    if not cfg.train.qsgd_pod_compression:
+        g, full, task, aux = train_loop.loss_and_grads(cfg, qparams, state,
+                                                       batch)
+        del qparams
+        return train_loop.apply_grads(cfg, state, g, full, task, aux)
+    pods = sizes[0]
+    rows = next(iter(batch.values())).shape[0] // pods
+    key = controller.step_key(DP_SEED, 0)
+    full = task = 0.0
+    words = []
+    for i in range(pods):
+        part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        g, f, t, aux = train_loop.loss_and_grads(cfg, qparams, state, part)
+        full, task = full + f, task + t
+        order = {p: j for j, p in enumerate(qsgd.sorted_paths(g))}
+        words.append({p: qsgd.encode(v, threefry.fold_in(key, order[p]),
+                                     cfg.train.qsgd_bits)
+                      for p, v in g.items()})
+        del g
+    del qparams
+    total = {p: qsgd.sum_decoded([w[p][0] for w in words],
+                                 [w[p][1] for w in words]).div_(pods)
+             for p in words[0]}
+    del words
+    return train_loop.apply_grads(cfg, state, total, full / pods,
+                                  task / pods, aux)
+
+
+def dp_rank(rank: int, world: int, store: str, sizes, extra, switch: bool,
+            out: str):
+    """One rank of phase 26 (b), a spawned process on cuda:0 over gloo: the
+    reduced llama3.2-3b, ``DP_STEPS`` steps (and a switch when ``switch``)
+    on the mesh ``sizes`` (launches counted from 0 over them, each timed, the
+    bytes each collective was handed in the first step, the peak memory),
+    the first step's gathered params kept on the host; then rank 0 frees
+    its state and runs the first step in one process
+    (``_dp_one_process``) against them. Writes its record to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import distributed as dst
+    from repro_torch.core import controller
+    from repro_torch.train import train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = dst.init_mesh(dict(zip(MESH_AXES, sizes)), "gloo",
+                         device="cuda:0", rank=rank, world_size=world,
+                         init_method=f"file://{store}", timeout_s=DP_JOIN_S)
+    cfg = _dp_config(extra)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, DP_SEED, device="cuda:0", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = train_loop.make_train_step(cfg, mesh=mesh)
+    switch_fn = train_loop.make_precision_switch(cfg, mesh=mesh)
+    batches = [train_loop.make_batch(cfg, i, device="cuda:0")
+               for i in range(DP_STEPS)]
+    ws = wrappers()
+    reset_counts(ws)
+    torch.cuda.reset_peak_memory_stats()
+    steps, metrics, first = [], [], None
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i], step=i)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            sent = dict(mesh.sent_bytes)
+            launches_1 = {k: w.launches for k, w in ws.items()}
+            layout = dst.Layout(mesh, state["layout"])
+            first = {p: layout.gather(p, t).to("cpu", copy=True) for p, t in
+                     controller.flatten_with_path(state["params"])}
+    switch_ms = None
+    if switch:
+        t0 = time.perf_counter()
+        state = switch_fn(state)
+        torch.cuda.synchronize()
+        switch_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: w.launches for k, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wlfl = {p: (ts["wl"].tolist(), ts["fl"].tolist())
+            for p, ts in state["adapt"]["tensors"].items()}
+    blocks = {p: list(t.shape) for p, t in
+              controller.flatten_with_path(state["params"])}
+    rec = {"rank": rank, "mesh": list(sizes), "init_s": init_s,
+           "step_ms": steps, "switch_ms": switch_ms, "metrics": metrics,
+           "launches": launches, "launches_step_1": launches_1,
+           "sent_bytes_step_1": sent, "peak_gib": peak, "wlfl": wlfl,
+           "blocks": blocks}
+    del state, batches[1:]
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        one, om = _dp_one_process(torch, cfg, sizes, batches[0])
+        init = dict(controller.flatten_with_path(train_loop.init_state(
+            cfg, DP_SEED, device="cuda:0")["params"]))
+        errs = {}
+        for p, t in controller.flatten_with_path(one["params"]):
+            d_one = (t - init[p]).float()
+            d_rank = (first[p].to(t.device) - init[p]).float()
+            errs[p] = float(torch.linalg.vector_norm(d_rank - d_one)
+                            / torch.linalg.vector_norm(d_one))
+        rec["check"] = {"seconds": time.perf_counter() - t0,
+                        "update_normwise": errs,
+                        "loss_one_process": float(om["loss"]),
+                        "loss_ranks": metrics[0]["loss"],
+                        "grad_norm_one_process": float(om["grad_norm"]),
+                        "grad_norm_ranks": metrics[0]["grad_norm"]}
+    torch.distributed.barrier()
+    Path(out).write_text(json.dumps(rec))
+    dst.destroy(mesh)
+
+
+def dp_path(torch):
+    """Phase 26 (b): two ranks sharing cuda:0 over gloo (spawned; the
+    kernels built by the parent before), per run of ``DP_RUNS``: the
+    reduced llama3.2-3b in the float32 container under use_pallas,
+    fused_prng and SR, ``DP_STEPS`` steps (and the zero run's switch),
+    ⟨WL,FL⟩ equal on both ranks, every kernel of the path launched, the
+    first step against one process given the same words
+    (``_dp_one_process``): the zero run within ``DP_UPDATE_NORMWISE`` and
+    ``DP_LOSS_RTOL``, the QSGD run bit for bit. These are two ranks on one
+    card: not a multi-GPU speed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out = {}
+    for tag, (sizes, extra, switch) in DP_RUNS.items():
+        world = math.prod(sizes)
+        store = ROOT / "build" / f"dp_store_{tag}"
+        store.parent.mkdir(exist_ok=True)
+        store.unlink(missing_ok=True)
+        files = [ROOT / "build" / f"dp_{tag}_rank{r}.json"
+                 for r in range(world)]
+        for f in files:
+            f.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_rank, args=(r, world, str(store),
+                                                   sizes, extra, switch,
+                                                   str(f)))
+                 for r, f in enumerate(files)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(DP_JOIN_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"[26b] {tag}: rank exit codes {codes}")
+        recs = [json.loads(f.read_text()) for f in files]
+        store.unlink(missing_ok=True)
+        if any(r["wlfl"] != recs[0]["wlfl"] for r in recs[1:]):
+            raise AssertionError(f"[26b] {tag}: <WL,FL> differ across ranks")
+        want = {**DP_PATH, **(DP_SWITCH if switch else {})}
+        for r in recs:
+            for k, per in want.items():
+                if r["launches"][k] != per:
+                    raise AssertionError(f"[26b] {tag} rank {r['rank']}: "
+                                         f"{k} launched {r['launches'][k]}")
+        chk = recs[0]["check"]
+        worst = max(chk["update_normwise"].values())
+        rel = abs(chk["loss_ranks"] - chk["loss_one_process"]) / abs(
+            chk["loss_one_process"])
+        bounds = ((0.0, 0.0) if "qsgd" in tag
+                  else (DP_UPDATE_NORMWISE, DP_LOSS_RTOL))
+        if worst > bounds[0] or rel > bounds[1]:
+            raise AssertionError(f"[26b] {tag}: against one process update "
+                                 f"{worst:.3g}, loss {rel:.3g}, held at "
+                                 f"{bounds}")
+        f32 = sum(math.prod(s) for s in
+                  (recs[0]["blocks"][p] for p in recs[0]["blocks"])) * 4
+        out[tag] = {"ranks": recs, "seconds": time.perf_counter() - t0,
+                    "worst_update_normwise": worst, "loss_rel": rel}
+        log(f"[26b] {tag}: mesh {sizes}, step ms "
+            + ", ".join("/".join(f"{x:.0f}" for x in r["step_ms"])
+                        for r in recs)
+            + f", switch {recs[0]['switch_ms']} ms, peak "
+            + "/".join(f"{r['peak_gib']:.2f}" for r in recs)
+            + f" GiB, step-1 bytes rank 0 {recs[0]['sent_bytes_step_1']}, "
+            f"vs one process: update {worst:.3g}, loss {rel:.3g}; "
+            f"{out[tag]['seconds']:.1f} s")
+        if "qsgd" in tag:
+            words = sum(math.prod(s) + 4 for s in recs[0]["blocks"].values())
+            out[tag]["qsgd_payload_bytes"] = words
+            out[tag]["f32_bytes"] = f32
+            log(f"[26b] QSGD payload {words} B against f32 {f32} B")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6318,6 +6721,14 @@ def main() -> int:
     cross_depth2 = cross_encoder_card_vs_cpu(torch)
     mark("25 smoke vs CPU")
 
+    # 26. the data-parallel mesh: the per-shard SR kernels at full width;
+    # two ranks sharing the card over gloo (ZeRO blocks, QSGD across pods)
+    shard_rows = sharded_kernels(torch)
+    mark("26 per-shard kernels")
+    torch.cuda.empty_cache()
+    dp_res = dp_path(torch)
+    mark("26 two ranks")
+
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
             prologue_res["launches"], default_res["launches"],
@@ -6356,7 +6767,7 @@ def main() -> int:
                             flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err,
                             sr_rows, edf_rows, grid_rows, q_rows, q_err,
                             ops_rows, cnn_res, family, slice_16, slice_17,
-                            slice_18)
+                            slice_18, shard_rows, dp_res)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6384,7 +6795,9 @@ def main() -> int:
         "mamba2": mamba_res, "zamba2": zamba_res,
         "ssm_smoke_vs_cpu": ssm_depth2, "cross_encoder_shapes": cross_rows,
         "vlm": vlm_res, "hubert": hubert_res,
-        "cross_encoder_smoke_vs_cpu": cross_depth2, "kernels": kernels,
+        "cross_encoder_smoke_vs_cpu": cross_depth2,
+        "sharded_kernels": shard_rows, "data_parallel": dp_res,
+        "kernels": kernels,
         "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -6398,7 +6811,7 @@ def main() -> int:
 def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                   bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows,
                   grid_rows, q_rows, q_err, ops_rows, cnn_res, family,
-                  slice_16, slice_17, slice_18):
+                  slice_16, slice_17, slice_18, shard_rows, dp_res):
     """One entry per kernel. ``launches`` sums the counts of the main
     paths' runs of phases 4-14 (``runs``); ``launches_16_18`` those of the
     counted runs of phases 16-18 (``later``: remat, accumulation at
@@ -6448,7 +6861,12 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     in the JSON file. ``launches_25`` counts those of phase 25
     (``slice_18``: llama-3.2-vision-11b's ``Engine`` run and SR steps,
     hubert-xlarge's SR steps and registry config), whose per-shape times
-    are ``cross_encoder_shapes``'s rows in the JSON file."""
+    are ``cross_encoder_shapes``'s rows in the JSON file.
+    ``launches_26`` counts those of phase 26's two-rank runs (both ranks
+    of both meshes, ``DP_RUNS``); the four fused SR kernels add
+    ``sharded_26``: phase 26 (a)'s per-shard launches (one per distinct
+    block of each full-width leaf and mesh), their times, plain times and
+    bounds summed."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     device_keys = ("device_ms", "library_device_ms")
 
@@ -6565,6 +6983,17 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
             raise AssertionError(f"phase 19 {k}: {rec['launches']} launches "
                                  f"timed, {cnn_res['launches'][k]} counted")
 
+    launches_26 = {k: sum(r["launches"][k] for run in dp_res.values()
+                          for r in run["ranks"]) for k in KERNELS}
+    sharded_26 = {}
+    for row in shard_rows:
+        acc = sharded_26.setdefault(row["kernel"], {
+            "blocks": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": row["bound_by"]})
+        acc["blocks"] += 1
+        for key in ("ms", "plain_ms", "bound_ms"):
+            acc[key] += row[key]
+
     def entry(name, source, replaces, err, times):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
@@ -6575,9 +7004,12 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                 "launches_20_21": launches_family[name],
                 "launches_22_23": launches_slice_16[name],
                 "launches_24": launches_slice_17[name],
-                "launches_25": launches_slice_18[name], "max_abs_err": err,
+                "launches_25": launches_slice_18[name],
+                "launches_26": launches_26[name], "max_abs_err": err,
                 **times, **({"cnn_19": cnn_19[name]} if name in cnn_19
-                            else {})}
+                            else {}),
+                **({"sharded_26": sharded_26[name]} if name in sharded_26
+                   else {})}
 
     return [
         entry("fxp_matmul", "fxp_matmul.cu", "fxp_matmul.py:84", fxp_err,

@@ -37,6 +37,8 @@ from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch import distributed as dst
+from repro_torch import sharding as shd
 from repro_torch.config import QuantConfig
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import pushdown, pushup, threefry
@@ -58,6 +60,15 @@ def flatten_with_path(tree, prefix: Tuple[str, ...] = ()
             yield from flatten_with_path(v, prefix + (str(k),))
     else:
         yield path_str(prefix), tree
+
+
+def map_with_path(fn, tree, prefix: Tuple[str, ...] = ()):
+    """``fn(slash-joined path, leaf)`` over a tree of dicts, keeping its
+    structure."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    return fn(path_str(prefix), tree)
 
 
 def unbind_layers(*leaves, stacked: bool = True) -> list:
@@ -203,7 +214,8 @@ _NOISE_CHUNK = {"cpu": 1 << 18, "cuda": 1 << 25}
 
 def _jax_random_sr(leaf: torch.Tensor, key, path: str, fl: torch.Tensor,
                    wl: Optional[torch.Tensor] = None,
-                   out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+                   out_dtype: torch.dtype = torch.int8,
+                   place=None) -> torch.Tensor:
     """The reference's SR with jax.random noise (``controller.py:364-376``
     and ``:476-484``), u = ``jax.random.uniform(leaf_key(key, path),
     leaf.shape)``. Without ``wl``: int8 words clip(SR(leaf·2^FL), −128,
@@ -212,7 +224,11 @@ def _jax_random_sr(leaf: torch.Tensor, key, path: str, fl: torch.Tensor,
     leaf at its own precision; layer l's noise is the flat range
     [l·n, (l + 1)·n) of the whole leaf's, n elements a layer. The noise is
     drawn in chunks (``_NOISE_CHUNK``) and freed before the next one, so
-    the whole leaf's noise never exists."""
+    the whole leaf's noise never exists. ``place`` = (global shape, block
+    starts) when ``leaf`` is a rank's block of a larger tensor: each
+    element then draws the noise of its own index in the whole tensor, so
+    the values do not depend on the layout (``fl``/``wl`` are the block's
+    rows of a per-layer precision)."""
     if key is None:
         raise ValueError(f"{path}: stochastic rounding without the fused "
                          "kernels needs the step key (controller.step_key)")
@@ -226,7 +242,7 @@ def _jax_random_sr(leaf: torch.Tensor, key, path: str, fl: torch.Tensor,
         fl_l = fl[l] if fl.ndim else fl
         for start, count in threefry.chunks(n, size):
             u = threefry.uniform(lkey, leaf.shape, offset=l * n + start,
-                                 count=count, device=leaf.device)
+                                 count=count, device=leaf.device, place=place)
             x = src[l, start:start + count]
             if wl is None:
                 q = fxp.stochastic_round(
@@ -239,30 +255,72 @@ def _jax_random_sr(leaf: torch.Tensor, key, path: str, fl: torch.Tensor,
     return out.reshape(leaf.shape)
 
 
+def _global_shape(leaf: torch.Tensor, sh) -> tuple:
+    """The shape of the whole tensor of which ``leaf`` is a rank's block
+    (``leaf``'s own without a sharding or a known shape)."""
+    if sh is None or sh.shape is None:
+        return tuple(leaf.shape)
+    return sh.shape
+
+
+def _place(leaf: torch.Tensor, sh):
+    """(global shape, block starts) of a leaf held in blocks, else None."""
+    return dst.block_place(sh) if shd.held_in_blocks(leaf.shape, sh) \
+        else None
+
+
+def _block_rows(t: torch.Tensor, leaf: torch.Tensor, place) -> torch.Tensor:
+    """A per-layer precision's rows of the leaf's block (all of it for a
+    scalar, or a leaf held whole)."""
+    if place is None or not t.ndim:
+        return t
+    return t[place[1][0]:place[1][0] + leaf.shape[0]]
+
+
 def _use_fused_prng(qcfg: QuantConfig, sr: bool, fl: torch.Tensor,
-                    leaf: torch.Tensor) -> bool:
+                    leaf: torch.Tensor, sh=None) -> bool:
     """True when ``leaf`` takes the in-kernel-noise SR quantize
-    (``controller.py:245-272`` without sharding): SR on, ``use_pallas`` and
-    ``fused_prng``, and a precision that is a scalar or one per layer of
-    the leaf's leading dim."""
+    (``controller.py:245-272``): SR on, ``use_pallas`` and ``fused_prng``,
+    a precision that is a scalar or one per layer of the leaf's leading
+    dim, and, under a sharding, a spec that divides the leaf evenly
+    (``sharding.shard_grid``): an uneven leaf keeps the noise path."""
     if not (sr and qcfg.use_pallas and qcfg.fused_prng):
         return False
-    return fl.ndim == 0 or (fl.ndim == 1 and fl.shape[0] == leaf.shape[0])
+    shape = _global_shape(leaf, sh)
+    if not (fl.ndim == 0 or (fl.ndim == 1 and fl.shape[0] == shape[0])):
+        return False
+    return sh is None or shd.shard_grid(shape, sh.spec, sh.mesh) is not None
 
 
 def _use_dense_prologue(qcfg: QuantConfig, path: str, fl: torch.Tensor,
-                        leaf: torch.Tensor) -> bool:
+                        leaf: torch.Tensor, sh=None) -> bool:
     """True when ``leaf`` skips word materialization and is quantized in
-    the matmul prologue (``controller.py:274-306`` without sharding):
-    ``use_pallas`` and ``dense_prologue``, a dense-layer weight, 2-D with a
-    scalar ⟨WL,FL⟩ or (L, K, N) with one per layer."""
+    the matmul prologue (``controller.py:274-306``): ``use_pallas`` and
+    ``dense_prologue``, a dense-layer weight, 2-D with a scalar ⟨WL,FL⟩ or
+    (L, K, N) with one per layer, and no sharding that names a mesh axis
+    (the prologue would need the whole f32 master on every rank, four
+    times the packed words' bytes)."""
     if not (qcfg.use_pallas and qcfg.dense_prologue):
         return False
     if not fxp.is_dense_param(path):
         return False
+    if sh is not None and any(shd.spec_dim_axes(sh.spec, leaf.ndim)):
+        return False
     if fl.ndim == 0:
         return leaf.ndim == 2
     return fl.ndim == 1 and leaf.ndim == 3 and fl.shape[0] == leaf.shape[0]
+
+
+def _flat_shardings(shardings) -> Dict[str, Any]:
+    return {} if shardings is None else dict(flatten_with_path(shardings))
+
+
+def _shards(sh) -> int:
+    """How many distinct blocks ``sh`` cuts its tensor into."""
+    n = 1
+    for a in set(shd.folded_axes(sh.spec, len(sh.spec))):
+        n *= sh.mesh.shape[a]
+    return n
 
 
 def _per_layer(t: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -280,7 +338,8 @@ def _rtn_words(leaf: torch.Tensor, fl: torch.Tensor) -> torch.Tensor:
 
 def quantize_params(params, state: Dict[str, Any], qcfg: QuantConfig,
                     seeds: Optional[Mapping[str, int]] = None,
-                    dtype: torch.dtype = torch.float32, *, key=None):
+                    dtype: torch.dtype = torch.float32, *, key=None,
+                    shardings=None, gather=None):
     """The quantized copy of the master params as grid values in a float
     container (``controller.py:308-387``): quantized leaves on their
     ⟨WL,FL⟩ grid in ``dtype`` (f32 or bf16), every other leaf cast to it.
@@ -296,44 +355,89 @@ def quantize_params(params, state: Dict[str, Any], qcfg: QuantConfig,
 
     ``dtype=torch.int8`` is the reference's int8 branch: int8 words
     (stochastically rounded, or to nearest; clipped to [−128, 127]) times
-    the bf16 scale 2^-FL, in bf16, as are the other leaves."""
+    the bf16 scale 2^-FL, in bf16, as are the other leaves.
+
+    ``shardings``: a tree (or flat dict by path) of
+    ``sharding.NamedSharding`` with each leaf's whole shape. A leaf whose
+    spec names a mesh axis and divides it is the rank's block: the fused
+    kernel quantizes it with the per-shard seed (``kops._fused_sharded``),
+    the noise path draws each element's own noise of the whole tensor.
+    ``gather(path, block)`` then makes the whole tensor of the wire payload,
+    the int8 words of the int8 container or the grid values otherwise;
+    without it the blocks are returned."""
     int8 = dtype == torch.int8
     out_dtype = torch.bfloat16 if int8 else dtype
     sr = qcfg.stochastic_rounding and (seeds is not None or key is not None)
     tensors = state["tensors"]
+    flat_sh = _flat_shardings(shardings)
     out: Dict[str, Any] = {}
     for p, leaf in flatten_with_path(params):
+        sh = flat_sh.get(p)
         if p not in tensors:
-            _set_path(out, p, leaf.to(out_dtype))
+            _set_path(out, p, _cast_whole(p, leaf, out_dtype, sh, gather))
             continue
-        wl, fl = tensors[p]["wl"], tensors[p]["fl"]
-        if _use_fused_prng(qcfg, sr, fl, leaf):
+        place = _place(leaf, sh)
+        wl = _block_rows(tensors[p]["wl"], leaf, place)
+        fl = _block_rows(tensors[p]["fl"], leaf, place)
+        if _use_fused_prng(qcfg, sr, tensors[p]["fl"], leaf, sh):
+            sh_k = sh if place is not None else None
             if int8:
-                q = kops.sr_quantize_fused_int8(leaf, seeds[p], fl,
-                                                use_pallas=True)
-                q = q.to(torch.bfloat16).mul_(_sc_for(p, leaf, fl))
+                q = kops.sr_quantize_fused_int8(leaf, seeds[p],
+                                                tensors[p]["fl"],
+                                                use_pallas=True,
+                                                sharding=sh_k)
             else:
-                q = kops.sr_quantize_fused(leaf, seeds[p], wl, fl,
-                                           use_pallas=True,
-                                           out_dtype=out_dtype)
+                q = kops.sr_quantize_fused(leaf, seeds[p], tensors[p]["wl"],
+                                           tensors[p]["fl"], use_pallas=True,
+                                           out_dtype=out_dtype,
+                                           sharding=sh_k)
         elif sr and int8:
-            q = _jax_random_sr(leaf, key, p, fl).to(torch.bfloat16)
-            q.mul_(_sc_for(p, leaf, fl))
+            q = _jax_random_sr(leaf, key, p, fl, place=place)
         elif sr:
-            q = _jax_random_sr(leaf, key, p, fl, wl, out_dtype=out_dtype)
+            q = _jax_random_sr(leaf, key, p, fl, wl, out_dtype=out_dtype,
+                               place=place)
         elif int8:
-            q = _rtn_words(leaf, fl).to(torch.bfloat16)
-            q.mul_(_sc_for(p, leaf, fl))
+            q = _rtn_words(leaf, fl).to(torch.int8)
         else:
             q = fxp.quantize(leaf, _per_layer(wl, leaf),
                              _per_layer(fl, leaf)).to(out_dtype)
+        if place is not None and gather is not None:
+            q = gather(p, q)
+            place = None
+        if int8:
+            q = q.to(torch.bfloat16).mul_(_sc_for(p, q, _block_rows(
+                tensors[p]["fl"], q, place)))
         _set_path(out, p, q)
     return out
 
 
+def _cast_whole(p: str, leaf: torch.Tensor, dtype: torch.dtype, sh,
+                gather) -> torch.Tensor:
+    """A leaf the controller does not quantize, cast to the container's
+    dtype, then gathered whole when it is a rank's block."""
+    q = leaf.to(dtype)
+    if gather is not None and shd.held_in_blocks(leaf.shape, sh):
+        q = gather(p, q)
+    return q
+
+
+def _refuse_sharded_dense_kernels(p: str, qcfg: QuantConfig, sh) -> None:
+    """The reference's refusal (``controller.py:433-452``): the dense
+    kernels cannot take a leaf split over ranks."""
+    if (qcfg.use_pallas and fxp.is_dense_param(p) and sh is not None
+            and sh.mesh.size > 1 and _shards(sh) > 1):
+        raise ValueError(
+            f"quantize_params_packed: dense leaf '{p}' is sharded over "
+            "a multi-device mesh while quant.use_pallas is on — the "
+            "dense kernel path (models/common.dense → fxp kernels) "
+            "cannot be partitioned by GSPMD and would replicate every "
+            "launch. Disable quant.use_pallas for mesh runs (ROADMAP: "
+            "shard_map wrapper for the dense matmul kernels).")
+
+
 def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
                            seeds: Optional[Mapping[str, int]] = None, *,
-                           key=None):
+                           key=None, shardings=None, gather=None):
     """Packed tree: quantized leaves become {"q8", "sc", "wref"} dicts
     (``fixed_point.PACKED_KEYS``); every other leaf is cast to bf16.
 
@@ -356,36 +460,52 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
 
     "wref" is a bf16 zero of the leaf's shape that nothing reads, so it is
     a zero-stride view that takes no memory; ``grad_receivers`` makes it
-    the leaf's gradient receiver, whose gradient autograd materializes."""
+    the leaf's gradient receiver, whose gradient autograd materializes.
+
+    ``shardings`` and ``gather`` as for ``quantize_params``: the int8 words
+    of a leaf held in blocks are gathered (the packed container's wire
+    format) and "wref" has the whole shape. Under ``quant.use_pallas`` a
+    dense leaf split over more than one rank raises, as in the reference:
+    the dense kernels take whole words."""
     sr = qcfg.stochastic_rounding and (seeds is not None or key is not None)
     tensors = state["tensors"]
+    flat_sh = _flat_shardings(shardings)
     out: Dict[str, Any] = {}
     for p, leaf in flatten_with_path(params):
+        sh = flat_sh.get(p)
         if p not in tensors:
-            _set_path(out, p, leaf.to(torch.bfloat16))
+            _set_path(out, p, _cast_whole(p, leaf, torch.bfloat16, sh, gather))
             continue
-        fl = tensors[p]["fl"]
-        if _use_dense_prologue(qcfg, p, fl, leaf):
+        _refuse_sharded_dense_kernels(p, qcfg, sh)
+        fl_all = tensors[p]["fl"]
+        if _use_dense_prologue(qcfg, p, fl_all, leaf, sh):
             seed = int(seeds[p]) if sr else 0
-            if fl.ndim:
-                seed = fold_shard_seed(seed, torch.arange(fl.shape[0]))
+            if fl_all.ndim:
+                seed = fold_shard_seed(seed, torch.arange(fl_all.shape[0]))
             else:
                 seed = torch.tensor(seed, dtype=torch.int32)
             _set_path(out, p, {
-                "wm": leaf.to(torch.float32), "seed": seed, "flq": fl,
-                "mode": torch.full(tuple(fl.shape), int(sr),
+                "wm": leaf.to(torch.float32), "seed": seed, "flq": fl_all,
+                "mode": torch.full(tuple(fl_all.shape), int(sr),
                                    dtype=torch.int32)})
             continue
-        if _use_fused_prng(qcfg, sr, fl, leaf):
-            q8 = kops.sr_quantize_fused_int8(leaf, seeds[p], fl,
-                                             use_pallas=True)
+        place = _place(leaf, sh)
+        fl = _block_rows(fl_all, leaf, place)
+        if _use_fused_prng(qcfg, sr, fl_all, leaf, sh):
+            q8 = kops.sr_quantize_fused_int8(
+                leaf, seeds[p], fl_all, use_pallas=True,
+                sharding=sh if place is not None else None)
         elif sr:
-            q8 = _jax_random_sr(leaf, key, p, fl)
+            q8 = _jax_random_sr(leaf, key, p, fl, place=place)
         else:
             q8 = _rtn_words(leaf, fl).to(torch.int8)
+        if place is not None and gather is not None:
+            q8 = gather(p, q8)
+        else:
+            fl_all = fl
         wref = torch.zeros((), dtype=torch.bfloat16,
-                           device=leaf.device).expand(leaf.shape)
-        _set_path(out, p, {"q8": q8, "sc": _sc_for(p, leaf, fl),
+                           device=leaf.device).expand(q8.shape)
+        _set_path(out, p, {"q8": q8, "sc": _sc_for(p, q8, fl_all),
                            "wref": wref})
     return out
 
@@ -418,24 +538,31 @@ def grad_receivers(qparams) -> Dict[str, torch.Tensor]:
     return out
 
 
-def accumulate(state: Dict[str, Any], grads, loss: torch.Tensor
-               ) -> Dict[str, Any]:
+def accumulate(state: Dict[str, Any], grads, loss: torch.Tensor, *,
+               layout=None) -> Dict[str, Any]:
     """Windowed gradient statistics of one step: per tensor (per layer for
     stacked leaves) ‖g‖₂ into "norm_sum", g into "grad_sum" (f32 sum,
     rounded to bf16, IN PLACE) and "count" + 1; the loss into the ring.
-    ``grads`` is a tree keyed as the params. Returns the new state."""
+    ``grads`` is a tree keyed as the params. Under a ``layout``
+    (``distributed.Layout``) the gradients and "grad_sum" are the rank's
+    blocks, and each norm is the whole tensor's: the blocks' sums of
+    squares are all-reduced, so ⟨WL,FL⟩'s inputs stay equal on every rank.
+    Returns the new state."""
     flat = dict(flatten_with_path(grads))
     tensors = {}
     for path, ts in state["tensors"].items():
         g = flat[path]
+        stacked = bool(ts["wl"].shape)
         # per layer: one f32 temporary per layer
-        norms = []
-        for gl, sl in unbind_layers(g, ts["grad_sum"],
-                                    stacked=bool(ts["wl"].shape)):
+        sums = []
+        for gl, sl in unbind_layers(g, ts["grad_sum"], stacked=stacked):
             gf = gl.to(torch.float32)
-            norms.append(torch.sqrt(torch.sum(gf * gf) + 1e-30))
+            sums.append(torch.sum(gf * gf))
             sl.copy_(sl.to(torch.float32) + gf)
-        gn = torch.stack(norms) if ts["wl"].shape else norms[0]
+        sq = torch.stack(sums) if stacked else sums[0]
+        if layout is not None:
+            sq = layout.whole_rows(path, sq, tuple(ts["wl"].shape))
+        gn = torch.sqrt(sq + 1e-30)
         tensors[path] = {**ts, "norm_sum": ts["norm_sum"] + gn,
                          "count": ts["count"] + 1}
     h = state["loss_hist"].clone()
@@ -540,18 +667,30 @@ def _switch_tensor(ts: Dict[str, torch.Tensor], w: torch.Tensor,
             "grad_sum": gsum, "sp": pick(sp_new, ts["sp"])}
 
 
-def precision_switch(state: Dict[str, Any], params,
-                     qcfg: QuantConfig) -> Dict[str, Any]:
+def precision_switch(state: Dict[str, Any], params, qcfg: QuantConfig, *,
+                     layout=None) -> Dict[str, Any]:
     """Alg. 2: AdaptStrategy, then per tensor Adapt{Lookback,Resolution} +
     PushDown + PushUp where the window is full (masked, no host
     synchronisation). Returns the new state; "grad_sum" is updated in
-    place."""
+    place. Under a ``layout`` the params and "grad_sum" are the rank's
+    blocks: each tensor's master and "grad_sum" are gathered, the switch
+    runs on the whole tensors on every rank (the same bits in, the same
+    ⟨WL,FL⟩ out), and the rank keeps its block of the zeroed "grad_sum"."""
     lb_avg = _avg_lookback(state)
     loss_avg, loss_now = _loss_stats(state, lb_avg)
     strategy = pushup.adapt_strategy(state["strategy"], loss_avg, loss_now)
     flat = dict(flatten_with_path(params))
-    tensors = {path: _switch_tensor(ts, flat[path], strategy, qcfg)
-               for path, ts in state["tensors"].items()}
+    tensors = {}
+    for path, ts in state["tensors"].items():
+        if layout is None or not layout.held(path):
+            tensors[path] = _switch_tensor(ts, flat[path], strategy, qcfg)
+            continue
+        w = layout.gather(path, flat[path])
+        gsum = layout.gather(path, ts["grad_sum"])
+        new = _switch_tensor({**ts, "grad_sum": gsum}, w, strategy, qcfg)
+        del w
+        ts["grad_sum"].copy_(layout.block(path, gsum))
+        tensors[path] = {**new, "grad_sum": ts["grad_sum"]}
     return {**state, "tensors": tensors, "strategy": strategy}
 
 

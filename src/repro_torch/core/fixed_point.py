@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.core import threefry
 
 MAX_WL = 32
@@ -103,11 +104,13 @@ def fl_for_wl(w_absmax, wl) -> torch.Tensor:
 
 
 def quantize_activation(a: torch.Tensor, wl) -> torch.Tensor:
-    """Dynamic-range activation quantization: FL from the batch's abs-max,
-    the value rounded to nearest on the ⟨WL,FL⟩ grid in a's dtype, and the
-    straight-through gradient ``a + (q − a).detach()``."""
+    """Dynamic-range activation quantization: FL from the batch's abs-max
+    (on a rank of a data-parallel step, the whole global batch's:
+    ``sharding.batch_max``), the value rounded to nearest on the ⟨WL,FL⟩
+    grid in a's dtype, and the straight-through gradient
+    ``a + (q − a).detach()``."""
     ad = a.detach()
-    amax = torch.max(torch.abs(ad))
+    amax = shd.batch_max(torch.max(torch.abs(ad)))
     fl = fl_for_wl(amax, wl)
     q = quantize(ad, wl, fl).to(a.dtype)
     return a + (q - ad)

@@ -190,17 +190,40 @@ def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
+def _whole_index(local: torch.Tensor, block_shape, shape, starts
+                 ) -> torch.Tensor:
+    """Flat indices in a tensor of ``shape`` of the elements whose flat
+    indices in its block (of ``block_shape``, at ``starts``) are
+    ``local``."""
+    rem = local.clone()
+    out = torch.zeros_like(local)
+    mult = 1
+    for d in reversed(range(len(shape))):
+        out += (rem % block_shape[d] + starts[d]) * mult
+        rem //= block_shape[d]
+        mult *= shape[d]
+    return out
+
+
 def uniform(key: Key, shape: Sequence[int], *, offset: int = 0,
-            count: int | None = None, device=None) -> torch.Tensor:
+            count: int | None = None, device=None,
+            place=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` in [0, 1), or the flat
     elements [offset, offset + count) of it (a 1-D tensor) when ``count``
-    is given: element i takes the counter pair (i >> 32, i mod 2^32)."""
+    is given: element i takes the counter pair (i >> 32, i mod 2^32).
+    ``place`` = (whole shape, block starts) makes ``shape`` a block of a
+    larger tensor: each element then takes the noise of its own index in
+    the whole tensor's ``jax.random.uniform``, so a rank's block draws
+    the same values as the whole tensor does there."""
     total = math.prod(shape)
     n = total - offset if count is None else int(count)
     if offset < 0 or n < 0 or offset + n > total:
         raise ValueError(f"elements [{offset}, {offset + n}) outside a shape "
                          f"of {total}")
     idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    if place is not None:
+        idx = _whole_index(idx, tuple(shape), tuple(place[0]),
+                           tuple(place[1]))
     x0 = idx >> 32
     x1 = idx.bitwise_and_(_M32)
     o1, o2 = _rounds(int(key[0]) & _M32, int(key[1]) & _M32, x0, x1)

@@ -33,6 +33,7 @@ from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import kl_hist as _kh
 from repro_torch.kernels import ref
 from repro_torch.kernels import sr_quantize as _sq
+from repro_torch.kernels.sr_quantize import fold_shard_seed
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -161,43 +162,104 @@ def _stacked_shape(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return p.reshape(tuple(p.shape) + (1,) * (x.ndim - 1))
 
 
+def _fused_sharded(x: torch.Tensor, seed, extras, extra_lead, call,
+                   sharding) -> torch.Tensor:
+    """``call(x, seed', *extras')`` on the rank's block ``x`` of a leaf
+    laid out by ``sharding`` (``repro/kernels/ops.py:40-76``): the seed is
+    folded with the linear shard index, the axes the spec names in dim order
+    (``distributed.shard_index``), so the words of the whole leaf are a
+    function of ⟨seed, layout⟩ alone, and replicas along the other axes draw
+    the same ones. A spec that names axes of size 1 still folds (index 0:
+    fold_shard_seed(seed, 0) != seed). ``extra_lead[i]`` marks extras[i] as
+    an (L,) precision of the leaf's leading dim, of which the block takes
+    its own rows; other extras are scalars. A column block is not
+    contiguous in memory: the kernel is given a contiguous copy. The
+    caller has checked that the spec divides the leaf (``shard_grid``)."""
+    from repro_torch import distributed as dst
+    from repro_torch.sharding import folded_axes, spec_dim_axes
+    spec, mesh = sharding.spec, sharding.mesh
+    if not folded_axes(spec, x.ndim):
+        return call(x, seed, *extras)
+    if mesh.coords is None:
+        raise ValueError("sharding= needs a rank's mesh (mesh.coords)")
+    idx = dst.shard_index(spec, mesh, x.ndim)
+    seed_loc = int(fold_shard_seed(seed, idx))
+    lead = 0
+    for a in spec_dim_axes(spec, x.ndim)[0]:
+        lead = lead * mesh.shape[a] + mesh.coords[a]
+    b0 = x.shape[0]
+    locs = [e[lead * b0:(lead + 1) * b0] if is_lead else e
+            for e, is_lead in zip(extras, extra_lead)]
+    return call(x.contiguous(), seed_loc, *locs)
+
+
+def _no_sharded_fallback(name: str, sharding) -> None:
+    if sharding is not None:
+        raise ValueError(f"{name}: sharding= requires use_pallas=True (the "
+                         "jax.random fallback draws the noise of the whole "
+                         "leaf; use the noise path instead)")
+
+
 def sr_quantize_fused_int8(x: torch.Tensor, seed, fl, *,
-                           use_pallas: bool = False) -> torch.Tensor:
+                           use_pallas: bool = False,
+                           sharding=None) -> torch.Tensor:
     """int8 SR words of the f32 master (dequant = q8·2^-FL at the
     consumer): an (L,) FL selects the stacked kernel (layer l at fl[l], one
     launch), a scalar FL the flat one, as ``repro/kernels/ops.py:129-160``
     does, with the noise drawn in the kernel. ``seed`` is a host int.
-    Without ``use_pallas`` the reference's jax.random oracle: the noise is
-    ``jax.random.uniform(PRNGKey(seed), x.shape)`` (``core/threefry.py``)."""
+    ``sharding`` (a ``sharding.NamedSharding`` on a rank's mesh): ``x`` is
+    the rank's block and is quantized with the per-shard seed
+    (``_fused_sharded``). Without ``use_pallas`` the reference's jax.random
+    oracle: the noise is ``jax.random.uniform(PRNGKey(seed), x.shape)``
+    (``core/threefry.py``)."""
     fl = torch.as_tensor(fl, dtype=torch.int32, device=x.device)
     if not use_pallas:
+        _no_sharded_fallback("sr_quantize_fused_int8", sharding)
         return ref.ref_sr_quantize_fused_int8(
             x, seed, _stacked_shape(fl, x) if fl.ndim else fl)
-    if fl.ndim:
-        return _sq.sr_quantize_fused_stacked_int8(x, seed, fl)
-    return _sq.sr_quantize_fused_int8(x, seed, fl)
+    stacked = bool(fl.ndim)
+
+    def call(xv, sv, flv):
+        if stacked:
+            return _sq.sr_quantize_fused_stacked_int8(xv, sv, flv)
+        return _sq.sr_quantize_fused_int8(xv, sv, flv)
+
+    if sharding is not None:
+        return _fused_sharded(x, seed, (fl,), (stacked,), call, sharding)
+    return call(x, seed, fl)
 
 
 def sr_quantize_fused(x: torch.Tensor, seed, wl, fl, *,
                       use_pallas: bool = False,
-                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.float32,
+                      sharding=None) -> torch.Tensor:
     """SR grid values of the f32 master on ⟨WL,FL⟩ in ``out_dtype`` (f32,
     or bf16 rounded to nearest even): an (L,) ⟨WL,FL⟩ selects the stacked
     kernel (layer l at ⟨wl[l], fl[l]⟩, one launch), a scalar the flat one
     (``repro/kernels/ops.py:79-126``), with the noise drawn in the kernel.
-    ``seed`` is a host int. Without ``use_pallas`` the reference's
+    ``seed`` is a host int. ``sharding``: as for
+    ``sr_quantize_fused_int8``. Without ``use_pallas`` the reference's
     jax.random oracle (noise ``jax.random.uniform(PRNGKey(seed),
     x.shape)``)."""
     wl = torch.as_tensor(wl, dtype=torch.int32, device=x.device)
     fl = torch.as_tensor(fl, dtype=torch.int32, device=x.device)
     if not use_pallas:
+        _no_sharded_fallback("sr_quantize_fused", sharding)
         if wl.ndim:
             wl, fl = _stacked_shape(wl, x), _stacked_shape(fl, x)
         return ref.ref_sr_quantize_fused(x, seed, wl, fl).to(out_dtype)
-    if wl.ndim:
-        return _sq.sr_quantize_fused_stacked(x, seed, wl, fl,
-                                             out_dtype=out_dtype)
-    return _sq.sr_quantize_fused(x, seed, wl, fl, out_dtype=out_dtype)
+    stacked = bool(wl.ndim)
+
+    def call(xv, sv, wlv, flv):
+        if stacked:
+            return _sq.sr_quantize_fused_stacked(xv, sv, wlv, flv,
+                                                 out_dtype=out_dtype)
+        return _sq.sr_quantize_fused(xv, sv, wlv, flv, out_dtype=out_dtype)
+
+    if sharding is not None:
+        return _fused_sharded(x, seed, (wl, fl), (stacked, stacked), call,
+                              sharding)
+    return call(x, seed, wl, fl)
 
 
 class _Int8Matmul(torch.autograd.Function):

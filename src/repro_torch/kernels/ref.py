@@ -176,6 +176,41 @@ def ref_sr_quantize_fused_stacked_words(x: torch.Tensor, seed, wl, fl, *,
     return out
 
 
+def ref_sr_quantize_fused_sharded_words(x: torch.Tensor, seed, wl, fl,
+                                        grid: tuple, *, int8: bool = False,
+                                        out_dtype=torch.float32
+                                        ) -> torch.Tensor:
+    """Plain version of the sharded fused quantize, assembled in one
+    process (``repro/kernels/ref.py:177``): ``grid[d]`` equal blocks along
+    dim d; block b, row-major over ``grid`` (the wrapper's fold order),
+    quantized with seed ``ref_fold_shard_seed(seed, b)`` and its own local
+    stream. ``wl``/``fl`` scalars or (L,) vectors (a stacked leaf, whose
+    dim-0 blocks take their rows of them); ``wl`` is unused for ``int8``
+    words."""
+    import itertools
+    blocks = [s // g for s, g in zip(x.shape, grid)]
+    fl = torch.as_tensor(fl, dtype=torch.int32)
+    wl = torch.as_tensor(wl, dtype=torch.int32)
+    stacked = bool(fl.ndim)
+    out = torch.empty(x.shape, dtype=torch.int8 if int8 else out_dtype,
+                      device=x.device)
+    for lin, coords in enumerate(itertools.product(*[range(g)
+                                                     for g in grid])):
+        sl = tuple(slice(c * b, (c + 1) * b) for c, b in zip(coords, blocks))
+        s = int(ref_fold_shard_seed(seed, lin))
+        blk = x[sl].contiguous()
+        if int8:
+            q = (ref_sr_quantize_fused_stacked_int8_words(blk, s, fl[sl[0]])
+                 if stacked else ref_sr_quantize_fused_int8_words(blk, s, fl))
+        else:
+            q = (ref_sr_quantize_fused_stacked_words(
+                blk, s, wl[sl[0]], fl[sl[0]], out_dtype=out_dtype)
+                 if stacked else ref_sr_quantize_fused_words(
+                     blk, s, wl, fl, out_dtype=out_dtype))
+        out[sl] = q
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The quantize prologue: int8 words drawn from the f32 master inside the
 # matmul. Element (k, n) of a (K, N) master hashes its flat index k·N + n,

@@ -26,11 +26,29 @@ saves at the step it interrupts and stops (``PreemptionGuard``); a
 watchdog logs straggler steps and a heartbeat logs liveness. Runs on
 ``cuda`` unless ``--device cpu`` (``--arch tiny`` is the size for the
 CPU).
+
+Data-parallel training on a (pod, data, model = 1) mesh, one process a
+rank, started by torchrun (the counterpart of the reference's
+``jax.distributed.initialize``): ``--mesh POD,DATA`` gives the mesh,
+POD·DATA the number of ranks. Each rank holds its blocks of the master
+and optimizer state under ``train.zero_shard`` (the FSDP fold over data);
+``train.qsgd_pod_compression`` sends int8 words across pods. On N cards of
+one host, one rank a card:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-3b --mesh 2,2 --backend nccl \
+        --override train.zero_shard=true --override quant.use_pallas=true \
+        --override quant.fused_prng=true --override train.global_batch=8 \
+        --override train.seq_len=512
+
+Ranks that share one card (or the CPU) take ``--backend gloo`` (and
+``--device cuda:0``, or ``--device cpu``).
 """
 from __future__ import annotations
 
 import argparse
 
+from repro_torch import distributed as dst
 from repro_torch.config import apply_overrides, load_config, with_shape
 from repro_torch.device import resolve_device
 from repro_torch.train import train_loop
@@ -52,6 +70,9 @@ def main(argv=None):
     ap.add_argument("--metrics-dir", default="",
                     help="write JSONL step/switch telemetry here")
     ap.add_argument("--override", action="append", default=[])
+    ap.add_argument("--mesh", default="",
+                    help="POD,DATA: data-parallel ranks (under torchrun)")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
     args = ap.parse_args(argv)
 
     if args.smoke:
@@ -62,7 +83,15 @@ def main(argv=None):
         cfg = apply_overrides(cfg, args.override)
     else:
         cfg = load_config(args.arch, args.shape, overrides=args.override)
-    device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        pod, data = (int(v) for v in args.mesh.split(","))
+        mesh = dst.init_mesh({"pod": pod, "data": data}, args.backend,
+                             device=(None if args.backend == "nccl"
+                                     else args.device))
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
 
     state = None
     mgr = None
@@ -91,7 +120,7 @@ def main(argv=None):
             cfg, steps=args.steps, state=state, checkpoint_mgr=mgr,
             watchdog=watchdog, telemetry=telemetry,
             metrics_logger=metrics_logger, preemption_guard=guard,
-            heartbeat=Heartbeat(), device=device)
+            heartbeat=Heartbeat(), device=device, mesh=mesh)
     if metrics_logger is not None:
         metrics_logger.log_event("finished", steps=int(state["step"]))
         metrics_logger.close()
@@ -100,7 +129,10 @@ def main(argv=None):
         mgr.wait()
     if history:
         print(f"[train] done: step={history[-1]['step']} "
-              f"loss={history[-1]['loss']:.4f} on {device}")
+              f"loss={history[-1]['loss']:.4f} on {device}"
+              + (f" (mesh {mesh.shape}, rank {mesh.rank})" if mesh else ""))
+    if mesh is not None:
+        dst.destroy(mesh)
     return 0
 
 

@@ -215,6 +215,10 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
 
     def save(self, state, step: int, extra: Optional[dict] = None):
+        if "layout" in state:
+            raise NotImplementedError(
+                "checkpoints of a state held in blocks are not ported: "
+                "ROADMAP.md Queue 1 item 13")
         flat = flatten_state(state)   # host copies on the caller's thread
         if self.async_save:
             self.wait()               # raises a prior writer's failure

@@ -62,29 +62,41 @@ def _sq_norm(g: torch.Tensor) -> torch.Tensor:
                for (p,) in _layers(g))
 
 
-def normalize_grads(grads, quantized_paths: Set[str]):
+def _whole(sum_over, path: str, t: torch.Tensor) -> torch.Tensor:
+    """A sum over a leaf's block completed to the whole leaf:
+    ``sum_over(path, t)`` all-reduces it over the ranks that hold the
+    leaf's other blocks (the identity for a leaf held whole)."""
+    return t if sum_over is None else sum_over(path, t)
+
+
+def normalize_grads(grads, quantized_paths: Set[str], *, sum_over=None):
     """Per-tensor L2 normalization of the AdaPT-quantized tensors (paper
-    §3.3): g / max(‖g‖₂, 1e-12) in f32, cast back to g's dtype. In place."""
+    §3.3): g / max(‖g‖₂, 1e-12) in f32, cast back to g's dtype. In place.
+    For gradients held in blocks ``sum_over`` (``_whole``) makes ‖g‖ the
+    whole tensor's."""
     for path, g in flatten_with_path(grads):
         if path in quantized_paths:
-            n = torch.clamp(torch.sqrt(_sq_norm(g)), min=1e-12)
+            sq = _whole(sum_over, path, _sq_norm(g))
+            n = torch.clamp(torch.sqrt(sq), min=1e-12)
             for (p,) in _layers(g):
                 p.copy_(p.to(torch.float32) / n)
     return grads
 
 
-def global_norm(grads) -> torch.Tensor:
-    """√(Σ over leaves of Σ g²) in f32."""
-    return torch.sqrt(sum(_sq_norm(g) for _, g in flatten_with_path(grads)))
+def global_norm(grads, *, sum_over=None) -> torch.Tensor:
+    """√(Σ over leaves of Σ g²) in f32 (each leaf's sum over its whole
+    tensor under ``sum_over``)."""
+    return torch.sqrt(sum(_whole(sum_over, path, _sq_norm(g))
+                          for path, g in flatten_with_path(grads)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, sum_over=None):
     """g ← g·min(1, max_norm/‖g‖) in f32, cast back, in place; a no-op for
     ``max_norm <= 0``."""
     if max_norm <= 0:
         return grads
-    scale = torch.clamp(max_norm / torch.clamp(global_norm(grads), min=1e-12),
-                        max=1.0)
+    norm = global_norm(grads, sum_over=sum_over)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for _, g in flatten_with_path(grads):
         for (p,) in _layers(g):
             p.copy_(p.to(torch.float32) * scale)
@@ -95,7 +107,8 @@ def apply_updates(params, grads, state: Dict[str, Any],
                   ocfg: OptimizerConfig) -> Tuple[Any, Dict[str, Any]]:
     """p ← (p − lr·u) in f32, cast back to p's dtype, in place. u is the
     gradient (asgd/sgd), the momentum sum, or Adam's corrected step; the
-    moment tensors are updated in place too."""
+    moment tensors are updated in place too. Elementwise, so params,
+    gradients and moments may be a rank's blocks of the same layout."""
     lr = state["lr"]
     step = state["step"] + 1
     new_state = dict(state, step=step)

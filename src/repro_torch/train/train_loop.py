@@ -54,44 +54,62 @@ through the EDF-ladder kernel under ``quant.use_pallas``, then PushUp and
 the adaptation of strategy, lookback and resolution) moves each tensor
 whose window is full to its new ⟨WL,FL⟩ (never with ``quant.mode=off``).
 
-What is not ported raises, by name: QSGD pod compression.
+On a mesh (``mesh=``, a ``distributed.RankMesh`` of (pod, data, model)
+with model = 1) the step is the reference's data-parallel step with what
+GSPMD did made explicit (``make_train_step``): each rank holds its block
+of every leaf its spec shards (``launch/mesh.state_shardings``: the ZeRO
+fold of the master, the optimizer state and "grad_sum" over data), gathers
+the quantized copy, runs the whole model on its rows of the batch, and
+sums the gradients into its blocks; with ``train.qsgd_pod_compression``
+the sum across pods carries int8 words (``quant/qsgd.py``).
+
+What is not ported raises, by name (``launch/mesh.check_ported``): a
+model axis over one rank, serving on a mesh, the MoE and CNN families over
+more than one data rank, and checkpoints of a state held in blocks.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import distributed as dst
+from repro_torch import sharding as shd
 from repro_torch.config import Config
 from repro_torch.core import controller, sparsity
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import cnn, transformer
+from repro_torch.quant import qsgd
 from repro_torch.train import optimizer as opt_lib
-
-
-def _check_ported(cfg: Config) -> None:
-    if cfg.train.qsgd_pod_compression:
-        raise NotImplementedError("train.qsgd_pod_compression comes with the "
-                                  "multi-GPU slice (ROADMAP.md, Queue 1)")
 
 
 # ---------------------------------------------------------------------------
 # State
 
 
-def init_state(cfg: Config, seed: Optional[int] = None, *, device=None
-               ) -> Dict[str, Any]:
+def init_state(cfg: Config, seed: Optional[int] = None, *, device=None,
+               mesh=None) -> Dict[str, Any]:
     """Fresh TNVS params from ``seed`` (default ``cfg.train.seed``), the
     batch-norm stats of the CNN family (width 0.25 for a "-smoke" model
     name, else 1.0; ``model.vocab_size`` classes), the controller state,
     the optimizer state, step 0. On ``device`` (default ``cuda``; raises
-    without it unless ``"cpu"``)."""
-    _check_ported(cfg)
+    without it unless ``"cpu"``).
+
+    On a ``mesh`` every rank draws the same whole params and keeps the
+    block ``launch/mesh.state_shardings`` gives it of each leaf (the
+    optimizer's moments and "grad_sum" are made at block size); the state
+    then holds "layout", the params' shardings with their whole shapes
+    (``distributed.Layout``)."""
     dev = resolve_device(device)
     seed = cfg.train.seed if seed is None else int(seed)
     m = cfg.model
+    if mesh is not None:
+        mesh_lib.check_ported(cfg, mesh, "train")
     if m.family == "cnn":
         init_fn, _ = cnn.MODELS[m.name.replace("-smoke", "")]
         width = 0.25 if m.name.endswith("smoke") else 1.0
@@ -102,7 +120,7 @@ def init_state(cfg: Config, seed: Optional[int] = None, *, device=None
         stats = {}
     adapt = (controller.init_adapt_state(params, cfg.quant)
              if cfg.quant.mode != "off" else {"tensors": {}})
-    return {
+    state = {
         "params": params,
         "stats": stats,
         "opt": opt_lib.init_opt_state(params, cfg.optimizer),
@@ -110,6 +128,60 @@ def init_state(cfg: Config, seed: Optional[int] = None, *, device=None
         "step": torch.tensor(0, dtype=torch.int32, device=dev),
         "rng": torch.tensor(seed, dtype=torch.int64),
     }
+    return state if mesh is None else shard_state(state, cfg, mesh)
+
+
+def shard_state(state: Dict[str, Any], cfg: Config, mesh) -> Dict[str, Any]:
+    """A whole train state → the rank's: its block (a copy) of every leaf
+    of the params, the optimizer's moments and "grad_sum" that
+    ``launch/mesh.state_shardings`` shards, and "layout", the params'
+    shardings with their whole shapes. The whole leaves are freed as their
+    blocks are made, once the caller drops ``state``."""
+    mesh_lib.check_ported(cfg, mesh, "train")
+    shardings = mesh_lib.state_shardings({"params": state["params"]}, cfg,
+                                         mesh)["params"]
+    layout = dst.Layout(mesh, dict(controller.flatten_with_path(shardings)))
+
+    def block(p, leaf):
+        b = layout.block(p, leaf)
+        return b.clone() if b is not leaf else leaf
+
+    def blocks(tree):
+        out: Dict[str, Any] = {}
+        for p, leaf in list(controller.flatten_with_path(tree)):
+            _set_path(out, p, block(p, leaf))
+        return out
+
+    opt = {k: (blocks(v) if isinstance(v, dict) else v)
+           for k, v in state["opt"].items()}
+    adapt = dict(state["adapt"])
+    adapt["tensors"] = {p: {**ts, "grad_sum": block(p, ts["grad_sum"])}
+                        for p, ts in state["adapt"]["tensors"].items()}
+    return {**state, "params": blocks(state["params"]), "opt": opt,
+            "adapt": adapt, "layout": layout.shardings}
+
+
+def gather_state(state: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The whole train state from a rank's blocks (every rank gets it): the
+    params, the optimizer's moments and "grad_sum" gathered leaf by leaf;
+    no "layout"."""
+    layout = dst.Layout(mesh, state["layout"])
+
+    def whole(tree):
+        out: Dict[str, Any] = {}
+        for p, t in controller.flatten_with_path(tree):
+            _set_path(out, p, layout.gather(p, t))
+        return out
+
+    opt = {k: (whole(v) if isinstance(v, dict) else v)
+           for k, v in state["opt"].items()}
+    adapt = dict(state["adapt"])
+    adapt["tensors"] = {p: {**ts, "grad_sum": layout.gather(p, ts["grad_sum"])}
+                        for p, ts in state["adapt"]["tensors"].items()}
+    out = {**state, "params": whole(state["params"]), "opt": opt,
+           "adapt": adapt}
+    del out["layout"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -163,19 +235,29 @@ def _set_path(tree: dict, path: str, value) -> None:
 _CONTAINERS = {"bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
-def _quantized_copy(cfg: Config, params, adapt, seeds, key):
+def _quantized_copy(cfg: Config, params, adapt, seeds, key, layout=None):
     """The quantized copy the forward reads: the master itself under
     ``quant.mode=off``; for the CNN family ``int8_packed`` is the float32
-    container, as in the reference (``train_loop.py:135-149``)."""
+    container, as in the reference (``train_loop.py:135-149``). Under a
+    ``layout`` each rank quantizes its blocks (the fused kernels with
+    per-shard seeds) and the copy is gathered whole: the int8 words of the
+    int8 and packed containers, the grid values of the float ones."""
     qcfg = cfg.quant
     if qcfg.mode == "off":
-        return params
+        if layout is None:
+            return params
+        out: Dict[str, Any] = {}
+        for p, t in controller.flatten_with_path(params):
+            _set_path(out, p, layout.gather(p, t))
+        return out
+    kw = {} if layout is None else {"shardings": layout.shardings,
+                                    "gather": layout.gather}
     if qcfg.container_dtype == "int8_packed" and cfg.model.family != "cnn":
         return controller.quantize_params_packed(params, adapt, qcfg, seeds,
-                                                 key=key)
+                                                 key=key, **kw)
     dtype = _CONTAINERS.get(qcfg.container_dtype, torch.float32)
     return controller.quantize_params(params, adapt, qcfg, seeds, dtype=dtype,
-                                      key=key)
+                                      key=key, **kw)
 
 
 def _microbatch(batch: Dict[str, torch.Tensor], accum: int) -> list:
@@ -193,11 +275,18 @@ def _microbatch(batch: Dict[str, torch.Tensor], accum: int) -> list:
     return out
 
 
+def rank_rows(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The rank's rows of a batch, laid over (pod, data) as
+    ``launch/mesh.batch_shardings`` lays them (pod-major)."""
+    sh = mesh_lib.batch_shardings(batch, mesh)
+    return {k: dst.local_block(v, sh[k].spec, mesh) for k, v in batch.items()}
+
+
 def _accum_dtype(tcfg) -> torch.dtype:
     return torch.bfloat16 if tcfg.accum_dtype == "bfloat16" else torch.float32
 
 
-def _accumulate(cfg: Config, loss_fn, receivers, batch):
+def _accumulate(cfg: Config, loss_fn, receivers, batch, mesh=None):
     """The reference's microbatch scan (``train_loop.py:176-190``): the
     full loss and its gradients with respect to ``receivers`` per
     microbatch, in microbatch order; the gradients summed into zeros of
@@ -207,7 +296,9 @@ def _accumulate(cfg: Config, loss_fn, receivers, batch):
     multiplied by 1/a rounded to bf16 first (1/3 → 0.333984375); torch
     would multiply by the f32 value and round once, so the factor is a
     tensor of the accumulator's dtype. Each microbatch's graph is freed by
-    its own ``autograd.grad``. Returns (grads, full, task)."""
+    its own ``autograd.grad``. On a ``mesh`` each microbatch is the rank's
+    rows of the global batch's (the reference shards the microbatch's dim
+    1). Returns (grads, full, task)."""
     accum = cfg.train.accum_steps
     dtype = _accum_dtype(cfg.train)
     leaves = list(receivers.values())
@@ -215,6 +306,8 @@ def _accumulate(cfg: Config, loss_fn, receivers, batch):
     full_sum = task_sum = torch.zeros((), dtype=torch.float32,
                                       device=leaves[0].device)
     for mb in _microbatch(batch, accum):
+        if mesh is not None:
+            mb = rank_rows(mb, mesh)
         full, task = loss_fn(mb)
         flat = torch.autograd.grad(full, leaves, materialize_grads=True)
         for a, g in zip(acc, flat):
@@ -232,7 +325,168 @@ def _accumulate(cfg: Config, loss_fn, receivers, batch):
     return grads, full_sum * inv32, task_sum * inv32
 
 
-def make_train_step(cfg: Config) -> Callable:
+def loss_and_grads(cfg: Config, qparams, state: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor], mesh=None):
+    """Steps 2 and 3 of the step: the full loss (task + regularizer) of the
+    quantized copy ``qparams`` on ``batch`` (on a ``mesh``, on the rank's
+    rows of the global batch; under ``train.accum_steps`` in microbatches)
+    and its gradients with respect to the copy's receivers. Returns
+    ({param path: gradient}, full loss, task loss, aux: a CNN's new stats
+    and accuracy), the losses detached."""
+    qcfg, ocfg = cfg.quant, cfg.optimizer
+    adaptive = qcfg.mode != "off"
+    adapt = state["adapt"]
+    act_wl = (transformer.act_wl_from_state(adapt)
+              if adaptive and qcfg.quantize_activations
+              and cfg.model.family != "cnn" else None)
+    aux: Dict[str, Any] = {}
+
+    def loss_fn(mb):
+        """(full loss, task loss) of the quantized copy on ``mb``; a
+        CNN's new stats and accuracy go to ``aux``, so that after the
+        microbatches it holds the last one's, as the reference's
+        ``auxes[-1]``, each microbatch having read the step's stats."""
+        if cfg.model.family == "cnn":
+            task, mb_aux = _cnn_task_loss(cfg, qparams, state["stats"], mb)
+            aux.update(mb_aux)
+        else:
+            task = _task_loss(cfg, qparams, mb, act_wl)
+        if not adaptive:
+            return task, task
+        # the regularizer reads packed and prologue leaves through
+        # their value views; its gradients add onto the same receivers
+        return sparsity.adapt_loss(
+            task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
+            penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl), task
+
+    receivers = controller.grad_receivers(qparams)
+    try:
+        with _global_batch(cfg, mesh):
+            if cfg.train.accum_steps > 1:
+                flat, full, task = _accumulate(cfg, loss_fn, receivers,
+                                               batch, mesh)
+            else:
+                rows = batch if mesh is None else rank_rows(batch, mesh)
+                full, task = loss_fn(rows)
+                flat = torch.autograd.grad(full, list(receivers.values()),
+                                           materialize_grads=True)
+    finally:
+        # a receiver may be a master param: no graph outlives the step
+        for t in receivers.values():
+            t.requires_grad_(False)
+    return dict(zip(receivers, flat)), full.detach(), task.detach(), aux
+
+
+def _batch_axes(cfg: Config, mesh) -> Tuple[str, ...]:
+    """The mesh axes whose ranks' rows make up one batch tensor of the
+    reference's step: (pod, data); within the pod under
+    ``train.qsgd_pod_compression``, whose step is manual over pod
+    (``train_loop.py:201-224``)."""
+    return tuple(a for a in mesh_lib.dp_axes(mesh)
+                 if not (cfg.train.qsgd_pod_compression and a == "pod"))
+
+
+def _global_batch(cfg: Config, mesh):
+    """On a ``mesh``, the forward's maxima over the batch
+    (``sharding.batch_max``: the activation quantize's) taken over the
+    ranks of ``_batch_axes``, as the reference takes them over its whole
+    batch tensor; otherwise nothing."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    axes = _batch_axes(cfg, mesh)
+    return shd.batch_max_over(
+        lambda t: dst.all_reduce(t, axes, mesh, op="max"))
+
+
+def apply_grads(cfg: Config, state: Dict[str, Any],
+                flat: Dict[str, torch.Tensor], full: torch.Tensor,
+                task: torch.Tensor, aux: Dict[str, Any], layout=None
+                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """Step 4: ``controller.accumulate``, per-tensor normalization,
+    clipping, ROP and the update of the master (in place) from the
+    gradients ``flat`` ({param path: gradient}; under a ``layout`` the
+    rank's blocks of the mean over ranks, each norm all-reduced). Returns
+    (new state, metrics)."""
+    qcfg, ocfg = cfg.quant, cfg.optimizer
+    params, adapt = state["params"], state["adapt"]
+    sum_over = None if layout is None else layout.sum_over
+    with torch.no_grad():
+        grads: Dict[str, Any] = {}
+        for path in list(flat):
+            _set_path(grads, path, flat.pop(path))
+        if qcfg.mode != "off":
+            adapt = controller.accumulate(adapt, grads, task, layout=layout)
+            grads = opt_lib.normalize_grads(grads, set(adapt["tensors"]),
+                                            sum_over=sum_over)
+        grads = opt_lib.clip_by_global_norm(grads, ocfg.grad_clip,
+                                            sum_over=sum_over)
+        opt = opt_lib.rop_update(state["opt"], task, ocfg)
+        params, opt = opt_lib.apply_updates(params, grads, opt, ocfg)
+        metrics = {"loss": task, "full_loss": full, "lr": opt["lr"],
+                   "grad_norm": opt_lib.global_norm(grads, sum_over=sum_over)}
+        if "acc" in aux:
+            metrics["acc"] = aux["acc"]
+    new_state = {**state, "params": params,
+                 "stats": aux.get("stats", state["stats"]), "opt": opt,
+                 "adapt": adapt, "step": state["step"] + 1}
+    return new_state, metrics
+
+
+def _layout_of(state: Dict[str, Any], mesh) -> dst.Layout:
+    """The params' layout on ``mesh``: the state's "layout", which
+    ``init_state(..., mesh=)`` and ``shard_state`` set."""
+    if "layout" not in state:
+        raise ValueError("a step on a mesh takes the state of that mesh "
+                         "(train_loop.init_state(..., mesh=) or shard_state), "
+                         "which holds its 'layout'")
+    return dst.Layout(mesh, state["layout"])
+
+
+def _reduce_grads(cfg: Config, grads: Dict[str, torch.Tensor],
+                  layout: dst.Layout, mesh, key) -> Dict[str, torch.Tensor]:
+    """Each rank's whole gradients (the mean over its rows) → the rank's
+    blocks of the mean over the data-parallel ranks: summed into the block
+    along the leaf's axes (``reduce_scatter``), all-reduced along the other
+    (pod, data) axes, divided by their count. Under
+    ``train.qsgd_pod_compression`` the mean is first taken within the pod,
+    then summed across pods with int8 words (``qsgd.psum_compressed``,
+    with the step key the reference's ``step_key``) and divided by the pod
+    count (``train_loop.py:201-224``)."""
+    dp = mesh_lib.dp_axes(mesh)
+    compress = cfg.train.qsgd_pod_compression
+    out = {}
+    for p in list(grads):
+        g = grads.pop(p)
+        axes = layout.axes(p)
+        blk = layout.scatter_sum(p, g)
+        del g
+        rest = [a for a in _batch_axes(cfg, mesh) if a not in axes]
+        dst.all_reduce(blk, rest, mesh)
+        n = math.prod(mesh.shape[a] for a in axes + tuple(rest) if a in dp)
+        out[p] = blk.div_(n) if n > 1 else blk
+    if not compress:
+        return out
+    pods = mesh.shape["pod"]
+    out = qsgd.psum_compressed(
+        out, key, mesh, "pod", cfg.train.qsgd_bits,
+        placements={p: layout.place(p) for p in out if layout.held(p)},
+        amax_axes=[a for a in mesh.axis_names if a != "pod"])
+    if pods > 1:
+        for g in out.values():
+            g.div_(pods)
+    return out
+
+
+def _rank_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over the data-parallel ranks of a per-rank scalar (each the
+    mean over its own rows: the same rows each)."""
+    dp = mesh_lib.dp_axes(mesh)
+    t = dst.all_reduce(t.clone(), dp, mesh)
+    n = mesh_lib.dp_size(mesh)
+    return t / n if n > 1 else t
+
+
+def make_train_step(cfg: Config, mesh=None) -> Callable:
     """``train_step(state, batch, step=None) -> (state, metrics)``. The
     step updates the master params, the optimizer's moments and the
     controller's "grad_sum" in place and returns the state dict with the
@@ -241,90 +495,68 @@ def make_train_step(cfg: Config) -> Callable:
     step key of the jax.random noise are derived; when it is not given,
     ``state["step"]`` is read once. Under ``train.accum_steps`` > 1 the
     batch is taken in microbatches (``_accumulate``); the quantized copy is
-    made once per step, before them."""
-    _check_ported(cfg)
-    qcfg, ocfg = cfg.quant, cfg.optimizer
+    made once per step, before them.
+
+    On a ``mesh`` (``distributed.RankMesh``) the state holds the rank's
+    blocks and their "layout" (``init_state(..., mesh=)``) and ``batch``
+    is the global batch, of which the rank takes its rows (``rank_rows``;
+    with microbatches, its rows of each, as the reference shards the
+    microbatch's dim 1). The step (``train_loop.py:109-249``): the rank
+    quantizes its blocks (per-shard seeds) and gathers the copy; forward
+    and backward on its rows; the gradients summed into its blocks
+    (``_reduce_grads``: QSGD across pods when asked); the loss the mean
+    over ranks; accumulate, normalize, clip and the update on the blocks,
+    every whole-tensor norm all-reduced. ``train.qsgd_pod_compression``
+    sums across the mesh's pod axis and so needs a mesh, as the
+    reference's does (a one-rank mesh is ``distributed.init_mesh({},
+    backend, device=...)``)."""
+    if mesh is None and cfg.train.qsgd_pod_compression:
+        raise ValueError("train.qsgd_pod_compression sums across the mesh's "
+                         "pod axis: pass mesh= (distributed.init_mesh({}, "
+                         "backend, device=...) for one rank)")
+    if mesh is not None:
+        mesh_lib.check_ported(cfg, mesh, "train")
+    qcfg = cfg.quant
     adaptive = qcfg.mode != "off"
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
                    step: Optional[int] = None
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         params, adapt = state["params"], state["adapt"]
+        i = int(state["step"]) if step is None else step
+        layout = None if mesh is None else _layout_of(state, mesh)
         seeds = key = None
         if adaptive and qcfg.stochastic_rounding:
-            i = int(state["step"]) if step is None else step
             seeds = controller.leaf_seeds(int(state["rng"]), i,
                                           adapt["tensors"])
             key = controller.step_key(int(state["rng"]), i)
-        qparams = _quantized_copy(cfg, params, adapt, seeds, key)
-        act_wl = (transformer.act_wl_from_state(adapt)
-                  if adaptive and qcfg.quantize_activations
-                  and cfg.model.family != "cnn" else None)
-
-        aux: Dict[str, Any] = {}
-
-        def loss_fn(mb):
-            """(full loss, task loss) of the quantized copy on ``mb``; a
-            CNN's new stats and accuracy go to ``aux``, so that after the
-            microbatches it holds the last one's, as the reference's
-            ``auxes[-1]``, each microbatch having read the step's stats."""
-            if cfg.model.family == "cnn":
-                task, mb_aux = _cnn_task_loss(cfg, qparams, state["stats"], mb)
-                aux.update(mb_aux)
-            else:
-                task = _task_loss(cfg, qparams, mb, act_wl)
-            if not adaptive:
-                return task, task
-            # the regularizer reads packed and prologue leaves through
-            # their value views; its gradients add onto the same receivers
-            return sparsity.adapt_loss(
-                task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
-                penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl), task
-
-        receivers = controller.grad_receivers(qparams)
-        try:
-            if cfg.train.accum_steps > 1:
-                flat, full, task = _accumulate(cfg, loss_fn, receivers, batch)
-            else:
-                full, task = loss_fn(batch)
-                flat = torch.autograd.grad(full, list(receivers.values()),
-                                           materialize_grads=True)
-        finally:
-            # a receiver may be a master param: no graph outlives the step
-            for t in receivers.values():
-                t.requires_grad_(False)
-        grads: Dict[str, Any] = {}
-        for path, g in zip(receivers, flat):
-            _set_path(grads, path, g)
-        del qparams, receivers, flat
+        qparams = _quantized_copy(cfg, params, adapt, seeds, key, layout)
+        flat, full, task, aux = loss_and_grads(cfg, qparams, state, batch,
+                                               mesh)
+        del qparams
         with torch.no_grad():
-            task, full = task.detach(), full.detach()
-            if adaptive:
-                adapt = controller.accumulate(adapt, grads, task)
-                grads = opt_lib.normalize_grads(grads, set(adapt["tensors"]))
-            grads = opt_lib.clip_by_global_norm(grads, ocfg.grad_clip)
-            opt = opt_lib.rop_update(state["opt"], task, ocfg)
-            params, opt = opt_lib.apply_updates(params, grads, opt, ocfg)
-            metrics = {"loss": task, "full_loss": full, "lr": opt["lr"],
-                       "grad_norm": opt_lib.global_norm(grads)}
-            if "acc" in aux:
-                metrics["acc"] = aux["acc"]
-        new_state = {**state, "params": params,
-                     "stats": aux.get("stats", state["stats"]), "opt": opt,
-                     "adapt": adapt, "step": state["step"] + 1}
-        return new_state, metrics
+            if mesh is not None:
+                flat = _reduce_grads(cfg, flat, layout, mesh,
+                                     controller.step_key(int(state["rng"]),
+                                                         i))
+                task, full = _rank_mean(task, mesh), _rank_mean(full, mesh)
+        return apply_grads(cfg, state, flat, full, task, aux, layout)
 
     return train_step
 
 
-def make_precision_switch(cfg: Config) -> Callable:
+def make_precision_switch(cfg: Config, mesh=None) -> Callable:
     """``precision_switch(state) -> state``: alg. 2 on the controller
-    state, from the current master params."""
+    state, from the current master params. On a ``mesh`` each tensor's
+    master and "grad_sum" are gathered from the blocks and the switch runs
+    whole on every rank (``controller.precision_switch``)."""
     qcfg = cfg.quant
 
     def precision_switch(state: Dict[str, Any]) -> Dict[str, Any]:
+        layout = (dst.Layout(mesh, state["layout"])
+                  if mesh is not None and "layout" in state else None)
         adapt = controller.precision_switch(state["adapt"], state["params"],
-                                            qcfg)
+                                            qcfg, layout=layout)
         return {**state, "adapt": adapt}
 
     return precision_switch
@@ -342,13 +574,19 @@ def make_batch(cfg: Config, step: int, *, device=None) -> Dict[str, torch.Tensor
     return synthetic.lm_batch(cfg, step, device=device)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """One device, where an index that is not given is any of its type."""
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
 def train(cfg: Config, *, steps: Optional[int] = None,
           state: Optional[Dict[str, Any]] = None,
           checkpoint_mgr=None, watchdog=None,
           log: Callable[[str], None] = print,
           telemetry: Optional[list] = None,
           metrics_logger=None, preemption_guard=None, heartbeat=None,
-          device=None) -> Tuple[Dict[str, Any], list]:
+          device=None, mesh=None) -> Tuple[Dict[str, Any], list]:
     """Run the loop on ``device`` (default ``cuda``); returns (state,
     history). The precision switch is called after every
     ``adapt_interval``-th step (``quant.lb_lwr`` when 0), as in the
@@ -363,14 +601,29 @@ def train(cfg: Config, *, steps: Optional[int] = None,
     ``checkpoint.CheckpointManager``) every ``checkpoint_every`` steps;
     ``heartbeat.beat``; and, once ``preemption_guard.requested`` (a
     ``fault_tolerance.PreemptionGuard`` has seen SIGTERM), a final save,
-    its wait, and an early return."""
+    its wait, and an early return.
+
+    On a ``mesh`` (``distributed.init_mesh``) the loop runs on the mesh's
+    device (a ``device`` that differs raises), the state is the rank's
+    blocks (``init_state(..., mesh=)``), every rank draws the same global batch and
+    trains on its rows, and only rank 0 logs. Checkpoints of a state held
+    in blocks are not ported (``launch/mesh.check_ported``)."""
     steps = steps if steps is not None else cfg.train.steps
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
+    if mesh is not None and device is not None and not _same_device(
+            torch.device(device), dev):
+        raise ValueError(f"device {device} is not the mesh's {dev}: a rank "
+                         "runs on its mesh's device (distributed.init_mesh("
+                         "..., device=))")
+    if mesh is not None and checkpoint_mgr is not None:
+        mesh_lib.check_ported(cfg, mesh, "checkpoint")
+    if mesh is not None and mesh.rank != 0:
+        log = lambda msg: None  # noqa: E731
     if state is None:
-        state = init_state(cfg, device=dev)
-    step_fn = make_train_step(cfg)
-    switch_fn = (make_precision_switch(cfg) if cfg.quant.mode != "off"
-                 else None)
+        state = init_state(cfg, device=dev, mesh=mesh)
+    step_fn = make_train_step(cfg, mesh=mesh)
+    switch_fn = (make_precision_switch(cfg, mesh=mesh)
+                 if cfg.quant.mode != "off" else None)
     interval = cfg.train.adapt_interval or cfg.quant.lb_lwr
     every = cfg.train.checkpoint_every
 

@@ -180,7 +180,8 @@ def test_quantize_for_serving_on_a_cnn_tree():
 def test_train_runs_the_cnn_family(name):
     """``train_loop.train`` on the smoke configs with ``device="cpu"``:
     the loop logs ``acc=``, switches after step 2 and 4, keeps the stats
-    in the state; QSGD pod compression still raises by name."""
+    in the state; over more than one data rank the family raises by name
+    (its batch-norm statistics are the global batch's)."""
     cfg = apply_overrides(get_smoke_config(name),
                           SWITCH + ["train.log_every=1"])
     logged, telemetry = [], []
@@ -193,9 +194,12 @@ def test_train_runs_the_cnn_family(name):
     assert len(telemetry) == 2 and set(telemetry[0]) == set(
         state["adapt"]["tensors"])
     assert bool(_flat(state["stats"])) == (name == "resnet20")
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import Mesh
     qsgd = apply_overrides(cfg, ["train.qsgd_pod_compression=true"])
-    with pytest.raises(NotImplementedError, match="qsgd"):
-        train_loop.make_train_step(qsgd)
+    with pytest.raises(NotImplementedError, match="CNN family"):
+        train_loop.make_train_step(qsgd, mesh=Mesh(("pod", "data", "model"),
+                                                   (2, 1, 1)))
 
 
 @pytest.mark.parametrize("classes", [10, 100])

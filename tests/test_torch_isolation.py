@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.models.ssm, repro_torch.configs.mamba2_780m, "
             "repro_torch.configs.zamba2_7b, "
             "repro_torch.configs.llama3_2_vision_11b, "
-            "repro_torch.configs.hubert_xlarge, repro_torch.data.synthetic\n"
+            "repro_torch.configs.hubert_xlarge, repro_torch.data.synthetic, "
+            "repro_torch.sharding, repro_torch.distributed, "
+            "repro_torch.launch.mesh, repro_torch.quant.qsgd\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax', 'jaxlib', 'msgpack') or m.startswith('jax'))\n"
             "assert not bad, bad\n")

@@ -481,18 +481,16 @@ def test_train_raises_at_the_first_switch_step():
     ("train.qsgd_pod_compression=true", "qsgd"),
 ])
 def test_unported_step_options_raise(override, match):
-    """QSGD pod compression comes with the multi-GPU slice and raises; remat
-    and microbatch accumulation are ported and train a step
-    (tests/test_torch_remat_accum.py holds them against the reference)."""
+    """Remat, microbatch accumulation and QSGD pod compression (on a
+    one-rank mesh: it sums across the mesh's pod axis) are ported and
+    train a step (tests/test_torch_remat_accum.py and tests/test_torch_dp.py
+    hold them against the reference)."""
+    from repro_torch import distributed as dst
     cfg = load_config("tiny", overrides=OVERRIDES + [override])
-    if match == "qsgd":
-        with pytest.raises(NotImplementedError, match=match):
-            state = train_loop.init_state(cfg, device="cpu")
-            step = train_loop.make_train_step(cfg)
-            step(state, train_loop.make_batch(cfg, 0, device="cpu"))
-        return
-    state = train_loop.init_state(cfg, device="cpu")
-    state, metrics = train_loop.make_train_step(cfg)(
+    mesh = (dst.init_mesh({}, "gloo", device="cpu", rank=0, world_size=1)
+            if match == "qsgd" else None)
+    state = train_loop.init_state(cfg, device="cpu", mesh=mesh)
+    state, metrics = train_loop.make_train_step(cfg, mesh=mesh)(
         state, train_loop.make_batch(cfg, 0, device="cpu"))
     assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
     assert float(metrics["grad_norm"]) > 0
