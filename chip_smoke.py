@@ -6159,13 +6159,17 @@ def cross_encoder_card_vs_cpu(torch):
 # ZeRO blocks, QSGD across pods)
 
 MESH_AXES = ("pod", "data", "model")
-SHARD_MESHES = [(1, 2, 1), (2, 2, 1), (1, 4, 1)]
+# the data meshes of phase 26 and the model-axis meshes of phase 27: the
+# per-shard seed folds the model coordinate too
+SHARD_MESHES = [(1, 2, 1), (2, 2, 1), (1, 4, 1), (1, 1, 2), (1, 2, 2)]
 SHARD_LEAVES = {"embed": (VOCAB, D_MODEL),
                 "blocks/s0_attn/wq": (N_LAYERS, D_MODEL, D_MODEL),
                 "blocks/s0_mlp/wi_up": (N_LAYERS, D_MODEL, D_FF)}
 # Two ranks share cuda:0 over gloo, so the full depth's two masters, their
-# gathered copies and gradients would not fit 80 GB: depth 14 of 28.
-DP_DEPTH = 14
+# gathered copies and gradients would not fit 80 GB; depth 7 of 28 since
+# phase 27 came (depth 14 took 154.9-177.3 s of the script, most of it
+# gloo's transport through host memory).
+DP_DEPTH = 7
 DP_STEPS = 2                   # the first held against one process, then
 DP_SEED = 29                   # a switch after the second (lookback 2)
 DP_OVERRIDES = FLOAT_OVERRIDES + [f"model.num_layers={DP_DEPTH}"]
@@ -6222,7 +6226,8 @@ def _rank_blocks(shape, spec, sizes):
 def sharded_kernels(torch):
     """Phase 26 (a): full-width llama3.2-3b leaves (the embedding, a stacked
     wq and wi_up) under every spec ``param_pspec`` gives them with
-    zero_shard on (1, 2, 1), (2, 2, 1) and (1, 4, 1) meshes, quantized
+    zero_shard on the meshes of ``SHARD_MESHES`` (data axes, and the model
+    axis of phase 27 with and without data), quantized
     block by block on the card by all four entry points with the per-shard
     seeds (``kops.sr_quantize_fused[_int8](sharding=)``), each block bit for
     bit against its plain version and the whole against the assembled
@@ -6311,7 +6316,67 @@ def _dp_config(extra):
     return load_config("llama3.2-3b", overrides=DP_OVERRIDES + list(extra))
 
 
-def _dp_one_process(torch, cfg, sizes, batch):
+@contextlib.contextmanager
+def _rank_sum_order(qparams, sh, parts):
+    """Within the block one process sums each row-parallel product as
+    ``parts`` model ranks do: a layer's weight whose spec splits its rows
+    (K) over "model" (attention's and the MLP's wo; the embedding's rows
+    are a lookup's) gives ``parts`` f32 partials
+    over K's contiguous blocks, each the same GEMM as a rank's, added and
+    rounded once to x's dtype (``common._RowDense``'s forward; two ranks'
+    f32 sum is the same either way round). The backward stays
+    ``_PlainDense``'s. Yields {"layers": the layers' row-parallel weights
+    found, "calls": the products so summed}.
+    Phase 27's witness: this order alone moves the one process's first
+    step onto the ranks'."""
+    import torch
+
+    from repro_torch.core import controller
+    from repro_torch.models import common
+    rows = [t for p, t in controller.flatten_with_path(qparams)
+            if p.startswith("blocks/") and torch.is_tensor(t)
+            and "model" in (_spec_dims(sh[p].spec, t.ndim)[-2] or ())]
+    ptrs = {t.untyped_storage().data_ptr() for t in rows}
+    seen = {"layers": sum(t.shape[0] for t in rows), "calls": 0}
+
+    class RankOrder(common._PlainDense):
+        @staticmethod
+        def forward(ctx, x, w, out_dtype=None):
+            ctx.save_for_backward(x, w)
+            k = w.shape[-2] // parts
+            y = None
+            for i in range(parts):
+                part = common._mm_rows(
+                    x[..., i * k:(i + 1) * k].contiguous(),
+                    w[..., i * k:(i + 1) * k, :].to(x.dtype), torch.float32)
+                y = part if y is None else y.add_(part)
+            seen["calls"] += 1
+            return y.to(out_dtype or x.dtype)
+
+    plain = common.dense
+
+    def dense(x, w, *, use_pallas=False):
+        if torch.is_tensor(w) and w.untyped_storage().data_ptr() in ptrs:
+            return RankOrder.apply(x, w)
+        return plain(x, w, use_pallas=use_pallas)
+    common.dense = dense
+    try:
+        yield seen
+    finally:
+        common.dense = plain
+
+
+def _spec_dims(spec, ndim):
+    """A PartitionSpec's entries as ``ndim`` tuples of axis names (None
+    where a dim is whole)."""
+    out = []
+    for e in tuple(spec) + (None,) * (ndim - len(tuple(spec))):
+        out.append(None if e is None else (e,) if isinstance(e, str)
+                   else tuple(e))
+    return out
+
+
+def _dp_one_process(torch, cfg, sizes, batch, seed=DP_SEED, order=None):
     """The ranks' first step in one process, with no mesh, from the same
     initial state (``init_state`` from ``DP_SEED``) and the same words
     (every leaf the ranks hold in blocks quantized block by block with its
@@ -6319,18 +6384,20 @@ def _dp_one_process(torch, cfg, sizes, batch):
     whole global batch (``train_loop.loss_and_grads``); under QSGD each
     pod's gradient on its own rows, sliced from the batch, encoded with the
     step key, the decoded words summed in pod order and divided by the pod
-    count. Then ``train_loop.apply_grads``."""
+    count. Then ``train_loop.apply_grads``. With ``order`` the forward
+    sums each row-parallel product as that many model ranks do
+    (``_rank_sum_order``), and the metrics add its "rank_order" count."""
     from repro_torch.core import controller, threefry
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.quant import qsgd
     from repro_torch.sharding import Mesh, folded_axes, held_in_blocks
     from repro_torch.train import train_loop
-    state = train_loop.init_state(cfg, DP_SEED, device="cuda")
+    state = train_loop.init_state(cfg, seed, device="cuda")
     sh = dict(controller.flatten_with_path(mesh_lib.state_shardings(
         {"params": state["params"]}, cfg, Mesh(MESH_AXES, sizes))["params"]))
     tensors = state["adapt"]["tensors"]
-    seeds = controller.leaf_seeds(DP_SEED, 0, tensors)
+    seeds = controller.leaf_seeds(seed, 0, tensors)
     qparams = controller.quantize_params(state["params"], state["adapt"],
                                          cfg.quant, seeds)
     for p, leaf in controller.flatten_with_path(state["params"]):
@@ -6346,13 +6413,16 @@ def _dp_one_process(torch, cfg, sizes, batch):
                 use_pallas=True, sharding=bsh)
         controller._set_path(qparams, p, words)
     if not cfg.train.qsgd_pod_compression:
-        g, full, task, aux = train_loop.loss_and_grads(cfg, qparams, state,
-                                                       batch)
+        with (_rank_sum_order(qparams, sh, order) if order
+              else contextlib.nullcontext(None)) as seen:
+            g, full, task, aux = train_loop.loss_and_grads(cfg, qparams,
+                                                           state, batch)
         del qparams
-        return train_loop.apply_grads(cfg, state, g, full, task, aux)
+        state, m = train_loop.apply_grads(cfg, state, g, full, task, aux)
+        return state, {**m, "rank_order": seen}
     pods = sizes[0]
     rows = next(iter(batch.values())).shape[0] // pods
-    key = controller.step_key(DP_SEED, 0)
+    key = controller.step_key(seed, 0)
     full = task = 0.0
     words = []
     for i in range(pods):
@@ -6417,7 +6487,7 @@ def dp_rank(rank: int, world: int, store: str, sizes, extra, switch: bool,
             sent = dict(mesh.sent_bytes)
             launches_1 = {k: w.launches for k, w in ws.items()}
             layout = dst.Layout(mesh, state["layout"])
-            first = {p: layout.gather(p, t).to("cpu", copy=True) for p, t in
+            first = {p: layout.whole(p, t).to("cpu", copy=True) for p, t in
                      controller.flatten_with_path(state["params"])}
     switch_ms = None
     if switch:
@@ -6538,6 +6608,374 @@ def dp_path(torch):
             out[tag]["qsgd_payload_bytes"] = words
             out[tag]["f32_bytes"] = f32
             log(f"[26b] QSGD payload {words} B against f32 {f32} B")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: tensor and expert parallelism (a model axis of two ranks)
+
+TP_MESH = (1, 1, 2)
+TP_B = 2                       # 2 x 512 rows, the same on both model ranks
+TP_SEED = 30
+# llama3.2-3b at depth 14 of 28: per step a rank hands ~4 f32 activation
+# all-reduces a layer (2 x 512 x 3072 x 4 B = 12.6 MB each) to gloo, and the
+# check and the switch gather each master and "grad_sum" whole; through
+# host memory at phase 26's 0.4-0.5 GB/s the full depth would double the
+# phase's ~60 s. mixtral-8x22b at depth 1 (phase 23's cut), one step.
+TP_DEPTH = 14
+TP_OVERRIDES = FLOAT_OVERRIDES + [f"train.global_batch={TP_B}",
+                                  "quant.fused_prng=true"]
+# tag: (arch, extra overrides, steps, a switch after them, the control)
+TP_RUNS = {"llama_tp": ("llama3.2-3b", [f"model.num_layers={TP_DEPTH}"], 2,
+                        True, True),
+           "mixtral_ep": (MIXTRAL, [f"model.num_layers={MIXTRAL_TRAIN_LAYERS}"],
+                          1, False, False)}
+# The ranks' first step against one process given the same words
+# (``tp_one_process_variants``), activations quantized as configured. The
+# ranks sum each row-parallel product (wo) in two f32 halves, one process
+# in one; the residual stream's quantization at its layer's WL turns those
+# last-bit differences into whole quantization steps. Read on the H100
+# (NVIDIA H100 80GB HBM3, 700.00 W), llama at depth 14: the one process
+# summing as the ranks do ("rank_order") has the ranks' loss to the last
+# bit and their updates within 1.22e-2 normwise (wq; what is left is the
+# backward, whose column-parallel dx the ranks sum in f32 where one
+# process adds bf16 products), held at TP_ORDER_NORMWISE; in the plain
+# order the loss is 3.52e-5 and the head's update 6.07e-2 off, held at
+# TP_PLAIN_NORMWISE; the control (llama, activations not quantized) moves
+# by the order alone 1.69e-2 at most (wq), held at TP_CONTROL_NORMWISE.
+# The losses at 1e-4 in the plain order; in the ranks' order at 1e-6, all
+# that the loss's own vocabulary-parallel sums leave.
+TP_ORDER_NORMWISE = 2e-2
+TP_ORDER_LOSS_RTOL = 1e-6
+TP_PLAIN_NORMWISE = 1e-1
+TP_CONTROL_NORMWISE = 3e-2
+TP_LOSS_RTOL = DP_LOSS_RTOL
+TP_JOIN_S = 600
+
+
+def tp_launches(steps, layers, switch):
+    """A rank's launches over a run: every quantized leaf's model block
+    once a step (7 stacked leaves: wq, wk, wv, wo and the FFN's three; the
+    embedding and the head flat), the flash forward, dq and dkv once a
+    layer a step on the rank's heads; the switch the ladder once a tensor,
+    on the gathered master."""
+    return {**ZERO, "sr_quantize_fused_stacked": N_STACKED * steps,
+            "sr_quantize_fused": N_FLAT * steps,
+            "flash_attention": layers * steps,
+            "flash_attention_dq": layers * steps,
+            "flash_attention_dkv": layers * steps,
+            "edf_ladder_hists": (N_STACKED + N_FLAT) if switch else 0}
+
+
+def _tp_config(tag, more=()):
+    from repro_torch.config import load_config
+    arch, extra = TP_RUNS[tag][:2]
+    return load_config(arch, overrides=TP_OVERRIDES + list(extra) + list(more))
+
+
+def _held_whole_digests(state, layout):
+    """SHA-256 of the bytes of every leaf held whole on the model axis
+    (norm scales, the router) and of its "grad_sum": equal on both model
+    ranks when their gradients were."""
+    import hashlib
+
+    import torch
+    from repro_torch.core import controller
+
+    def digest(t):
+        raw = t.detach().to("cpu").contiguous().view(-1).view(torch.uint8)
+        return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    out = {p: digest(t)
+           for p, t in controller.flatten_with_path(state["params"])
+           if "model" not in layout.axes(p)}
+    out.update({f"grad_sum/{p}": digest(ts["grad_sum"])
+                for p, ts in state["adapt"]["tensors"].items()
+                if "model" not in layout.axes(p)})
+    return out
+
+
+def tp_rank(rank: int, world: int, store: str, tag: str, out: str):
+    """One rank of phase 27, a spawned process on cuda:0 over gloo: the
+    run ``tag`` of ``TP_RUNS`` on the (1, 1, 2) mesh (launches counted from
+    0 over its steps and switch, each step timed, the bytes each collective
+    was handed a step, the digests of the leaves held whole after each
+    step, the peak memory); the first step's params gathered whole and kept
+    on the host; under a switch, rank 0 keeps the whole master and
+    "grad_sum" that the switch gathers and the controller state before it.
+    Then rank 0 frees its state and runs the first step in one process
+    (``_dp_one_process``) and the switch in one process on the kept
+    tensors."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import distributed as dst
+    from repro_torch.core import controller
+    from repro_torch.train import train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _, _, steps_n, switch, _ = TP_RUNS[tag]
+    mesh = dst.init_mesh(dict(zip(MESH_AXES, TP_MESH)), "gloo",
+                         device="cuda:0", rank=rank, world_size=world,
+                         init_method=f"file://{store}", timeout_s=TP_JOIN_S)
+    cfg = _tp_config(tag)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, TP_SEED, device="cuda:0", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layout = dst.Layout(mesh, state["layout"])
+    step_fn = train_loop.make_train_step(cfg, mesh=mesh)
+    switch_fn = train_loop.make_precision_switch(cfg, mesh=mesh)
+    batches = [train_loop.make_batch(cfg, i, device="cuda:0")
+               for i in range(steps_n)]
+    ws = wrappers()
+    reset_counts(ws)
+    torch.cuda.reset_peak_memory_stats()
+    steps, metrics, sent, digests, first = [], [], [], [], None
+    for i in range(steps_n):
+        before = dict(mesh.sent_bytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i], step=i)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        sent.append({k: v - before[k] for k, v in mesh.sent_bytes.items()})
+        digests.append(_held_whole_digests(state, layout))
+        if i == 0:
+            launches_1 = {k: w.launches for k, w in ws.items()}
+            peak_1 = torch.cuda.max_memory_allocated() / 2 ** 30
+            first = {p: layout.whole(p, t).to("cpu", copy=True) for p, t in
+                     controller.flatten_with_path(state["params"])}
+    switch_ms, kept, adapt_before = None, {}, None
+    if switch:
+        # the controller state before the switch; a held leaf's "grad_sum"
+        # is kept whole as the switch gathers it (``keep``)
+        adapt_before = {**state["adapt"], "tensors": {
+            p: {k: (v if k == "grad_sum" and layout.held(p) else v.clone())
+                for k, v in ts.items()}
+            for p, ts in state["adapt"]["tensors"].items()}}
+        whole = dst.Layout.whole
+
+        def keep(self, path, t):
+            got = whole(self, path, t)
+            if rank == 0:
+                kept.setdefault(path, []).append(got.to("cpu", copy=True))
+            return got
+        dst.Layout.whole = keep
+        try:
+            t0 = time.perf_counter()
+            state = switch_fn(state)
+            torch.cuda.synchronize()
+            switch_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            dst.Layout.whole = whole
+    launches = {k: w.launches for k, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wlfl = {p: (ts["wl"].tolist(), ts["fl"].tolist())
+            for p, ts in state["adapt"]["tensors"].items()}
+    blocks = {p: list(t.shape) for p, t in
+              controller.flatten_with_path(state["params"])}
+    rec = {"rank": rank, "mesh": list(TP_MESH), "init_s": init_s,
+           "step_ms": steps, "switch_ms": switch_ms, "metrics": metrics,
+           "launches": launches, "launches_step_1": launches_1,
+           "sent_bytes": sent, "digests": digests, "peak_gib": peak,
+           "peak_gib_step_1": peak_1, "wlfl": wlfl, "blocks": blocks}
+    own = {p: t for p, t in controller.flatten_with_path(state["params"])
+           if not layout.held(p)}
+    own = {p: t.to("cpu", copy=True) for p, t in own.items()}
+    del state, batches[1:]
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        rec["check"] = {}
+        if switch:
+            # the switch in one process on the tensors the ranks' switch
+            # gathered (each master and "grad_sum" whole)
+            params = {}
+            for p in blocks:
+                t = kept[p][0] if p in kept else own[p]
+                train_loop._set_path(params, p, t.to("cuda:0"))
+            tensors = {p: {**ts, "grad_sum": (kept[p][1] if p in kept else
+                                              ts["grad_sum"]).to("cuda:0")}
+                       for p, ts in adapt_before["tensors"].items()}
+            sw = controller.precision_switch(
+                {**adapt_before, "tensors": tensors}, params, cfg.quant)
+            rec["check"]["wlfl_one_process"] = {
+                p: (ts["wl"].tolist(), ts["fl"].tolist())
+                for p, ts in sw["tensors"].items()}
+            del params, tensors, sw
+        del kept, own, adapt_before
+        torch.cuda.empty_cache()
+        rec["check"]["variants"] = tp_one_process_variants(
+            torch, tag, batches[0], first)
+        rec["check"]["seconds"] = time.perf_counter() - t0
+    torch.distributed.barrier()
+    Path(out).write_text(json.dumps(rec))
+    dst.destroy(mesh)
+
+
+def tp_one_process_variants(torch, tag, batch, first):
+    """The ranks' first step (``first``: each param whole, on the host)
+    against one process given the same words (``_dp_one_process``), once
+    in the plain order ("one") and once summing each row-parallel product
+    as the two ranks do ("rank_order"); under the run's control the same
+    pair with activations not quantized ("one_act_off",
+    "rank_order_act_off"), held against each other and not the ranks.
+    Returns, per variant, the updates' normwise distance per leaf from the
+    ranks' ("vs_ranks"; not for the control) and from the plain order's
+    of its pair ("vs_plain"), its loss and grad norm, and what the rank
+    order summed (``_rank_sum_order``'s count)."""
+    from repro_torch.core import controller
+    from repro_torch.train import train_loop
+    cfg = _tp_config(tag)
+    init = dict(controller.flatten_with_path(train_loop.init_state(
+        cfg, TP_SEED, device="cuda:0")["params"]))
+    runs = [("one", cfg, None), ("rank_order", cfg, TP_MESH[2])]
+    if TP_RUNS[tag][4]:
+        off = _tp_config(tag, ["quant.quantize_activations=false"])
+        runs += [("one_act_off", off, None),
+                 ("rank_order_act_off", off, TP_MESH[2])]
+
+    def dist(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+    out, plain = {}, None
+    for name, c, order in runs:
+        one, om = _dp_one_process(torch, c, TP_MESH, batch, TP_SEED,
+                                  order=order)
+        rec = {"loss": float(om["loss"]), "grad_norm": float(om["grad_norm"]),
+               "rank_order": om["rank_order"]}
+        deltas = {p: (t - init[p]).float() for p, t in
+                  controller.flatten_with_path(one["params"])}
+        del one
+        if "act_off" not in name:
+            rec["vs_ranks"] = {p: dist(first[p].to(d.device).float()
+                                       - init[p].float(), d)
+                               for p, d in deltas.items()}
+        if order is None:
+            plain = {p: d.to("cpu") for p, d in deltas.items()}
+        else:
+            rec["vs_plain"] = {p: dist(d, plain[p].to(d.device))
+                               for p, d in deltas.items()}
+            plain = None
+        del deltas
+        torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
+def tp_path(torch, smi):
+    """Phase 27: two ranks sharing cuda:0 over gloo on a (1, 1, 2) mesh
+    (spawned; the kernels built by the parent before), per run of
+    ``TP_RUNS``: llama3.2-3b at full width, tensor-parallel (12/4 heads,
+    d_ff 4096, 64128 vocabulary rows a rank), 2 steps and a switch;
+    mixtral-8x22b at full width, expert-parallel (4 of 8 experts a rank),
+    one step. Both in the float32 container under use_pallas, fused_prng
+    and SR. Held: every launch count of ``tp_launches`` on each rank; the
+    leaves held whole bit-equal on both ranks after each step; ⟨WL,FL⟩
+    equal on both ranks and to the one process's switch on the same
+    tensors; the first step against one process given the same words
+    (``tp_one_process_variants``): summing as the ranks do within
+    ``TP_ORDER_NORMWISE`` and ``TP_ORDER_LOSS_RTOL``, in the plain order
+    within ``TP_PLAIN_NORMWISE`` and ``TP_LOSS_RTOL``; the
+    control's two orders within ``TP_CONTROL_NORMWISE`` of each other.
+    These are two ranks on one card: not a multi-GPU speed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out = {}
+    for tag, (arch, _, steps_n, switch, _) in TP_RUNS.items():
+        world = math.prod(TP_MESH)
+        store = ROOT / "build" / f"tp_store_{tag}"
+        store.parent.mkdir(exist_ok=True)
+        store.unlink(missing_ok=True)
+        files = [ROOT / "build" / f"tp_{tag}_rank{r}.json"
+                 for r in range(world)]
+        for f in files:
+            f.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=tp_rank, args=(r, world, str(store), tag,
+                                                   str(f)))
+                 for r, f in enumerate(files)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(TP_JOIN_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"[27] {tag}: rank exit codes {codes}")
+        recs = [json.loads(f.read_text()) for f in files]
+        store.unlink(missing_ok=True)
+        layers = _tp_config(tag).model.num_layers
+        want = tp_launches(steps_n, layers, switch)
+        for r in recs:
+            for k, per in want.items():
+                if r["launches"][k] != per:
+                    raise AssertionError(f"[27] {tag} rank {r['rank']}: "
+                                         f"{k} launched {r['launches'][k]}, "
+                                         f"predicted {per}")
+        for i, d in enumerate(recs[0]["digests"]):
+            if not d or any(r["digests"][i] != d for r in recs[1:]):
+                raise AssertionError(f"[27] {tag} step {i + 1}: a leaf held "
+                                     "whole differs across model ranks")
+        chk = recs[0]["check"]
+        if switch:
+            if any(r["wlfl"] != recs[0]["wlfl"] for r in recs[1:]):
+                raise AssertionError(f"[27] {tag}: <WL,FL> differ across "
+                                     "ranks")
+            if chk["wlfl_one_process"] != recs[0]["wlfl"]:
+                raise AssertionError(f"[27] {tag}: <WL,FL> differ from the "
+                                     "one process's switch")
+        var = chk["variants"]
+        found = {}
+        for name, v in var.items():
+            if name.startswith("rank_order"):
+                ro = v["rank_order"]
+                if ro["layers"] == 0 or ro["calls"] != ro["layers"]:
+                    raise AssertionError(f"[27] {tag} {name}: summed {ro}, "
+                                         "not each row-parallel weight once")
+            for key in ("vs_ranks", "vs_plain"):
+                if key in v:
+                    e = v[key]
+                    worst = max(e, key=e.get)
+                    found[f"{name} {key}"] = (e[worst], worst)
+            if "vs_ranks" in v:
+                found[f"{name} loss"] = (abs(recs[0]["metrics"][0]["loss"]
+                                             - v["loss"]) / abs(v["loss"]),
+                                         "loss")
+        log(f"[27] {tag}: the first step's updates, worst leaf normwise, "
+            "and losses: " + "; ".join(f"{k} {x:.3g} ({p})"
+                                       for k, (x, p) in found.items()))
+        bounds = {"rank_order vs_ranks": TP_ORDER_NORMWISE,
+                  "one vs_ranks": TP_PLAIN_NORMWISE,
+                  "rank_order_act_off vs_plain": TP_CONTROL_NORMWISE,
+                  "rank_order loss": TP_ORDER_LOSS_RTOL,
+                  "one loss": TP_LOSS_RTOL}
+        for k, bound in bounds.items():
+            if k in found and not found[k][0] <= bound:
+                raise AssertionError(f"[27] {tag}: {k} {found[k][0]:.3g} "
+                                     f"past {bound}")
+        out[tag] = {"arch": arch, "layers": layers, "ranks": recs,
+                    "seconds": time.perf_counter() - t0,
+                    "against_one_process": {k: x for k, (x, _) in
+                                            found.items()},
+                    "held_whole_leaves": len(recs[0]["digests"][0])}
+        log(f"[27] {smi} | {tag}: {arch} depth {layers}, mesh {TP_MESH}, "
+            "step ms a rank "
+            + ", ".join("/".join(f"{x:.0f}" for x in r["step_ms"])
+                        for r in recs)
+            + f", switch {recs[0]['switch_ms']} ms, peak GiB a rank "
+            + "/".join(f"{r['peak_gib']:.2f}" for r in recs)
+            + f", init {recs[0]['init_s']:.1f} s, bytes handed a step "
+            f"(rank 0) {recs[0]['sent_bytes']}; "
+            f"{out[tag]['held_whole_leaves']} leaves held whole bit-equal; "
+            f"check {chk['seconds']:.1f} s; {out[tag]['seconds']:.1f} s")
     return out
 
 
@@ -6729,6 +7167,12 @@ def main() -> int:
     dp_res = dp_path(torch)
     mark("26 two ranks")
 
+    # 27. tensor and expert parallelism: two model ranks sharing the card
+    # over gloo (llama3.2-3b tensor-parallel, mixtral-8x22b expert-parallel)
+    torch.cuda.empty_cache()
+    tp_res = tp_path(torch, smi)
+    mark("27 model axis")
+
     runs = [main_res["launches"], train_res["launches"], sr_res["launches"],
             *(r["launches"] for r in float_res.values()),
             prologue_res["launches"], default_res["launches"],
@@ -6767,7 +7211,7 @@ def main() -> int:
                             flash_err, bwd_rows, bwd_err, fbwd_rows, fbwd_err,
                             sr_rows, edf_rows, grid_rows, q_rows, q_err,
                             ops_rows, cnn_res, family, slice_16, slice_17,
-                            slice_18, shard_rows, dp_res)
+                            slice_18, shard_rows, dp_res, tp_res)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6797,6 +7241,7 @@ def main() -> int:
         "vlm": vlm_res, "hubert": hubert_res,
         "cross_encoder_smoke_vs_cpu": cross_depth2,
         "sharded_kernels": shard_rows, "data_parallel": dp_res,
+        "tensor_parallel": tp_res,
         "kernels": kernels,
         "phase_seconds": marks, "check_seconds": check_s,
         "seconds": time.perf_counter() - t_start}, indent=1))
@@ -6811,7 +7256,7 @@ def main() -> int:
 def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                   bwd_rows, bwd_err, fbwd_rows, fbwd_err, sr_rows, edf_rows,
                   grid_rows, q_rows, q_err, ops_rows, cnn_res, family,
-                  slice_16, slice_17, slice_18, shard_rows, dp_res):
+                  slice_16, slice_17, slice_18, shard_rows, dp_res, tp_res):
     """One entry per kernel. ``launches`` sums the counts of the main
     paths' runs of phases 4-14 (``runs``); ``launches_16_18`` those of the
     counted runs of phases 16-18 (``later``: remat, accumulation at
@@ -6865,8 +7310,9 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
     ``launches_26`` counts those of phase 26's two-rank runs (both ranks
     of both meshes, ``DP_RUNS``); the four fused SR kernels add
     ``sharded_26``: phase 26 (a)'s per-shard launches (one per distinct
-    block of each full-width leaf and mesh), their times, plain times and
-    bounds summed."""
+    block of each full-width leaf and mesh, the model-axis meshes among
+    them), their times, plain times and bounds summed. ``launches_27``
+    counts those of phase 27's runs (both ranks of both, ``TP_RUNS``)."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     device_keys = ("device_ms", "library_device_ms")
 
@@ -6985,6 +7431,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
 
     launches_26 = {k: sum(r["launches"][k] for run in dp_res.values()
                           for r in run["ranks"]) for k in KERNELS}
+    launches_27 = {k: sum(r["launches"][k] for run in tp_res.values()
+                          for r in run["ranks"]) for k in KERNELS}
     sharded_26 = {}
     for row in shard_rows:
         acc = sharded_26.setdefault(row["kernel"], {
@@ -7005,7 +7453,8 @@ def kernel_record(runs, later, fxp_rows, fxp_err, flash_rows, flash_err,
                 "launches_22_23": launches_slice_16[name],
                 "launches_24": launches_slice_17[name],
                 "launches_25": launches_slice_18[name],
-                "launches_26": launches_26[name], "max_abs_err": err,
+                "launches_26": launches_26[name],
+                "launches_27": launches_27[name], "max_abs_err": err,
                 **times, **({"cnn_19": cnn_19[name]} if name in cnn_19
                             else {}),
                 **({"sharded_26": sharded_26[name]} if name in sharded_26

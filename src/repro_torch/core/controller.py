@@ -362,9 +362,11 @@ def quantize_params(params, state: Dict[str, Any], qcfg: QuantConfig,
     spec names a mesh axis and divides it is the rank's block: the fused
     kernel quantizes it with the per-shard seed (``kops._fused_sharded``),
     the noise path draws each element's own noise of the whole tensor.
-    ``gather(path, block)`` then makes the whole tensor of the wire payload,
-    the int8 words of the int8 container or the grid values otherwise;
-    without it the blocks are returned."""
+    ``gather(path, block)`` then gathers the wire payload, the int8 words
+    of the int8 container or the grid values otherwise, into the tensor
+    the rank computes on (``distributed.Layout.gather``: along the leaf's
+    data axes, its ``model`` block kept); without it the blocks are
+    returned."""
     int8 = dtype == torch.int8
     out_dtype = torch.bfloat16 if int8 else dtype
     sr = qcfg.stochastic_rounding and (seeds is not None or key is not None)
@@ -464,9 +466,10 @@ def quantize_params_packed(params, state: Dict[str, Any], qcfg: QuantConfig,
 
     ``shardings`` and ``gather`` as for ``quantize_params``: the int8 words
     of a leaf held in blocks are gathered (the packed container's wire
-    format) and "wref" has the whole shape. Under ``quant.use_pallas`` a
-    dense leaf split over more than one rank raises, as in the reference:
-    the dense kernels take whole words."""
+    format) and "wref" has the gathered shape. Under ``quant.use_pallas`` a
+    dense leaf split over more than one rank raises ``ValueError``, as in
+    the reference (``controller.py:433-452``): the dense kernels take
+    whole words."""
     sr = qcfg.stochastic_rounding and (seeds is not None or key is not None)
     tensors = state["tensors"]
     flat_sh = _flat_shardings(shardings)
@@ -685,8 +688,8 @@ def precision_switch(state: Dict[str, Any], params, qcfg: QuantConfig, *,
         if layout is None or not layout.held(path):
             tensors[path] = _switch_tensor(ts, flat[path], strategy, qcfg)
             continue
-        w = layout.gather(path, flat[path])
-        gsum = layout.gather(path, ts["grad_sum"])
+        w = layout.whole(path, flat[path])
+        gsum = layout.whole(path, ts["grad_sum"])
         new = _switch_tensor({**ts, "grad_sum": gsum}, w, strategy, qcfg)
         del w
         ts["grad_sum"].copy_(layout.block(path, gsum))

@@ -16,6 +16,11 @@ through its f32 view (``fixed_point.qdense_view``), layer by layer: the
 words are drawn again (on the card by the SR int8 kernel, whose words are
 the prologue's for a 2-D slice) in the forward and once more in the
 backward, and the gradient passes straight to "wm" in f32.
+
+On a model axis of more than one rank a leaf held in ``model`` blocks
+gives the rank's part of its terms: ``adapt_loss(model_blocks=,
+model_sum=)`` sums those parts over the ranks (forward only; each block's
+gradient stays its own) and counts a leaf whole on every rank once.
 """
 from __future__ import annotations
 
@@ -132,7 +137,8 @@ def _leaves(tree, prefix: str = ""):
 
 def elastic_net(params, alpha: float, beta: float, quantized_paths
                 ) -> torch.Tensor:
-    """α Σ‖W‖₁ + β/2 Σ‖W‖₂² over the quantized tensors only."""
+    """α Σ‖W‖₁ + β/2 Σ‖W‖₂² over the quantized tensors only (those of
+    ``quantized_paths`` that are in ``params``)."""
     total = None
     for path, leaf in _leaves(params):
         if path not in quantized_paths:
@@ -163,8 +169,17 @@ def wordlength_penalty(adapt_state: Dict[str, Any], max_wl: int = 32
 
 
 def adapt_loss(task_loss: torch.Tensor, params, adapt_state, *, alpha: float,
-               beta: float, penalty_coef: float, max_wl: int = 32
-               ) -> torch.Tensor:
-    reg = elastic_net(params, alpha, beta, set(adapt_state["tensors"].keys()))
+               beta: float, penalty_coef: float, max_wl: int = 32,
+               model_blocks=(), model_sum=None) -> torch.Tensor:
+    """task + elastic net + WL penalty. ``model_blocks``: the quantized
+    paths whose leaves are the rank's ``model`` blocks, whose partial terms
+    ``model_sum`` (reduce from model) adds up over the ranks; the other
+    leaves' terms are whole on every rank."""
+    quantized = set(adapt_state["tensors"].keys())
+    blocks = quantized & set(model_blocks)
+    reg = elastic_net(params, alpha, beta, quantized - blocks)
+    if blocks:
+        reg = reg.to(task_loss.device) + model_sum(
+            elastic_net(params, alpha, beta, blocks).to(task_loss.device))
     pen = penalty_coef * wordlength_penalty(adapt_state, max_wl)
     return task_loss + reg.to(task_loss.device) + pen.to(task_loss.device)

@@ -1,13 +1,20 @@
-"""The data-parallel mesh on ``torch.distributed``: what GSPMD does for the
-reference's jitted step, done explicitly, and nothing more.
+"""The (pod, data, model) mesh on ``torch.distributed``: what GSPMD does
+for the reference's jitted step, done explicitly, and nothing more.
 
 Ranks lie on a (pod, data, model) mesh in row-major order: rank
 r = (pod·D + data)·M + model, as ``jax.make_mesh`` orders its devices.
-Every rank runs the whole model on its own rows of the batch; it holds the
-block that a leaf's spec gives it (``local_block``), gathers the quantized
-copy's blocks (``all_gather``) and sums the gradients into its block
-(``reduce_scatter``). Sums of squares and maxima over a leaf held in
-blocks are ``all_reduce``\\ d over the axes its spec names.
+Every rank runs the model on its own rows of the batch; it holds the block
+that a leaf's spec gives it (``local_block``), gathers the quantized
+copy's blocks along the leaf's data axes (``all_gather``) and keeps its
+``model`` block for compute, and sums the gradients into its block along
+the data axes (``reduce_scatter``). Sums of squares and maxima over a leaf
+held in blocks are ``all_reduce``\\ d over every axis its spec names.
+
+On a model axis of more than one rank the layers compute on their
+``model`` blocks (tensor and expert parallelism, the Megatron pattern) and
+meet through ``ModelGroup``: copy to model (identity forward, all-reduce
+backward), reduce from model (all-reduce forward, identity backward) and
+gather from model (all-gather forward, the rank's own slice backward).
 
 ``init_mesh`` makes one process group per subset of the mesh's axes
 (whose sizes multiply to more than one) and per position along the other
@@ -36,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.sharding import (Mesh, NamedSharding, folded_axes,
+from repro_torch.sharding import (Mesh, NamedSharding, P, folded_axes,
                                   held_in_blocks, shard_grid, spec_dim_axes)
 
 AXES = ("pod", "data", "model")
@@ -68,7 +75,8 @@ class RankMesh(Mesh):
         self.device = torch.device(device)
         self.groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
         self.sent_bytes = {"all_gather": 0, "reduce_scatter": 0,
-                           "all_reduce": 0, "broadcast": 0}
+                           "all_reduce": 0, "broadcast": 0,
+                           "model_all_reduce": 0, "model_all_gather": 0}
 
     def count(self, kind: str, t: torch.Tensor) -> None:
         self.sent_bytes[kind] += t.numel() * t.element_size()
@@ -271,16 +279,17 @@ def reduce_scatter(full: torch.Tensor, spec, mesh: RankMesh) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, axes: Sequence[str], mesh: Mesh,
-               op: str = "sum") -> torch.Tensor:
+               op: str = "sum", kind: str = "all_reduce") -> torch.Tensor:
     """``t`` summed (or its maximum taken) over the ranks along ``axes``;
     every one of them gets the same bits. In place when ``t`` is on the
-    device the collective runs on; returns the result."""
+    device the collective runs on; returns the result. ``kind``: the
+    ``sent_bytes`` entry that counts it."""
     if not isinstance(mesh, RankMesh):
         return t
     g, _ = mesh.group(axes)
     if g is None:
         return t
-    mesh.count("all_reduce", t)
+    mesh.count(kind, t)
     h = _host(t, mesh)
     dist.all_reduce(h, op={"sum": dist.ReduceOp.SUM,
                            "max": dist.ReduceOp.MAX}[op], group=g)
@@ -307,14 +316,142 @@ def broadcast(t: torch.Tensor, axes: Sequence[str], mesh: RankMesh,
 
 
 # ---------------------------------------------------------------------------
+# The model axis: the Megatron pairs
+
+
+class ModelGroup:
+    """This rank's ranks along the model axis (the same coordinates on the
+    other axes) and the collectives that the tensor- and expert-parallel
+    layers place where GSPMD places them for the reference: ``copy``,
+    ``reduce`` and ``gather`` (autograd functions), ``sum`` (no autograd).
+    ``index`` is the rank's model coordinate, ``size`` the axis' size;
+    ``reduce_bf16`` is ``train.tp_reduce_dtype=bfloat16`` (the reference's
+    ``#tp_reduce_bf16``: a row-parallel dense layer's partial product
+    crosses the ranks in bf16). Bytes are counted in the mesh's
+    ``sent_bytes`` as "model_all_reduce" and "model_all_gather"."""
+
+    def __init__(self, mesh: RankMesh, reduce_bf16: bool = False):
+        self.mesh = mesh
+        self.size = mesh.shape["model"]
+        self.index = mesh.coords["model"]
+        self.reduce_bf16 = bool(reduce_bf16)
+
+    def sum(self, t: torch.Tensor, dtype: Optional[torch.dtype] = None
+            ) -> torch.Tensor:
+        """A new tensor: ``t`` summed over the model ranks in ``dtype``
+        (``t``'s by default), returned in ``t``'s dtype; ``t`` is left as
+        it is. Every rank gets the same bits."""
+        dtype = dtype or t.dtype
+        w = t.to(dtype, copy=True).contiguous()
+        all_reduce(w, ("model",), self.mesh, kind="model_all_reduce")
+        return w.to(t.dtype)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """A new tensor: the elementwise maximum of ``t`` over the model
+        ranks."""
+        w = t.clone().contiguous()
+        return all_reduce(w, ("model",), self.mesh, op="max",
+                          kind="model_all_reduce")
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim`` in model order."""
+        g, ranks = self.mesh.group(("model",))
+        src = _host(t.contiguous(), self.mesh)
+        self.mesh.count("model_all_gather", src)
+        parts = [torch.empty_like(src) for _ in ranks]
+        dist.all_gather(parts, src, group=g)
+        return torch.cat([q.to(t.device) for q in parts], dim=dim)
+
+    def own(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's slice of ``t`` along ``dim`` (``size`` equal
+        slices, a contiguous copy)."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n).contiguous()
+
+    def copy(self, x: torch.Tensor, sum_dtype=torch.float32) -> torch.Tensor:
+        """Copy to model: ``x`` forward; backward, the gradient summed over
+        the model ranks (in ``sum_dtype``, rounded once to the gradient's
+        dtype). For a tensor whole on every rank whose uses on each rank
+        give a part of its gradient."""
+        return _CopyToModel.apply(x, self, sum_dtype)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Reduce from model: ``x`` summed over the model ranks (in its
+        dtype) forward; backward, the gradient as it is."""
+        return _ReduceFromModel.apply(x, self)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Gather from model: the ranks' ``x`` concatenated along ``dim``
+        forward; backward, the rank's own slice of the gradient, which must
+        be whole on every rank (a ``copy`` downstream makes it so)."""
+        return _GatherFromModel.apply(x, self, dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, sum_dtype):
+        ctx.group, ctx.sum_dtype = group, sum_dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum(g, ctx.sum_dtype), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.own(g, ctx.dim), None, None
+
+
+def model_group(mesh, reduce_bf16: bool = False) -> Optional[ModelGroup]:
+    """The rank's ``ModelGroup`` on a model axis of more than one rank,
+    else None."""
+    if not isinstance(mesh, RankMesh) or mesh.shape.get("model", 1) == 1:
+        return None
+    return ModelGroup(mesh, reduce_bf16)
+
+
+# ---------------------------------------------------------------------------
 # A tree held in blocks
+
+
+def _compute_part(sh: NamedSharding):
+    """(spec, shape) of the rank's ``model`` block of a tensor laid out by
+    ``sh``, seen as a tensor of its own laid out over the data axes:
+    ``model`` leaves the spec and divides its dim of the shape."""
+    parts, shape = [], []
+    for n, axes in zip(sh.shape, spec_dim_axes(sh.spec, len(sh.shape))):
+        keep = tuple(a for a in axes if a != "model")
+        shape.append(n // (sh.mesh.shape["model"] if "model" in axes else 1))
+        parts.append(None if not keep else
+                     (keep[0] if len(keep) == 1 else keep))
+    return P(*parts), tuple(shape)
 
 
 class Layout:
     """How this rank holds the leaves of a tree keyed by path: each path's
     ``NamedSharding`` (the reference's spec and the whole shape) on the
     rank's mesh. A leaf is held as the rank's block when its spec names an
-    axis and divides it (``sharding.held_in_blocks``), else whole."""
+    axis and divides it (``sharding.held_in_blocks``), else whole. The
+    rank computes on its *compute block*: the leaf gathered along its data
+    axes and cut along ``model`` (``gather``); its gradient is summed back
+    into the block along the data axes only (``scatter_sum``)."""
 
     def __init__(self, mesh: Mesh, shardings: Mapping[str, NamedSharding]):
         self.mesh = mesh
@@ -334,6 +471,11 @@ class Layout:
         sh = self.shardings[path]
         return folded_axes(sh.spec, len(sh.shape))
 
+    def data_axes(self, path: str) -> Tuple[str, ...]:
+        """The leaf's axes other than ``model``: those its compute block is
+        gathered and its gradient summed along."""
+        return tuple(a for a in self.axes(path) if a != "model")
+
     def block(self, path: str, full: torch.Tensor) -> torch.Tensor:
         """The rank's block of the whole tensor (a contiguous copy), or the
         tensor itself for a leaf held whole."""
@@ -342,17 +484,30 @@ class Layout:
         return local_block(full, self.spec(path), self.mesh).contiguous()
 
     def gather(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The compute block from the rank's block: gathered along the
+        leaf's data axes, its ``model`` block kept."""
+        if not self.data_axes(path):
+            return t
+        spec, shape = _compute_part(self.shardings[path])
+        return all_gather(t, spec, self.mesh, shape)
+
+    def whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from the rank's block, gathered along every
+        axis of the leaf's spec."""
         if not self.held(path):
             return t
         sh = self.shardings[path]
         return all_gather(t, sh.spec, self.mesh, sh.shape)
 
     def scatter_sum(self, path: str, full: torch.Tensor) -> torch.Tensor:
-        """The rank's block of Σ over the ranks along the leaf's axes of
-        their whole ``full``; ``full`` itself for a leaf held whole."""
-        if not self.held(path):
+        """The rank's block of Σ over the ranks along the leaf's data axes
+        of their compute blocks ``full`` (a ``model`` block's gradient is
+        that block's own); ``full`` itself for a leaf with no data
+        axis."""
+        if not self.data_axes(path):
             return full
-        return reduce_scatter(full, self.spec(path), self.mesh)
+        spec, _ = _compute_part(self.shardings[path])
+        return reduce_scatter(full, spec, self.mesh)
 
     def sum_over(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """A partial sum over the rank's block completed to the whole

@@ -297,25 +297,69 @@ def replicated(mesh) -> NamedSharding:
 # What the port runs on a mesh, and what it refuses by name
 
 
+def _tp_dims(cfg: Config, msize: int) -> Dict[str, int]:
+    """The dims that the Megatron layout splits over a model axis of
+    ``msize`` ranks, by what each splits: the vocabulary, the query and
+    (under ``mesh.kv_proj=shard``, or when the kv heads divide) kv
+    projections' columns, the MLP's hidden units, and the experts or, when
+    they do not divide, each expert's hidden units."""
+    m = cfg.model
+    dh = m.resolved_head_dim
+    dims = {"vocab": m.vocab_size, "wq": m.num_heads * dh}
+    if _div(m.num_kv_heads, msize) or cfg.mesh.kv_proj != "replicate":
+        dims["wk/wv"] = m.num_kv_heads * dh
+    if m.num_experts:
+        if m.num_experts % msize:
+            dims["expert d_ff"] = m.moe_d_ff or m.d_ff
+        if m.dense_residual_d_ff:
+            dims["dense residual d_ff"] = m.dense_residual_d_ff
+    elif m.d_ff:
+        dims["d_ff"] = m.d_ff
+    return dims
+
+
+_NOT_MEGATRON = {"ssm": "the SSM family", "hybrid": "the hybrid family",
+                 "vlm": "the VLM's cross-attention slots",
+                 "audio": "the encoder (audio family)",
+                 "cnn": "the CNN family"}
+
+
 def check_ported(cfg: Config, mesh, kind: str = "train") -> None:
     """Raise ``NotImplementedError`` for what the port does not run on a
-    mesh, each naming its ROADMAP item: a model axis over more than one
-    rank (tensor and expert parallelism, ``#tp_reduce_bf16``,
-    ``#pad_heads_to``: item 10); serving on a mesh (``cache_shardings``,
-    split-KV decode: item 11); the MoE family, whose dispatch groups are
-    the data ranks (``repro/models/moe.py:81``), and the CNN family, whose
-    batch-norm statistics are the global batch's, over more than one data
-    rank (item 12); checkpoints of a state held in blocks (item 13)."""
-    if mesh.shape.get("model", 1) > 1 or \
-            cfg.train.tp_reduce_dtype == "bfloat16":
-        raise NotImplementedError(
-            "a model axis over more than one rank (tensor and expert "
-            "parallelism, #tp_reduce_bf16, #pad_heads_to) is not ported: "
-            "ROADMAP.md Queue 1 item 10")
+    mesh, each naming its ROADMAP item: serving on a mesh
+    (``cache_shardings``, split-KV decode: item 11); the MoE family, whose
+    dispatch groups are the data ranks (``repro/models/moe.py:81``), and
+    the CNN family, whose batch-norm statistics are the global batch's,
+    over more than one data rank (item 12); checkpoints of a state held in
+    blocks (item 13); on a model axis of more than one rank, the families
+    whose tensor parallelism needs more than the Megatron pattern (SSM and
+    hybrid, the encoder, cross-attention slots, the CNN) and the attention
+    levers ``mesh.seq_shard_attn`` (``q_seq``, ``#pad_heads_to``): item 14.
+    The dense and MoE families train on a model axis of more than one rank,
+    under ``train.tp_reduce_dtype`` either way; a model whose split dims
+    do not divide the axis raises ``ValueError``."""
+    msize = mesh.shape.get("model", 1)
     if kind in ("prefill", "decode", "long", "serve"):
         raise NotImplementedError(
             "serving on a mesh (cache_shardings, split-KV decode) is not "
             "ported: ROADMAP.md Queue 1 item 11")
+    if msize > 1:
+        m = cfg.model
+        what = None
+        if m.family not in ("dense", "moe"):
+            what = _NOT_MEGATRON.get(m.family, f"the {m.family} family")
+        elif cfg.mesh.seq_shard_attn != "off":
+            what = (f"mesh.seq_shard_attn={cfg.mesh.seq_shard_attn} "
+                    "(q_seq, #pad_heads_to)")
+        if what is not None:
+            raise NotImplementedError(
+                f"{what} on a model axis of {msize} ranks is not ported: "
+                "ROADMAP.md Queue 1 item 14")
+        bad = {k: n for k, n in _tp_dims(cfg, msize).items()
+               if not _fits((n,), 0, msize)}
+        if bad:
+            raise ValueError(f"{bad} do not divide the model axis of "
+                             f"{msize} ranks")
     dp = dp_size(mesh)
     if dp > 1 and cfg.model.num_experts > 0:
         raise NotImplementedError(

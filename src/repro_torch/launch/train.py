@@ -27,10 +27,12 @@ watchdog logs straggler steps and a heartbeat logs liveness. Runs on
 ``cuda`` unless ``--device cpu`` (``--arch tiny`` is the size for the
 CPU).
 
-Data-parallel training on a (pod, data, model = 1) mesh, one process a
-rank, started by torchrun (the counterpart of the reference's
-``jax.distributed.initialize``): ``--mesh POD,DATA`` gives the mesh,
-POD·DATA the number of ranks. Each rank holds its blocks of the master
+Training on a (pod, data, model) mesh, one process a rank, started by
+torchrun (the counterpart of the reference's
+``jax.distributed.initialize``): ``--mesh POD,DATA,MODEL`` (or
+``POD,DATA``, model 1) gives the mesh, POD·DATA·MODEL the number of
+ranks. A model axis of more than one rank runs the dense and MoE families
+tensor- and expert-parallel. Each rank holds its blocks of the master
 and optimizer state under ``train.zero_shard`` (the FSDP fold over data);
 ``train.qsgd_pod_compression`` sends int8 words across pods. On N cards of
 one host, one rank a card:
@@ -42,7 +44,12 @@ one host, one rank a card:
         --override train.seq_len=512
 
 Ranks that share one card (or the CPU) take ``--backend gloo`` (and
-``--device cuda:0``, or ``--device cpu``).
+``--device cuda:0``, or ``--device cpu``); two tensor-parallel ranks of
+tiny on the CPU:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch tiny --mesh 1,1,2 --backend gloo --device cpu --steps 2 \
+        --override train.global_batch=4 --override train.seq_len=32
 """
 from __future__ import annotations
 
@@ -71,7 +78,8 @@ def main(argv=None):
                     help="write JSONL step/switch telemetry here")
     ap.add_argument("--override", action="append", default=[])
     ap.add_argument("--mesh", default="",
-                    help="POD,DATA: data-parallel ranks (under torchrun)")
+                    help="POD,DATA[,MODEL]: the mesh's ranks (under "
+                         "torchrun)")
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
     args = ap.parse_args(argv)
 
@@ -85,8 +93,11 @@ def main(argv=None):
         cfg = load_config(args.arch, args.shape, overrides=args.override)
     mesh = None
     if args.mesh:
-        pod, data = (int(v) for v in args.mesh.split(","))
-        mesh = dst.init_mesh({"pod": pod, "data": data}, args.backend,
+        sizes = [int(v) for v in args.mesh.split(",")]
+        if len(sizes) not in (2, 3):
+            ap.error(f"--mesh {args.mesh!r}: POD,DATA or POD,DATA,MODEL")
+        mesh = dst.init_mesh(dict(zip(("pod", "data", "model"), sizes)),
+                             args.backend,
                              device=(None if args.backend == "nccl"
                                      else args.device))
         device = mesh.device

@@ -6,6 +6,11 @@
   * ``attend_decode``  — one-token decode against a (possibly rolling) cache
   * ``project_memory`` — an encoder memory's k/v, projected once (VLM)
   * ``cross_attend``   — queries over that memory (VLM cross slots)
+
+On a model axis of more than one rank (``sharding.model_group``) the
+training forward is tensor-parallel (``_project_qkv_tp``): q, k and v are
+column-parallel on the rank's blocks of wq, wk and wv, the heads that
+divide the axis are attended to locally, and wo is row-parallel.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
@@ -49,13 +55,115 @@ def _project_qkv(p, x, cfg: ModelConfig, positions: Optional[torch.Tensor],
     q = common.dense(x, p["wq"], use_pallas=use_pallas).reshape(B, S, h, dh)
     k = common.dense(x, p["wk"], use_pallas=use_pallas).reshape(B, S, hkv, dh)
     v = common.dense(x, p["wv"], use_pallas=use_pallas).reshape(B, S, hkv, dh)
+    q, k = _qk_norm_rope(q, k, p.get("q_norm"), p.get("k_norm"), cfg,
+                         positions if rope_on else None)
+    return q, k, v
+
+
+def _qk_norm_rope(q, k, q_norm, k_norm, cfg: ModelConfig,
+                  positions: Optional[torch.Tensor]):
+    """q and k (B, S, heads, D) after the qk-norm, where the config has
+    one, and rope at ``positions``, where given."""
     if cfg.use_qk_norm:
-        q = common.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = common.rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if rope_on and positions is not None:
+        q = common.rms_norm(q, q_norm, cfg.norm_eps)
+        k = common.rms_norm(k, k_norm, cfg.norm_eps)
+    if positions is not None:
         q = common.rope(q, positions, cfg.rope_theta)
         k = common.rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k
+
+
+def _project_qkv_tp(p, x, cfg: ModelConfig, positions, group):
+    """q, k, v of the rank on a model axis of ``group.size`` ranks, and
+    whether its heads are local. q, k and v are column-parallel products
+    (one all-reduce of x's f32 gradient for all three). When the query
+    heads divide the axis the rank takes its heads of q and, for each of
+    them, its kv head: its own block of k and v when the kv heads divide
+    too; else k and v whole (gathered from their column blocks under
+    ``mesh.kv_proj=shard``, or products of whole wk, wv under
+    ``replicate``), their gradients summed over the ranks (``copy``), and
+    the kv head of each of the rank's query heads taken. When the query
+    heads do not divide (``mesh.seq_shard_attn=off``), q, k and v are
+    gathered whole and attention is replicated: returns (q, k, v, False)
+    with every head."""
+    B, S, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m, r = group.size, group.index
+    heads_local = h % m == 0
+    # wq is always split (launch/mesh.check_ported); wk and wv are whole
+    # under mesh.kv_proj=replicate when the kv heads do not divide
+    kv_split = p["wk"].shape[-1] != hkv * dh
+    col = [p["wq"]] + ([p["wk"], p["wv"]] if kv_split else [])
+    outs = common.column_dense(x, col, group)
+    q = outs[0]
+    if kv_split:
+        k, v = outs[1], outs[2]
+    else:
+        k = common.dense(x, p["wk"])
+        v = common.dense(x, p["wv"])
+    kv_local = heads_local and hkv % m == 0 and kv_split
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if heads_local:
+        q = q.reshape(B, S, h // m, dh)
+        if q_norm is not None:          # a norm's gradient over local heads
+            q_norm = group.copy(q_norm)
+    else:
+        q = group.gather(q, -1).reshape(B, S, h, dh)
+    if kv_local:
+        k = k.reshape(B, S, hkv // m, dh)
+        v = v.reshape(B, S, hkv // m, dh)
+        if k_norm is not None:
+            k_norm = group.copy(k_norm)
+    else:
+        if kv_split:
+            k, v = group.gather(k, -1), group.gather(v, -1)
+        k = k.reshape(B, S, hkv, dh)
+        v = v.reshape(B, S, hkv, dh)
+    q, k = _qk_norm_rope(q, k, q_norm, k_norm, cfg, positions)
+    if heads_local and not kv_local:
+        # each local query head's kv head; the gradient of the whole k, v
+        # is the sum of every rank's heads' parts
+        rep = h // hkv
+        idx = torch.arange(r * (h // m), (r + 1) * (h // m),
+                           device=x.device) // rep
+        k = group.copy(k).index_select(2, idx)
+        v = group.copy(v).index_select(2, idx)
+    return q, k, v, heads_local
+
+
+def _attention(q, k, v, positions, window, cfg: ModelConfig, causal: bool,
+               use_pallas: bool):
+    if use_pallas:
+        return ops.attention(q, k, v, causal=causal, window=window,
+                             softcap=cfg.attn_logit_softcap, use_pallas=True)
+    return _masked_attention(q, k, v, positions, positions, window,
+                             cfg.attn_logit_softcap, causal)
+
+
+def _attend_full_tp(p, x, cfg: ModelConfig, positions, window: int,
+                    causal: bool, use_pallas: bool, group):
+    """``attend_full``'s tensor-parallel body: returns (out, (k, v)), out
+    after the row-parallel wo. Replicated attention (query heads that do
+    not divide the axis) gives each rank every head; the gradient of its
+    output is summed over the ranks (``copy``) before the rank takes its
+    rows of wo's input."""
+    h = common.rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    q, k, v, local = _project_qkv_tp(p, h, cfg, positions, group)
+    out = _attention(q, k, v, positions, window, cfg, causal, use_pallas)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, -1)
+    if not local:
+        out = _own_columns(group.copy(out), group)
+    out = common.row_dense(out, p["wo"], group,
+                           common.tp_reduce_dtype(out, group))
+    return out, (k, v)
+
+
+def _own_columns(t: torch.Tensor, group) -> torch.Tensor:
+    """The rank's columns of ``t`` along its last dim (a view that keeps
+    the gradient flowing to the whole)."""
+    n = t.shape[-1] // group.size
+    return t[..., group.index * n:(group.index + 1) * n]
 
 
 def attend_full(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
@@ -64,20 +172,23 @@ def attend_full(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention over the whole sequence. Returns (out, (k, v)).
     ``window`` is a static int here (the plan's per-slot window), so under
-    ``use_pallas`` every layer takes the flash kernel."""
-    h = common.rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, h, cfg, positions, use_pallas=use_pallas)
-    if use_pallas:
-        out = ops.attention(q, k, v, causal=causal, window=window,
-                            softcap=cfg.attn_logit_softcap, use_pallas=True)
+    ``use_pallas`` every layer takes the flash kernel. On a model axis of
+    more than one rank, tensor-parallel (``_attend_full_tp``)."""
+    group = shd.model_group()
+    if group is not None:
+        out, kv = _attend_full_tp(p, x, cfg, positions, window, causal,
+                                  use_pallas, group)
     else:
-        out = _masked_attention(q, k, v, positions, positions, window,
-                                cfg.attn_logit_softcap, causal)
-    B, S = x.shape[:2]
-    out = common.dense(out.reshape(B, S, -1), p["wo"], use_pallas=use_pallas)
+        h = common.rms_norm(x, p["pre_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(p, h, cfg, positions, use_pallas=use_pallas)
+        out = _attention(q, k, v, positions, window, cfg, causal, use_pallas)
+        B, S = x.shape[:2]
+        out = common.dense(out.reshape(B, S, -1), p["wo"],
+                           use_pallas=use_pallas)
+        kv = (k, v)
     if cfg.use_post_norm:
         out = common.rms_norm(out, p["post_norm"], cfg.norm_eps)
-    return x + out, (k, v)
+    return x + out, kv
 
 
 def av_dtype(v: torch.Tensor) -> torch.dtype:

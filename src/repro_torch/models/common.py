@@ -1,6 +1,8 @@
 """Shared model building blocks (counterpart of ``repro/models/common.py``):
 plain functions over tensors and param dicts. The reference's sharding
-annotations are no-ops on one device and are left out."""
+annotations are no-ops on one device and are left out; on a model axis of
+more than one rank the layers call ``column_dense`` and ``row_dense``,
+the Megatron pair with the collectives GSPMD places for the reference."""
 from __future__ import annotations
 
 import contextlib
@@ -72,6 +74,26 @@ def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     return mm(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
 
+def _mm_rows(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """``_mm`` of a (..., K) by a 2-D b (K, N) as one 2-D product (the card's
+    GEMM with an f32 result takes 2-D operands), or of two 3-D stacks."""
+    if b.dim() == 3:
+        return _mm(a, b, out_dtype)
+    y = _mm(a.reshape(-1, a.shape[-1]), b, out_dtype)
+    return y.reshape(a.shape[:-1] + (b.shape[-1],))
+
+
+def _dw(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of y = x @ w.astype(x.dtype): xᵀ dy with f32
+    accumulation, rounded to x's dtype (the transpose of the cast), then
+    to w's."""
+    x2, dy2 = x, dy
+    if w.dim() == 2:
+        x2 = x.reshape(-1, x.shape[-1])
+        dy2 = dy.reshape(-1, dy.shape[-1])
+    return _mm(x2.to(dy.dtype).mT, dy2, x.dtype).to(w.dtype)
+
+
 class _PlainDense(torch.autograd.Function):
     """y = x @ w.astype(x.dtype), f32 accumulation, in x's dtype or in
     ``out_dtype``, as the reference's ``jnp.dot`` (``models/common.py:64-68``)
@@ -95,12 +117,87 @@ class _PlainDense(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _mm(dy, w.to(x.dtype).to(dy.dtype).mT, x.dtype)
         if ctx.needs_input_grad[1]:
-            x2, dy2 = x, dy
-            if w.dim() == 2:
-                x2 = x.reshape(-1, x.shape[-1])
-                dy2 = dy.reshape(-1, dy.shape[-1])
-            dw = _mm(x2.to(dy.dtype).mT, dy2, x.dtype).to(w.dtype)
+            dw = _dw(x, dy, w)
         return dx, dw, None
+
+
+class _ColumnDense(torch.autograd.Function):
+    """Column-parallel dense layers that share their input x, whole on
+    every model rank: y_i = x @ w_i.astype(x.dtype) on the rank's columns
+    of each w_i, as ``_PlainDense``. The backward sums the f32 products
+    dy_i @ w_iᵀ, all-reduces that f32 partial over the model ranks and
+    rounds it once to x's dtype (GSPMD's dot(preferred=f32) → all-reduce
+    → convert); each w_i's gradient is its own block's."""
+
+    @staticmethod
+    def forward(ctx, x, group, out_dtype, *ws):
+        ctx.save_for_backward(x, *ws)
+        ctx.group = group
+        return tuple(_mm_rows(x, w.to(x.dtype), out_dtype) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, *ws = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            for dy, w in zip(dys, ws):
+                part = _mm_rows(dy, w.to(x.dtype).to(dy.dtype).mT,
+                                torch.float32)
+                dx = part if dx is None else dx.add_(part)
+            dx = ctx.group.sum(dx).to(x.dtype)
+        dws = [_dw(x, dy, w) if ctx.needs_input_grad[3 + i] else None
+               for i, (dy, w) in enumerate(zip(dys, ws))]
+        return (dx, None, None, *dws)
+
+
+class _RowDense(torch.autograd.Function):
+    """A row-parallel dense layer: x holds the rank's columns of the
+    input and w the matching rows; the partial product (f32, or bf16 under
+    ``train.tp_reduce_dtype=bfloat16``) is summed over the model ranks in
+    that dtype and only then rounded to x's dtype, GSPMD's order for the
+    reference's ``jnp.dot(..., preferred_element_type)`` →
+    ``astype``. The backward is the rank's own: dx = dy @ wᵀ, dw = xᵀ dy."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, reduce_dtype):
+        ctx.save_for_backward(x, w)
+        part = _mm_rows(x, w.to(x.dtype), reduce_dtype)
+        return group.sum(part).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_rows(dy, w.to(x.dtype).to(dy.dtype).mT, x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _dw(x, dy, w)
+        return dx, dw, None, None
+
+
+def column_dense(x: torch.Tensor, ws, group, out_dtype=None) -> tuple:
+    """(x @ w for w in ws) on the rank's column blocks of each weight (2-D,
+    or two 3-D expert stacks), x whole on every model rank: one all-reduce
+    of x's f32 gradient for all of them (``_ColumnDense``). The weights are
+    plain tensors: packed words under ``quant.use_pallas`` on a split leaf
+    are refused (``controller._refuse_sharded_dense_kernels``) and a split
+    leaf never takes the quantize prologue."""
+    return _ColumnDense.apply(x, group, out_dtype, *ws)
+
+
+def row_dense(x: torch.Tensor, w, group, reduce_dtype=torch.float32
+              ) -> torch.Tensor:
+    """x @ w summed over the model ranks, x the rank's input columns and w
+    its rows, rounded to x's dtype after the sum (``_RowDense``)."""
+    return _RowDense.apply(x, w, group, reduce_dtype)
+
+
+def tp_reduce_dtype(x: torch.Tensor, group) -> torch.dtype:
+    """The dtype a row-parallel dense layer's partial crosses the ranks in:
+    bf16 under ``#tp_reduce_bf16`` for a bf16 input (``common.py:64-67``
+    of the reference), else f32."""
+    return (torch.bfloat16 if group.reduce_bf16 and x.dtype == torch.bfloat16
+            else torch.float32)
 
 
 def dense(x: torch.Tensor, w, *, use_pallas: bool = False) -> torch.Tensor:
@@ -170,12 +267,23 @@ def quantize_act(x: torch.Tensor, wl, enabled: bool) -> torch.Tensor:
     return fxp.quantize_activation(x, wl)
 
 
-def embed_lookup(table, ids: torch.Tensor, scale_by_dim: bool = False
-                 ) -> torch.Tensor:
+def embed_lookup(table, ids: torch.Tensor, scale_by_dim: bool = False, *,
+                 group=None) -> torch.Tensor:
     """Rows of ``table`` at ``ids``. ``table`` may be a packed dict: its rows
     are gathered before they are dequantized, which gives the bf16 values
-    of dequantizing the whole table first without writing that table."""
+    of dequantizing the whole table first without writing that table.
+
+    With a model ``group`` the table is the rank's block of vocabulary rows
+    (vocab-parallel): an id outside them reads row 0 and is zeroed, and the
+    rows are summed over the model ranks (one rank holds each id's, so the
+    sum is exact); the backward is each rank's own rows."""
     idx = ids.to(torch.long)
+    inside = None
+    if group is not None:
+        rows = (table["q8"] if fxp.is_packed(table) else table).shape[0]
+        idx = idx - group.index * rows
+        inside = (idx >= 0) & (idx < rows)
+        idx = torch.where(inside, idx, 0)
     if fxp.is_packed(table):
         # the index's backward scatter-adds the rows' bf16 gradients into a
         # dense (V, D) gradient of "wref", as the reference's take →
@@ -186,6 +294,10 @@ def embed_lookup(table, ids: torch.Tensor, scale_by_dim: bool = False
     else:
         out = table[idx]
         d = table.shape[-1]
+    if inside is not None:
+        out = group.reduce(torch.where(inside[..., None], out,
+                                       torch.zeros((), dtype=out.dtype,
+                                                   device=out.device)))
     if scale_by_dim:
         # sqrt(d) rounded to out's dtype, filled on the device (a copy from
         # the host would stop the batcher's CUDA graph capture)

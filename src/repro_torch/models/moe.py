@@ -19,6 +19,15 @@ their bf16 values before the layer uses them; the dense residual's
 Nothing in ``apply`` reads back to the host (no ``.item()``, no boolean
 indexing, no ``nonzero``), so the decode step that calls it can be
 captured in a CUDA graph.
+
+On a model axis of more than one rank (``sharding.model_group``) the
+router is whole on every rank and every rank routes every token. When the
+experts divide the axis they are expert-parallel: a rank holds E/size of
+each stack and computes its experts' outputs for their slots of the
+dispatch buffer; when they do not, each expert is tensor-parallel (the
+rank's columns of ``we_gate``/``we_up`` and rows of ``we_down``). Data
+parallelism over more than one rank is not ported for this family
+(``launch/mesh.check_ported``): there is one dispatch group.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.config import ModelConfig
 from repro_torch.models import common, mlp
 
@@ -125,6 +135,36 @@ def route(h: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     return weights, chosen, dest, cap
 
 
+def _expert_ffn(p: Dict[str, torch.Tensor], xin: torch.Tensor,
+                cfg: ModelConfig, group, ep: bool) -> torch.Tensor:
+    """The experts' gated FFN on the dispatch buffer ``xin`` (E, cap, D),
+    in xin's dtype. Under expert parallelism (``ep``) the rank computes
+    its own experts' slots and leaves zeros at the others'; with TP inside
+    each expert (a model ``group`` that does not split the experts)
+    ``we_gate``/``we_up`` are column-parallel and ``we_down`` row-parallel,
+    its f32 partials summed over the ranks."""
+    E, cap, D = xin.shape
+    if group is not None and not ep:
+        gate, up = common.column_dense(xin, [p["we_gate"], p["we_up"]], group,
+                                       torch.float32)
+        act = (common.act_fn(gate, cfg.act_fn) * up).to(xin.dtype)
+        return common.row_dense(act, p["we_down"], group)
+    own = xin
+    if ep:
+        el = E // group.size
+        lo = group.index * el
+        own = xin[lo:lo + el]
+    gate = expert_product(own, p["we_gate"])
+    up = expert_product(own, p["we_up"])
+    act = (common.act_fn(gate, cfg.act_fn) * up).to(xin.dtype)
+    eout = expert_product(act, p["we_down"]).to(xin.dtype)
+    if not ep:
+        return eout
+    zeros = torch.zeros((), dtype=xin.dtype, device=xin.device)
+    return torch.cat([zeros.expand(lo, cap, D), eout,
+                      zeros.expand(E - lo - el, cap, D)])
+
+
 def apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
           dropless: bool = False, use_pallas: bool = False) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D) with the residual. Pairs past an expert's
@@ -138,20 +178,26 @@ def apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     h = common.rms_norm(x, p["pre_norm"], cfg.norm_eps)
     T = B * S
     weights, _, dest, cap = route(h, p["router"], cfg, dropless)
+    group = shd.model_group()
+    ep = group is not None and p["we_gate"].shape[-3] * group.size == E
     tokens = h.reshape(T, D)
+    if ep:
+        # a rank's part of the weights' and the tokens' gradients comes
+        # from its own experts' slots: summed over the ranks
+        weights, tokens = group.copy(weights), group.copy(tokens)
     tok_rep = tokens[:, None].expand(T, k, D).reshape(T * k, D)
     xin = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
     xin = xin.index_add(0, dest, tok_rep)[:E * cap].reshape(E, cap, D)
-
-    gate = expert_product(xin, p["we_gate"])
-    up = expert_product(xin, p["we_up"])
-    act = (common.act_fn(gate, cfg.act_fn) * up).to(x.dtype)
-    eout = expert_product(act, p["we_down"]).to(x.dtype)
-
-    eflat = torch.cat([eout.reshape(E * cap, D),
-                       torch.zeros((1, D), dtype=x.dtype, device=x.device)])
+    eout = _expert_ffn(p, xin, cfg, group, ep)
+    zero_row = torch.zeros((1, D), dtype=x.dtype, device=x.device)
+    eflat = torch.cat([eout.reshape(E * cap, D), zero_row])
     gathered = eflat[dest].reshape(T, k, D).to(torch.float32)
     out = torch.sum(gathered * weights[..., None], dim=1)
+    if ep:
+        # each rank's weighted sum of its own pairs (zeros for the others),
+        # then the sum over the ranks in f32: for k = 2 the reference's
+        # bits, (a + 0) + (0 + b) = a + b
+        out = group.reduce(out)
     out = out.reshape(B, S, D).to(x.dtype)
     if "dense" in p:  # arctic: the parallel dense residual FFN on the normed h
         out = out + mlp.apply(p["dense"], h, cfg, residual=False,

@@ -23,7 +23,14 @@ Params layout (stacked leaves carry the leading num_periods dim):
 
 The controller sees "blocks/..." paths as stacked (per-layer precision)
 and "shared/..." as per-tensor, so a shared leaf's gradient is the sum of
-its uses. A cross slot projects the encoder memory (image-patch
+its uses.
+
+On a model axis of more than one rank (``sharding.model_group``, the
+training forward of the dense and MoE families) the embedding and the head
+are vocab-parallel: the lookup reads the rank's rows and sums over the
+ranks, the logits are the rank's vocabulary columns, and ``lm_loss``
+reduces over the ranks in f32. The residual stream is whole on every
+model rank. A cross slot projects the encoder memory (image-patch
 embeddings) inside the layer body, so remat recomputes it; prefill caches
 the projected k/v, which decode reads and never writes.
 """
@@ -35,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.config import ModelConfig
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core.controller import unbind_layers
@@ -169,10 +177,16 @@ def _top(params, use_pallas: bool):
 
 
 def _head_logits(top, x, cfg: ModelConfig, use_pallas: bool) -> torch.Tensor:
+    """The logits (f32, after the final softcap): on a model axis of more
+    than one rank the rank's vocabulary columns, a column-parallel product
+    with the rank's columns of ``head`` or rows of the tied ``embed``."""
     head = top.get("head")
     if head is None:
-        embed = fxp.unpack_tree({"embed": top["embed"]})["embed"]
-        logits = common.dense(x, embed.T)
+        head = fxp.unpack_tree({"embed": top["embed"]})["embed"].T
+        use_pallas = False
+    group = shd.model_group()
+    if group is not None:
+        (logits,) = common.column_dense(x, [head], group)
     else:
         logits = common.dense(x, head, use_pallas=use_pallas)
     return common.softcap(logits.to(torch.float32), cfg.final_logit_softcap)
@@ -180,7 +194,8 @@ def _head_logits(top, x, cfg: ModelConfig, use_pallas: bool) -> torch.Tensor:
 
 def _embed(top, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return common.embed_lookup(top["embed"], tokens,
-                               scale_by_dim=cfg.scale_embed).to(torch.bfloat16)
+                               scale_by_dim=cfg.scale_embed,
+                               group=shd.model_group()).to(torch.bfloat16)
 
 
 def _inputs(top, cfg: ModelConfig, tokens, embeds, use_pallas: bool
@@ -344,15 +359,43 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, *,
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, *, shift: bool = True
             ) -> torch.Tensor:
     """Causal LM loss (shifted) or framewise CE (``shift=False``): the mean
-    negative log-likelihood in f32."""
+    negative log-likelihood in f32. On a model axis of more than one rank
+    the logits are the rank's vocabulary columns (``vocab_parallel_nll``)."""
     if shift:
         logits = logits[:, :-1]
         targets = tokens[:, 1:]
     else:
         targets = tokens
+    group = shd.model_group()
+    if group is not None:
+        return torch.mean(vocab_parallel_nll(logits, targets, group))
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].to(torch.long))[..., 0]
     return torch.mean(nll)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, group
+                       ) -> torch.Tensor:
+    """Per-token −log softmax(logits)[target] from the rank's vocabulary
+    columns, in f32, log_softmax's own terms: the maximum over the ranks
+    (a constant of the gradient), the sum of exp(x − max) over the ranks,
+    and the target's shifted logit x_t − max from the rank that holds it
+    (an id outside the rank's columns reads column 0 and is zeroed, so no
+    index leaves the block). nll = log Σ − (x_t − max), the same on every
+    rank; the backward is each rank's own columns' softmax − onehot."""
+    lf = logits.to(torch.float32)
+    vl = lf.shape[-1]
+    mx = group.max(lf.detach().amax(-1, keepdim=True))
+    shifted = lf - mx
+    total = group.reduce(torch.sum(torch.exp(shifted), dim=-1))
+    idx = targets.to(torch.long) - group.index * vl
+    inside = (idx >= 0) & (idx < vl)
+    idx = torch.where(inside, idx, 0)
+    picked = torch.gather(shifted, -1, idx[..., None])[..., 0]
+    picked = group.reduce(torch.where(inside, picked,
+                                      torch.zeros((), dtype=picked.dtype,
+                                                  device=picked.device)))
+    return torch.log(total) - picked
 
 
 # ---------------------------------------------------------------------------

@@ -125,11 +125,11 @@ def spec(*logical_axes: Optional[str]) -> Optional[P]:
 
 def shard(x, *logical_axes: Optional[str]):
     """The identity. In the reference this pins ``x``'s layout for GSPMD
-    (``with_sharding_constraint``); in the port every rank runs the whole
-    model on its own rows with the gathered weights, so a tensor inside the
-    model is always the rank's own, whole, and there is nothing to pin. The
-    one reduction over the batch inside the model, the activation
-    quantize's maximum, goes through ``batch_max``."""
+    (``with_sharding_constraint``); in the port a rank runs the model on its
+    own rows, and the collectives that GSPMD would insert are placed by the
+    model code itself: over the batch, the activation quantize's maximum
+    (``batch_max``); over the model axis, the Megatron pairs of
+    ``distributed`` that the layers call through ``model_group``."""
     return x
 
 
@@ -160,6 +160,32 @@ def batch_max(t):
     over a tensor sharded along the batch is (GSPMD adds the all-reduce);
     the identity outside a data-parallel step."""
     return t if _BATCH_MAX is None else _BATCH_MAX(t)
+
+
+# The rank's group along the model axis (``distributed.ModelGroup``): set by
+# the step around its forward and backward (``model_group_of``), read by the
+# model code's tensor- and expert-parallel layers. None outside such a step,
+# or on a model axis of one rank. A setting of the process, as
+# ``batch_max_over``'s, for the same reason: autograd's threads and a
+# checkpointed layer's recompute read it.
+_MODEL_GROUP = None
+
+
+@contextlib.contextmanager
+def model_group_of(group):
+    """Within the block ``model_group()`` is ``group``."""
+    global _MODEL_GROUP
+    prev, _MODEL_GROUP = _MODEL_GROUP, group
+    try:
+        yield
+    finally:
+        _MODEL_GROUP = prev
+
+
+def model_group():
+    """The rank's model group inside a step on a model axis of more than
+    one rank, else None."""
+    return _MODEL_GROUP
 
 
 def named_sharding(*logical_axes: Optional[str]) -> Optional[NamedSharding]:

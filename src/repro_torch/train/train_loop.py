@@ -54,18 +54,24 @@ through the EDF-ladder kernel under ``quant.use_pallas``, then PushUp and
 the adaptation of strategy, lookback and resolution) moves each tensor
 whose window is full to its new ⟨WL,FL⟩ (never with ``quant.mode=off``).
 
-On a mesh (``mesh=``, a ``distributed.RankMesh`` of (pod, data, model)
-with model = 1) the step is the reference's data-parallel step with what
-GSPMD did made explicit (``make_train_step``): each rank holds its block
-of every leaf its spec shards (``launch/mesh.state_shardings``: the ZeRO
-fold of the master, the optimizer state and "grad_sum" over data), gathers
-the quantized copy, runs the whole model on its rows of the batch, and
-sums the gradients into its blocks; with ``train.qsgd_pod_compression``
-the sum across pods carries int8 words (``quant/qsgd.py``).
+On a mesh (``mesh=``, a ``distributed.RankMesh`` of (pod, data, model))
+the step is the reference's sharded step with what GSPMD did made
+explicit (``make_train_step``): each rank holds its block of every leaf
+its spec shards (``launch/mesh.state_shardings``: tensor and expert
+parallelism over ``model``, the ZeRO fold of the master, the optimizer
+state and "grad_sum" over data), gathers the quantized copy along the data
+axes and keeps its ``model`` blocks, runs the model on its rows of the
+batch (on a model axis of more than one rank the layers are
+tensor-parallel and meet through ``distributed.ModelGroup``), and sums the
+gradients into its blocks along the data axes; with
+``train.qsgd_pod_compression`` the sum across pods carries int8 words
+(``quant/qsgd.py``).
 
-What is not ported raises, by name (``launch/mesh.check_ported``): a
-model axis over one rank, serving on a mesh, the MoE and CNN families over
-more than one data rank, and checkpoints of a state held in blocks.
+What is not ported raises, by name (``launch/mesh.check_ported``):
+serving on a mesh, the MoE and CNN families over more than one data rank,
+checkpoints of a state held in blocks, and, on a model axis of more than
+one rank, the SSM, hybrid, encoder, cross-attention and CNN models and
+``mesh.seq_shard_attn``.
 """
 from __future__ import annotations
 
@@ -170,13 +176,13 @@ def gather_state(state: Dict[str, Any], mesh) -> Dict[str, Any]:
     def whole(tree):
         out: Dict[str, Any] = {}
         for p, t in controller.flatten_with_path(tree):
-            _set_path(out, p, layout.gather(p, t))
+            _set_path(out, p, layout.whole(p, t))
         return out
 
     opt = {k: (whole(v) if isinstance(v, dict) else v)
            for k, v in state["opt"].items()}
     adapt = dict(state["adapt"])
-    adapt["tensors"] = {p: {**ts, "grad_sum": layout.gather(p, ts["grad_sum"])}
+    adapt["tensors"] = {p: {**ts, "grad_sum": layout.whole(p, ts["grad_sum"])}
                         for p, ts in state["adapt"]["tensors"].items()}
     out = {**state, "params": whole(state["params"]), "opt": opt,
            "adapt": adapt}
@@ -240,8 +246,10 @@ def _quantized_copy(cfg: Config, params, adapt, seeds, key, layout=None):
     ``quant.mode=off``; for the CNN family ``int8_packed`` is the float32
     container, as in the reference (``train_loop.py:135-149``). Under a
     ``layout`` each rank quantizes its blocks (the fused kernels with
-    per-shard seeds) and the copy is gathered whole: the int8 words of the
-    int8 and packed containers, the grid values of the float ones."""
+    per-shard seeds) and the copy is gathered along the data axes into the
+    rank's compute blocks (``model`` blocks stay the rank's): the int8
+    words of the int8 and packed containers, the grid values of the float
+    ones."""
     qcfg = cfg.quant
     if qcfg.mode == "off":
         if layout is None:
@@ -341,6 +349,16 @@ def loss_and_grads(cfg: Config, qparams, state: Dict[str, Any],
               and cfg.model.family != "cnn" else None)
     aux: Dict[str, Any] = {}
 
+    # the layers' tensor and expert parallelism on a model axis of more
+    # than one rank; None otherwise
+    group = dst.model_group(mesh, cfg.train.tp_reduce_dtype == "bfloat16")
+    tp_loss = {}
+    if group is not None and adaptive:
+        layout = _layout_of(state, mesh)
+        tp_loss = {"model_blocks": {p for p in adapt["tensors"]
+                                    if "model" in layout.axes(p)},
+                   "model_sum": group.reduce}
+
     def loss_fn(mb):
         """(full loss, task loss) of the quantized copy on ``mb``; a
         CNN's new stats and accuracy go to ``aux``, so that after the
@@ -357,11 +375,12 @@ def loss_and_grads(cfg: Config, qparams, state: Dict[str, Any],
         # their value views; its gradients add onto the same receivers
         return sparsity.adapt_loss(
             task, qparams, adapt, alpha=ocfg.l1, beta=ocfg.l2,
-            penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl), task
+            penalty_coef=ocfg.penalty_coef, max_wl=qcfg.max_wl,
+            **tp_loss), task
 
     receivers = controller.grad_receivers(qparams)
     try:
-        with _global_batch(cfg, mesh):
+        with _global_batch(cfg, mesh), shd.model_group_of(group):
             if cfg.train.accum_steps > 1:
                 flat, full, task = _accumulate(cfg, loss_fn, receivers,
                                                batch, mesh)
@@ -444,10 +463,13 @@ def _layout_of(state: Dict[str, Any], mesh) -> dst.Layout:
 
 def _reduce_grads(cfg: Config, grads: Dict[str, torch.Tensor],
                   layout: dst.Layout, mesh, key) -> Dict[str, torch.Tensor]:
-    """Each rank's whole gradients (the mean over its rows) → the rank's
-    blocks of the mean over the data-parallel ranks: summed into the block
-    along the leaf's axes (``reduce_scatter``), all-reduced along the other
-    (pod, data) axes, divided by their count. Under
+    """Each rank's gradients of its compute blocks (the mean over its rows)
+    → the rank's blocks of the mean over the data-parallel ranks: summed
+    into the block along the leaf's data axes (``reduce_scatter``),
+    all-reduced along the other (pod, data) axes, divided by their count.
+    Along ``model`` nothing is summed: a ``model`` block's gradient is that
+    block's, and a leaf whole on every model rank has the same gradient
+    on each of them (the layers' collectives make it so). Under
     ``train.qsgd_pod_compression`` the mean is first taken within the pod,
     then summed across pods with int8 words (``qsgd.psum_compressed``,
     with the step key the reference's ``step_key``) and divided by the pod
@@ -457,7 +479,7 @@ def _reduce_grads(cfg: Config, grads: Dict[str, torch.Tensor],
     out = {}
     for p in list(grads):
         g = grads.pop(p)
-        axes = layout.axes(p)
+        axes = layout.data_axes(p)
         blk = layout.scatter_sum(p, g)
         del g
         rest = [a for a in _batch_axes(cfg, mesh) if a not in axes]
